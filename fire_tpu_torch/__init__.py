@@ -1,0 +1,17 @@
+"""FIRE on PyTorch/CUDA: the batched video path of :mod:`fire_tpu`, ported.
+
+The package mirrors ``fire_tpu``'s module names so each counterpart is
+easy to find.  It imports ``torch`` and never JAX, Flax or anything of
+``fire_tpu``; weights load from the same Flax msgpack files through its
+own decoder (:mod:`fire_tpu_torch.weights`).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a CUDA device they raise instead of falling back.
+
+The one hand-written kernel, K1 (fused cosine top-1 over the gallery),
+is CUDA C++ under ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first
+use into ``_build/`` and bound with ``ctypes``
+(:mod:`fire_tpu_torch.ops.cosine_top1`).
+"""
+
+__version__ = "0.1.0"
