@@ -15,7 +15,9 @@ Phases, each printing one JSON line:
 4. ``main_path``: ``FaceRecognition.process_frames(batch_size=64)`` at full
    width (YuNet-64 at 640², FaceNet-512, 99,900-row gallery, committed
    trained weights) over rendered 1-face 1080p scenes; K1's launch count
-   is set to 0 just before and read just after.
+   is set to 0 just before and read just after.  One more batch then runs
+   under ``torch.profiler`` for the device's busy time and idle share
+   (a ``trace`` line).
 5. ``cross_device``: one 8-frame batched step on the card and on the CPU
    in float32, compared.
 
@@ -258,10 +260,53 @@ def phase_main_path(ctx) -> None:
            "tracked_fraction": tracked, "sqlite_rows_added": sql_after - sql_before,
            "gallery_count": fr.gallery.count, "stage_ms_per_batch": stages,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    fr.close()
     ctx["main_path"] = rec
     ctx["k1_launches"] = launches
     emit(rec)
+    try:
+        trace = trace_one_batch(fr, _frames(seed=3, n_scenes=2, per_scene=BATCH // 2))
+    finally:
+        fr.close()
+    trace["idle_share_vs_untraced_wall"] = (
+        None if trace["device_busy_ms"] is None
+        else 1.0 - trace["device_busy_ms"] / (wall / n_batches * 1e3))
+    ctx["trace"] = trace
+    emit(trace)
+
+
+def trace_one_batch(fr, frames) -> dict:
+    """One more batch of the main path under ``torch.profiler``: the
+    device's busy time (the union of its kernel and copy intervals), its
+    idle share of the traced wall time, and the kernels that take the
+    most device time.  A trace that holds no device activity is reported
+    as not measured."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fr.process_frames(frames, annotate=False, batch_size=BATCH)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in dev:
+        name = e.name[:80]
+        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    busy_ms = busy_us / 1e3 if dev else None
+    return {"phase": "trace", "frames": len(frames), "traced_wall_ms": wall_ms,
+            "device_events": len(dev), "device_busy_ms": busy_ms,
+            "idle_share_traced": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+            "top_device_ms": {k: v / 1e3 for k, v in top}}
 
 
 def phase_cross_device(ctx) -> None:

@@ -26,7 +26,6 @@ def bgr_to_rgb(x: torch.Tensor) -> torch.Tensor:
     return x.flip(-1)
 
 
-
 def resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Half-pixel-centre bilinear resize of (..., H, W, C), no antialias."""
     *lead, h, w, c = image.shape

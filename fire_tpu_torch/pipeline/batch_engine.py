@@ -341,7 +341,8 @@ class BatchStreamEngine:
         b = frames.shape[0]
         if isinstance(frames, np.ndarray):
             frames = torch.from_numpy(frames)
-        frames = frames.to(self.device)
+        with self._stage("H2D"):
+            frames = frames.to(self.device)
         with torch.inference_mode():
             packed = self._step(frames)
         if self.device.type != "cuda":

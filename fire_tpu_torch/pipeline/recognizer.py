@@ -260,8 +260,11 @@ class FaceRecognition:
                 batch.append(frame)
                 if len(batch) == batch_size:
                     t0 = time.perf_counter()
-                    token = bse.submit(np.stack(batch))
-                    self.timer.add("submit (stack+H2D+step enqueue)", time.perf_counter() - t0)
+                    stacked = np.stack(batch)
+                    t1 = time.perf_counter()
+                    token = bse.submit(stacked)
+                    self.timer.add("stack (host)", t1 - t0)
+                    self.timer.add("submit (H2D + step)", time.perf_counter() - t1)
                     prev, inflight = inflight, (token, batch)
                     batch = []
                     if prev is not None and not emit(*prev):

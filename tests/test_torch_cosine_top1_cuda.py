@@ -4,7 +4,7 @@ Needs an NVIDIA card and nvcc, and skips without them.  This file
 imports no JAX, so it runs on the machine with the card, where
 tests/conftest.py (which imports JAX) must be left out:
 
-    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cosine_top1_cuda.py -q
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cosine_top1_cuda.py -q
 
 Sims agree to 1e-3; the index is equal wherever the best row wins by
 more than 1e-3."""
@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from fire_tpu_torch.ops import cosine_top1 as k1
+
+pytestmark = pytest.mark.cuda
 
 
 def _unit(rng, n, d):
