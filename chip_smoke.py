@@ -2,9 +2,8 @@
 """Run the PyTorch/CUDA port (``fire_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                 # every phase, one card
-    python3 chip_smoke.py --phases env,build,kernels
 
-Phases, each printing one JSON line:
+It takes no arguments.  Phases, in order, each printing one JSON line:
 
 1. ``env``: torch / CUDA versions, the card's name and power limit.
 2. ``build``: compiles kernel K1 (``fire_tpu_torch/csrc/cosine_top1.cu``)
@@ -16,8 +15,8 @@ Phases, each printing one JSON line:
    width (YuNet-64 at 640², FaceNet-512, 99,900-row gallery, committed
    trained weights) over rendered 1-face 1080p scenes; K1's launch count
    is set to 0 just before and read just after.  One more batch then runs
-   under ``torch.profiler`` for the device's busy time and idle share
-   (a ``trace`` line).
+   under ``torch.profiler`` for the device's busy time and its idle share
+   of that batch's wall time (a ``trace`` line).
 5. ``cross_device``: one 8-frame batched step on the card and on the CPU
    in float32, compared.
 
@@ -28,7 +27,6 @@ imported.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import shutil
@@ -260,17 +258,12 @@ def phase_main_path(ctx) -> None:
            "tracked_fraction": tracked, "sqlite_rows_added": sql_after - sql_before,
            "gallery_count": fr.gallery.count, "stage_ms_per_batch": stages,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    ctx["main_path"] = rec
     ctx["k1_launches"] = launches
     emit(rec)
     try:
         trace = trace_one_batch(fr, _frames(seed=3, n_scenes=2, per_scene=BATCH // 2))
     finally:
         fr.close()
-    trace["idle_share_vs_untraced_wall"] = (
-        None if trace["device_busy_ms"] is None
-        else 1.0 - trace["device_busy_ms"] / (wall / n_batches * 1e3))
-    ctx["trace"] = trace
     emit(trace)
 
 
@@ -374,22 +367,16 @@ def kernel_summary(ctx) -> dict:
     worst = max(r["max_abs_err"] for r in ctx["k1"] if "max_abs_err" in r)
     return {"kernels": [{
         "name": k1.NAME, "route": "cuda", "source": "fire_tpu_torch/csrc/cosine_top1.cu",
-        "replaces": "fire_tpu/ops/pallas_topk.py:61", "launches": ctx.get("k1_launches", 0),
+        "replaces": "fire_tpu/ops/pallas_topk.py:61", "launches": ctx["k1_launches"],
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"]}]}
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES))
-    ap.add_argument("--json-out", default=None, help="also write every record here")
-    args = ap.parse_args()
-    phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
-    if unknown:
-        ap.error(f"unknown phases {sorted(unknown)}")
-
+    if len(sys.argv) > 1:
+        print(f"chip_smoke.py takes no arguments: {sys.argv[1:]}", file=sys.stderr)
+        return 2
     if not os.path.isdir(os.path.join(REPO, "fire_tpu_torch")):
         print("chip_smoke.py: fire_tpu_torch/ not found beside this script", file=sys.stderr)
         return 2
@@ -403,17 +390,11 @@ def main() -> int:
     ctx = {"tmp": tempfile.mkdtemp(prefix="fire_chip_smoke_")}
     try:
         for name in PHASES:
-            if name in phases:
-                globals()[f"phase_{name}"](ctx)
+            globals()[f"phase_{name}"](ctx)
     finally:
         shutil.rmtree(ctx["tmp"], ignore_errors=True)
-    if args.json_out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
-        with open(args.json_out, "w") as f:
-            json.dump({k: v for k, v in ctx.items() if k != "tmp"}, f, indent=1)
-    if "k1" in ctx:
-        print(json.dumps(kernel_summary(ctx)))
-    print(ctx.get("smi") or nvidia_smi_line())
+    print(json.dumps(kernel_summary(ctx)))
+    print(ctx["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

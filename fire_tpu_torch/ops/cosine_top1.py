@@ -140,9 +140,10 @@ def cosine_top1(queries: torch.Tensor, gallery: torch.Tensor,
     part_v = torch.empty((s, m), dtype=torch.float32, device=dev)
     part_i = torch.empty((s, m), dtype=torch.int32, device=dev)
     fn = _kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(q.data_ptr(), g.data_ptr(), m, n, d, count, chunk, part_v.data_ptr(),
-             part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
+    with torch.cuda.device(dev):  # the launch goes to the current device's context
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), g.data_ptr(), m, n, d, count, chunk, part_v.data_ptr(),
+                 part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"cosine_top1 kernel launch failed: cudaError_t {err}")
     launches += 1
