@@ -7,10 +7,13 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
 
 1. ``env``: torch / CUDA versions, the card's name and power limit.
 2. ``build``: compiles kernel K1 (``fire_tpu_torch/csrc/cosine_top1.cu``)
-   with nvcc for sm_90a.
+   with nvcc for sm_90a; fails if ptxas reports a spill.
 3. ``kernels``: K1 against its plain PyTorch version on the card at the
-   batched path's shapes (M queries × the 100,352-row padded gallery ×
-   512), with kernel, plain, library and bound times.
+   host query path's and the batched path's shapes (M = 1…2048 queries ×
+   the 100,352-row padded gallery × 512), with its launch plan and its
+   kernel (called one by one, and replayed from a CUDA graph), plain,
+   library and bound times; then small and ragged counts,
+   a gallery that ends inside a tile, an empty gallery and duplicated rows.
 4. ``main_path``: ``FaceRecognition.process_frames(batch_size=64)`` at full
    width (YuNet-64 at 640², FaceNet-512, 99,900-row gallery, committed
    trained weights) over rendered 1-face 1080p scenes; K1's launch count
@@ -64,19 +67,58 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def event_ms(enqueue, calls: int) -> float:
+    """CUDA events around ``enqueue()``, which launches ``calls`` calls:
+    the time of one, in ms."""
     import torch
 
-    for _ in range(warmup):
-        fn()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
-    for _ in range(reps):
-        fn()
+    enqueue()
     e1.record()
     e1.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return e0.elapsed_time(e1) / calls
+
+
+def median(values) -> float:
+    return sorted(values)[len(values) // 2]
+
+
+def cuda_ms_each(fns: dict, reps: int, warmup: int = 2, rounds: int = 5) -> dict:
+    """Time of one call of each function, ``reps`` calls made back to
+    back: the functions take turns for ``rounds`` rounds, and each gets
+    its median round.  The host that makes the calls shares its cores,
+    so a single run of a 40 µs call can catch a slow moment; the turns
+    spread each function's rounds out."""
+    def run(fn):
+        for _ in range(reps):
+            fn()
+
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(event_ms(lambda: run(fn), reps))
+    return {name: median(ts) for name, ts in times.items()}
+
+
+def graph_ms(fn, reps: int, rounds: int = 5) -> float:
+    """Time of one call with the host taken out: ``reps`` calls are
+    captured once into a CUDA graph, and the graph is replayed.  The
+    median of ``rounds`` replays."""
+    import torch
+
+    fn()  # first-use work (the build, the shared-memory attribute) stays out of the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return median([event_ms(graph.replay, reps) for _ in range(rounds)])
 
 
 def k1_bound_ms(m: int, count: int) -> tuple:
@@ -119,8 +161,14 @@ def phase_build(ctx) -> None:
     k1.build()
     secs = time.time() - t0
     ptxas = [ln.strip() for ln in k1.build_log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "kernel": k1.NAME, "arch": "sm_90a", "seconds": round(secs, 3),
-          "ptxas": ptxas})
+    clean = "0 bytes spill stores, 0 bytes spill loads"
+    spills = [ln for ln in ptxas if "spill" in ln and clean not in ln]
+    ctx["k1_build"] = {"seconds": round(secs, 3),
+                       "registers": [int(ln.split("Used ")[1].split()[0]) for ln in ptxas
+                                     if "Used " in ln]}
+    emit({"phase": "build", "kernel": k1.NAME, "arch": "sm_90a", "nvcc_flags": list(k1.NVCC_FLAGS),
+          "ptxas": ptxas, **ctx["k1_build"]})
+    check(bool(ptxas) and not spills, f"K1 build: ptxas reports spills: {spills}")
 
 
 def phase_kernels(ctx) -> None:
@@ -136,10 +184,12 @@ def phase_kernels(ctx) -> None:
     g16 = gal.to(torch.bfloat16)
     results = []
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     def one(name, q, g, count, time_it):
         launches0 = k1.launches
         sims, idx = k1.cosine_top1(q, g, count)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # a fault of this case shows here, not later
         ps, pi = k1.plain_cosine_top1(q, g, count)
         # top-2 gap of the plain product: the index must agree wherever
         # the best row wins by more than the sims' tolerance
@@ -152,38 +202,59 @@ def phase_kernels(ctx) -> None:
         idx_ok = bool((idx[decisive] == pi[decisive]).all())
         check(err <= 1e-3, f"K1 {name}: sims differ from the plain version by {err}")
         check(idx_ok, f"K1 {name}: index differs from the plain version")
+        plan = k1.launch_plan(int(q.shape[0]), count, DIM, sms)
         rec = {"case": name, "M": int(q.shape[0]), "N": int(g.shape[0]), "D": DIM,
-               "count": count, "max_abs_err": err, "index_equal_where_decisive": idx_ok}
+               "count": count, "max_abs_err": err, "index_equal_where_decisive": idx_ok,
+               "plan": {**plan._asdict(), "blocks": plan.blocks}}
         if time_it:
-            reps = 20 if q.shape[0] <= 256 else 5
+            reps = 20 if q.shape[0] <= 512 else 5
             qb, gb = q.to(torch.bfloat16), g
-            rec["kernel_ms"] = cuda_ms(lambda: k1.cosine_top1(q, g, count), reps)
-            rec["plain_ms"] = cuda_ms(lambda: k1.plain_cosine_top1(q, g, count), reps)
-            rec["library_ms"] = cuda_ms(
-                lambda: torch.max(torch.matmul(qb, gb[:count].T), dim=1), reps)
+            rec.update(cuda_ms_each({
+                "kernel_ms": lambda: k1.cosine_top1(q, g, count),
+                "plain_ms": lambda: k1.plain_cosine_top1(q, g, count),
+                "library_ms": lambda: torch.max(torch.matmul(qb, gb[:count].T), dim=1)}, reps))
+            # the same launches replayed from a CUDA graph: what the card
+            # alone takes, where kernel_ms also holds the host that launches them
+            rec["kernel_device_ms"] = graph_ms(lambda: k1.cosine_top1(q, g, count), reps)
             rec["bound_ms"], rec["bound_by"] = k1_bound_ms(int(q.shape[0]), count)
+            rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
+            rec["kernel_over_library"] = rec["kernel_ms"] / rec["library_ms"]
         rec["launches"] = k1.launches - launches0
         results.append(rec)
         emit({"phase": "kernels", "kernel": k1.NAME, **rec})
 
-    for m in (1, 64, 128, 256, 2048):
+    # M = 1…8: the host k=1 query path; 64: the main path's rung at one face
+    # per frame; 512 = 64 frames × 8 faces, its top rung; 2048: B=256's
+    for m in (1, 8, 64, 128, 256, 512, 2048):
         q = torch.from_numpy(unit_rows(rng, m, DIM)).to(dev)
         one(f"M={m}", q, g16, N_GALLERY, time_it=True)
     q = torch.from_numpy(unit_rows(rng, 128, DIM)).to(dev)
     one("count=0", q, g16, 0, time_it=False)
+    one("count=1", q, g16, 1, time_it=False)  # inside the first chunk's first tile
     one("count=12345", q, g16, 12_345, time_it=False)
+    # a gallery that ends inside a tile: the copy's zero fill past N, at full width
+    ragged = g16[: PADDED_ROWS - 40]
+    one("N=100312", q, ragged, PADDED_ROWS - 40, time_it=False)
+    one("bf16 queries", q.to(torch.bfloat16), g16, N_GALLERY, time_it=False)
     s0, i0 = k1.cosine_top1(q, g16, 0)
     check(bool((s0 == -2.0).all()) and bool((i0 == 0).all()), "K1 count=0: not (-2, 0)")
-    # ties: duplicated rows, in the same and in a far chunk, after the
-    # original; a query equal to the row must get the lowest index
-    dup = gal.clone()
+    # ties: a row duplicated after the original, 8 rows on (the same
+    # thread's second row), in the same tile, 64 and 128 rows on (the other
+    # warpgroup, the next tile) and in a far chunk; a query equal to the
+    # row must get the lowest index
     picks = torch.tensor([5, 50_000, 70_000], device=dev)
-    dup[picks + 17] = dup[picks]
-    dup[picks + 25_000] = dup[picks]
-    sims, idx = k1.cosine_top1(dup[picks], dup.to(torch.bfloat16), N_GALLERY)
-    check(idx.tolist() == picks.tolist(), f"K1 ties: {idx.tolist()} != {picks.tolist()}")
-    results.append({"case": "ties", "idx": idx.tolist()})
-    emit({"phase": "kernels", "kernel": k1.NAME, "case": "ties", "idx": idx.tolist()})
+    ties = {}
+    for offs in ((8,), (17, 25_000), (64,), (128,)):
+        dup = gal.clone()
+        for off in offs:
+            dup[picks + off] = dup[picks]
+        sims, idx = k1.cosine_top1(dup[picks], dup.to(torch.bfloat16), N_GALLERY)
+        torch.cuda.synchronize()
+        check(idx.tolist() == picks.tolist(),
+              f"K1 ties at +{offs}: {idx.tolist()} != {picks.tolist()}")
+        ties["+" + ",+".join(map(str, offs))] = idx.tolist()
+    results.append({"case": "ties", "idx": ties})
+    emit({"phase": "kernels", "kernel": k1.NAME, "case": "ties", "idx": ties})
     ctx["k1"] = results
 
 
@@ -370,7 +441,8 @@ def kernel_summary(ctx) -> dict:
         "replaces": "fire_tpu/ops/pallas_topk.py:61", "launches": ctx["k1_launches"],
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"]}]}
+        "library_ms": main["library_ms"], "device_ms": main["kernel_device_ms"],
+        "plan": main["plan"], **ctx["k1_build"]}]}
 
 
 def main() -> int:

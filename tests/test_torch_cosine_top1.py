@@ -92,6 +92,56 @@ def test_wrapper_rejects_mixed_devices_and_bad_shapes():
     q = torch.zeros(2, 64)
     with pytest.raises(ValueError):
         k1.cosine_top1(q, torch.zeros(128, 64, device="meta"), 10)
+    with pytest.raises(ValueError, match="shapes"):
+        k1.cosine_top1(q, torch.zeros(128, 32), 10)
+    with pytest.raises(ValueError, match="shapes"):
+        k1.cosine_top1(torch.zeros(64), torch.zeros(128, 64), 10)
+
+
+SMS = 132  # an H100's SM count: the plan is a pure function of it
+
+
+@pytest.mark.parametrize("n", [2048, 8192, 100_312, 100_352])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 64, 65, 128, 130, 512, 2048, 2100])
+def test_launch_plan_covers_rows_and_queries_and_fits_the_block(m, n):
+    """The plan the kernel is launched under: whole tiles, rows [0, n)
+    covered once in ascending chunks, an instantiated query width that
+    holds m, shared memory inside a block's limit."""
+    for d in (512, 128, 64):
+        p = k1.launch_plan(m, n, d, SMS)
+        assert p.chunk_rows % k1.ROWS_PER_TILE == 0 and p.chunk_rows > 0
+        assert p.chunk_rows // k1.ROWS_PER_TILE <= k1.MAX_CHUNK_TILES
+        # chunk s is rows [s * chunk_rows, min(n, (s + 1) * chunk_rows)): none empty, none missing
+        assert (p.chunks - 1) * p.chunk_rows < n <= p.chunks * p.chunk_rows
+        assert p.qt in k1.QUERY_TILES
+        assert (p.q_tiles - 1) * p.qt < m <= p.q_tiles * p.qt
+        assert p.qt == min(w for w in k1.QUERY_TILES if w >= min(m, 128))
+        assert k1.MIN_STAGES <= p.stages <= k1.MAX_STAGES
+        assert p.shared_bytes == k1.shared_bytes(p.qt, d, p.stages) <= k1.MAX_SHARED_BYTES
+        assert k1.MAX_SHARED_BYTES == 232_448
+        assert p.blocks == p.q_tiles * p.chunks
+    if n == 100_352:
+        p = k1.launch_plan(m, n, 512, SMS)
+        # the card is filled: 784 tiles do not cut into 132 equal chunks, so
+        # at most one SM stays without a block ...
+        assert p.blocks >= SMS - 1
+        # ... and no SM streams more than a tile, or 5%, above its even share
+        rounds = -(-p.blocks // SMS)
+        tiles = p.chunk_rows // k1.ROWS_PER_TILE
+        even = -(-784 * p.q_tiles // SMS)
+        assert rounds * tiles <= max(even + 1, int(even * 1.05))
+
+
+def test_launch_plan_is_pure_and_scales_down():
+    assert k1.launch_plan(64, 99_900, 512, SMS) == k1.launch_plan(64, 99_900, 512, SMS)
+    one = k1.launch_plan(1, 1, 512, SMS)
+    assert (one.q_tiles, one.chunks, one.chunk_rows) == (1, 1, k1.ROWS_PER_TILE)
+    assert k1.launch_plan(1, 0, 512, SMS).chunks == 1  # an empty gallery still gets a grid
+    # a small card gets longer chunks, not more rounds than tiles allow
+    small, full = (k1.launch_plan(64, 100_352, 512, sms) for sms in (8, SMS))
+    assert small.chunks <= full.chunks
+    with pytest.raises(ValueError, match="shared memory"):
+        k1.launch_plan(8, 1000, 64 * 4000, SMS)  # no query tile of this depth fits a block
 
 
 def test_module_imports_without_nvcc_or_gpu(tmp_path):
