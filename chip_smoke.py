@@ -17,10 +17,23 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
 4. ``main_path``: ``FaceRecognition.process_frames(batch_size=64)`` at full
    width (YuNet-64 at 640², FaceNet-512, 99,900-row gallery, committed
    trained weights) over rendered 1-face 1080p scenes; K1's launch count
-   is set to 0 just before and read just after.  One more batch then runs
-   under ``torch.profiler`` for the device's busy time and its idle share
-   of that batch's wall time (a ``trace`` line).
-5. ``cross_device``: one 8-frame batched step on the card and on the CPU
+   is set to 0 just before and read just after.
+5. ``frame_path``: ``process_frames(batch_size=0)``, the per-frame loop
+   (detect → host ``Sort`` → encode new tracks → K1 at M = 1…8 → unknown
+   lifecycle), over 64 rendered 1080p frames with 1–3 faces against the
+   same gallery; frames/s and ms per frame by stage.  A second, shorter
+   run uses ``detection_interval=3`` and ``align_video=True`` (coasting
+   and landmark-aligned encoding).
+6. ``image_mode``: ``fire_tpu_torch.cli.main`` in process on a rendered
+   1080p BMP: enrol, recognise, relabel (``--label``), then the default
+   command (BlazeFace at 192²).
+7. ``trace``: one more batch of the batched path and 16 frames of the
+   per-frame path under ``torch.profiler``, for the device's busy time
+   and its idle share of the traced wall time (two ``trace`` lines).  It
+   runs after every timed phase: the profiler leaves launches slower.
+8. ``cross_device``: one 8-frame batched step, and the per-frame engine
+   calls (``detect_faces``, ``encode_boxes``, ``encode_landmarks``,
+   ``extract_faces``, BlazeFace ``detect``), on the card and on the CPU
    in float32, compared.
 
 Any failed check raises and the script exits non-zero.  The last line is
@@ -39,7 +52,8 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "main_path", "cross_device")
+PHASES = ("env", "build", "kernels", "main_path", "frame_path", "image_mode", "trace",
+          "cross_device")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 and dense bf16.
 HBM_BYTES_PER_S = 3.35e12
@@ -258,23 +272,57 @@ def phase_kernels(ctx) -> None:
     ctx["k1"] = results
 
 
-def _frames(seed: int, n_scenes: int, per_scene: int):
+def _frames(seed: int, n_scenes: int, per_scene: int, n_faces=(1, 1)):
     import numpy as np
 
     from fire_tpu_torch.train.scenes import compose_scene, make_identities
 
     idents = make_identities(8, seed=seed)
     rng = np.random.default_rng(seed)
-    scenes = [compose_scene(rng, idents, hw=(1080, 1920), n_faces=(1, 1), face_px=(180, 360))[0]
+    scenes = [compose_scene(rng, idents, hw=(1080, 1920), n_faces=n_faces, face_px=(180, 360))[0]
               for _ in range(n_scenes)]
     return [s for s in scenes for _ in range(per_scene)]
 
 
-def _gallery_rows():
+def _gallery_rows(ctx):
     import numpy as np
 
-    g = unit_rows(np.random.default_rng(0), N_GALLERY, DIM)
-    return [(i + 1, f"person_{i}", g[i].tobytes()) for i in range(N_GALLERY)]
+    if "gallery_rows" not in ctx:
+        g = unit_rows(np.random.default_rng(0), N_GALLERY, DIM)
+        ctx["gallery_rows"] = [(i + 1, f"person_{i}", g[i].tobytes()) for i in range(N_GALLERY)]
+    return ctx["gallery_rows"]
+
+
+def _trained(name: str) -> str:
+    return os.path.join(REPO, "weights_trained", name)
+
+
+def _tracked_fraction(faces_per_frame, per_scene: int, warm: int) -> float:
+    """Share of the frames past each scene's first ``warm`` (the tracker
+    confirms nothing earlier) that carry at least one face."""
+    after = [n for i, n in enumerate(faces_per_frame) if i % per_scene >= warm]
+    return sum(1 for n in after if n > 0) / max(len(after), 1)
+
+
+class _K1Sizes:
+    """Records the query count M of every K1 call the gallery makes while
+    it is active (the gallery module's own reference to the wrapper is
+    swapped for one that notes M and calls through)."""
+
+    def __enter__(self):
+        from fire_tpu_torch.gallery import index
+
+        self.sizes, self._index, self._real = [], index, index.cosine_top1
+
+        def noting(q, g, count):
+            self.sizes.append(int(q.shape[0]))
+            return self._real(q, g, count)
+
+        index.cosine_top1 = noting
+        return self.sizes
+
+    def __exit__(self, *exc):
+        self._index.cosine_top1 = self._real
 
 
 def phase_main_path(ctx) -> None:
@@ -284,15 +332,14 @@ def phase_main_path(ctx) -> None:
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.pipeline.recognizer import FaceRecognition
 
-    wt = os.path.join(REPO, "weights_trained")
     storage = ctx["tmp"]
     fr = FaceRecognition(
         detector_type="yunet", encoder_model_type="512", similarity_threshold=0.7,
         unknown_trigger_count=1, detection_interval=1, enable_logging=False,
         storage_root=storage, tracker_cfg=TrackerConfig(assignment="hungarian"),
-        trained_detector=os.path.join(wt, "yunet_synth.msgpack"),
-        trained_encoder=os.path.join(wt, "facenet512_synth.msgpack"), device="cuda")
-    fr.gallery.load_rows(_gallery_rows())
+        trained_detector=_trained("yunet_synth.msgpack"),
+        trained_encoder=_trained("facenet512_synth.msgpack"), device="cuda")
+    fr.gallery.load_rows(_gallery_rows(ctx))
     check(fr.gallery.count == N_GALLERY and fr.gallery.padded == PADDED_ROWS, "gallery size")
 
     # warm-up batch (cuDNN plans, allocator) on other identities
@@ -315,9 +362,7 @@ def phase_main_path(ctx) -> None:
     sql_after = fr.db_manager.count()
 
     # warm-up: a scene's first min_hits frames carry no confirmed track
-    warm = TrackerConfig().min_hits
-    after = [n for i, n in enumerate(faces_per_frame) if i % per_scene >= warm]
-    tracked = sum(1 for n in after if n > 0) / max(len(after), 1)
+    tracked = _tracked_fraction(faces_per_frame, per_scene, TrackerConfig().min_hits)
     check(len(faces_per_frame) == len(frames), "every frame produced a result")
     check(launches >= n_batches, f"K1 launched {launches} times for {n_batches} batches")
     check(tracked >= 0.9, f"faces tracked in {tracked:.3f} of the frames after warm-up")
@@ -330,16 +375,28 @@ def phase_main_path(ctx) -> None:
            "gallery_count": fr.gallery.count, "stage_ms_per_batch": stages,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     ctx["k1_launches"] = launches
+    ctx["fr"] = fr  # the trace phase runs it once more, then closes it
     emit(rec)
+
+
+def phase_trace(ctx) -> None:
+    """One more batch of the batched path, then 16 frames of the
+    per-frame path, under ``torch.profiler``.  The profiler leaves
+    launches slower for the rest of the process, so this phase comes
+    after every phase that reports a time."""
+    fr = ctx.pop("fr")
     try:
-        trace = trace_one_batch(fr, _frames(seed=3, n_scenes=2, per_scene=BATCH // 2))
+        emit(trace_frames(fr, _frames(seed=3, n_scenes=2, per_scene=BATCH // 2)))
+        fr.process_frames(_frames(seed=6, n_scenes=1, per_scene=8, n_faces=(1, 3)),
+                          annotate=False, batch_size=0)  # warm-up of this path
+        emit(trace_frames(fr, _frames(seed=7, n_scenes=2, per_scene=8, n_faces=(1, 3)),
+                          batch_size=0))
     finally:
         fr.close()
-    emit(trace)
 
 
-def trace_one_batch(fr, frames) -> dict:
-    """One more batch of the main path under ``torch.profiler``: the
+def trace_frames(fr, frames, batch_size: int = BATCH) -> dict:
+    """A few more frames of a path under ``torch.profiler``: the
     device's busy time (the union of its kernel and copy intervals), its
     idle share of the traced wall time, and the kernels that take the
     most device time.  A trace that holds no device activity is reported
@@ -351,7 +408,7 @@ def trace_one_batch(fr, frames) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fr.process_frames(frames, annotate=False, batch_size=BATCH)
+        fr.process_frames(frames, annotate=False, batch_size=batch_size)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -367,10 +424,219 @@ def trace_one_batch(fr, frames) -> dict:
         by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     busy_ms = busy_us / 1e3 if dev else None
-    return {"phase": "trace", "frames": len(frames), "traced_wall_ms": wall_ms,
+    return {"phase": "trace", "path": "batched" if batch_size else "per-frame",
+            "frames": len(frames), "traced_wall_ms": wall_ms,
             "device_events": len(dev), "device_busy_ms": busy_ms,
             "idle_share_traced": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
             "top_device_ms": {k: v / 1e3 for k, v in top}}
+
+
+def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, **fr_kw) -> dict:
+    """One ``process_frames(batch_size=0)`` run at full width against the
+    99,900-row gallery; returns what the phase checks and prints."""
+    import torch
+
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+
+    fr = FaceRecognition(
+        detector_type="yunet", encoder_model_type="512", similarity_threshold=0.7,
+        unknown_trigger_count=1, enable_logging=False, storage_root=storage,
+        trained_detector=_trained("yunet_synth.msgpack"),
+        trained_encoder=_trained("facenet512_synth.msgpack"), device="cuda", **fr_kw)
+    try:
+        fr.gallery.load_rows(_gallery_rows(ctx))
+        check(fr.gallery.count == N_GALLERY and fr.gallery.padded == PADDED_ROWS, "gallery size")
+        # cuDNN plans, the allocator, and the first enrolment, which writes
+        # the hydrated gallery's first snapshot (204 MB) to disk
+        fr.process_frames(warmup, annotate=False, batch_size=0)
+        check(fr.counters["unknown_enrolled"] > 0, "frame_path: the warm-up enrolled nothing")
+        sql_before = fr.db_manager.count()
+        counters_before = dict(fr.counters)
+
+        # frames on which a track was encoded, by either crop
+        encode_frames = {"boxes": set(), "landmarks": set()}
+        for kind in encode_frames:
+            real = getattr(fr.engine, f"encode_{kind}")
+
+            def noting(frame, per_face, real=real, seen=encode_frames[kind]):
+                seen.add(fr.frame_index)
+                return real(frame, per_face)
+
+            setattr(fr.engine, f"encode_{kind}", noting)
+
+        faces_per_frame = []
+        k1.reset_launches()
+        with _K1Sizes() as sizes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fr.process_frames(frames, annotate=False, batch_size=0,
+                              on_frame=lambda f, faces: faces_per_frame.append(len(faces)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = k1.launches
+        n = len(frames)
+        stage_ms = {k: v / n * 1e3 for k, v in fr.timer.totals.items()}
+        stage_ms["other (H2D copy, enrolment, host loop)"] = (wall / n * 1e3
+                                                             - sum(stage_ms.values()))
+        return {
+            "frames": n, "frames_per_s": n / wall, "ms_per_frame": wall / n * 1e3,
+            "stage_ms_per_frame": stage_ms, "k1_launches": launches,
+            "k1_query_sizes": sorted(set(sizes)), "k1_max_m": max(sizes, default=0),
+            "encode_frames": len(encode_frames["boxes"] | encode_frames["landmarks"]),
+            "encode_frames_aligned": len(encode_frames["landmarks"]),
+            "results": len(faces_per_frame), "faces_per_frame_max": max(faces_per_frame, default=0),
+            # a track is confirmed min_hits detections after its first one
+            "tracked_fraction": _tracked_fraction(
+                faces_per_frame, per_scene,
+                fr.tracker_cfg.min_hits * fr.detection_interval + fr.detection_interval - 1),
+            "sqlite_rows_added": fr.db_manager.count() - sql_before,
+            "counters": {k: v - counters_before[k] for k, v in fr.counters.items()},
+        }
+    finally:
+        fr.close()
+
+
+def _check_per_frame(rec: dict, name: str) -> None:
+    check(rec["results"] == rec["frames"], f"{name}: every frame produced a result")
+    check(rec["tracked_fraction"] >= 0.9,
+          f"{name}: faces tracked in {rec['tracked_fraction']:.3f} of the frames after warm-up")
+    check(rec["sqlite_rows_added"] > 0, f"{name}: enrolments reached SQLite")
+    check(rec["encode_frames"] > 0 and rec["k1_launches"] >= rec["encode_frames"],
+          f"{name}: K1 launched {rec['k1_launches']} times for {rec['encode_frames']} "
+          "frames with a new track")
+    check(1 <= rec["k1_max_m"] <= 8, f"{name}: K1 ran at M = {rec['k1_query_sizes']}")
+    check(rec["counters"]["tier1_track_cache"] > 0, f"{name}: the track cache was never hit")
+
+
+def phase_frame_path(ctx) -> None:
+    """The per-frame loop on 64 frames (2 scenes × 32, 1–3 faces), then a
+    shorter run that skips detection on two frames of three and encodes
+    landmark-aligned crops."""
+    per_scene = 32
+    warmup = _frames(seed=1, n_scenes=2, per_scene=8, n_faces=(1, 3))
+    rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "frame_path"),
+                         _frames(seed=0, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
+                         per_scene, warmup, detection_interval=1)
+    emit({"phase": "frame_path", "run": "detect every frame, box crops", **rec})
+    _check_per_frame(rec, "frame_path")
+    ctx["k1_launches_frame_path"] = rec["k1_launches"]
+
+    per_scene = 36
+    rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "frame_path_aligned"),
+                         _frames(seed=4, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
+                         per_scene, _frames(seed=1, n_scenes=1, per_scene=18, n_faces=(1, 3)),
+                         detection_interval=3, align_video=True)
+    emit({"phase": "frame_path", "run": "detection_interval=3, align_video", **rec})
+    _check_per_frame(rec, "frame_path (interval 3, aligned)")
+    check(rec["encode_frames_aligned"] > 0, "frame_path: no landmark-aligned crop was encoded")
+
+
+def _iou_xywh(a, b) -> float:
+    iw = min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0])
+    ih = min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1])
+    if iw <= 0 or ih <= 0:
+        return 0.0
+    return float(iw * ih / (a[2] * a[3] + b[2] * b[3] - iw * ih))
+
+
+def phase_image_mode(ctx) -> None:
+    """``python -m fire_tpu_torch --mode image`` in process: a rendered
+    short-range 1080p scene (faces of 420–700 px, the scale the
+    committed BlazeFace weights are trained at) as a BMP; YuNet twice
+    (enrol, then recognise), ``--label``, then the default detector."""
+    import contextlib
+    import io
+    import sqlite3
+
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch import cli
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+    from fire_tpu_torch.train.scenes import compose_scene, make_identities
+    from fire_tpu_torch.utils import imageio
+
+    work = os.path.join(ctx["tmp"], "image_mode")
+    os.makedirs(work)
+    scene, gt_boxes = compose_scene(np.random.default_rng(3), make_identities(8, seed=3),
+                                    hw=(1080, 1920), n_faces=(1, 2), face_px=(420, 700))[:2]
+    src, out = os.path.join(work, "scene.bmp"), os.path.join(work, "out.bmp")
+    imageio.imwrite(src, scene)
+
+    seen = []
+    real = FaceRecognition.process_image
+
+    def noting(self, **kw):
+        seen.append(real(self, **kw))
+        return seen[-1]
+
+    def labels(stem):
+        db = os.path.join(work, "storage", f"{stem}_512_unencrypted", "db",
+                          f"face_embeddings_{stem}_512.db")
+        con = sqlite3.connect(db)
+        try:
+            return [r[0] for r in con.execute("SELECT label FROM faces ORDER BY id")]
+        finally:
+            con.close()
+
+    def run(*argv):
+        """One command; returns (its faces, wall seconds, its stage table)."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--mode", "image", "--input", src, "--encoder", "512", *argv])
+        torch.cuda.synchronize()
+        stages = {k.strip(): float(v.split()[0]) for k, v in
+                  (ln.split(":") for ln in buf.getvalue().splitlines() if ln.endswith("seconds"))}
+        return seen[-1], time.perf_counter() - t0, stages
+
+    cwd = os.getcwd()
+    FaceRecognition.process_image = noting
+    k1.reset_launches()
+    try:
+        os.chdir(work)  # storage/ is made under the working directory
+        with _K1Sizes() as sizes:
+            first, t_first, st_first = run("--detector", "yunet", "--save", out)
+            enrolled = labels("yunet")
+            second, t_second, st_second = run("--detector", "yunet", "--save", out)
+            after_second = labels("yunet")
+            _, t_label, _ = run("--detector", "yunet", "--label", "alice")
+            relabelled = labels("yunet")
+            default, t_default, st_default = run()  # BlazeFace at 192²
+    finally:
+        os.chdir(cwd)
+        FaceRecognition.process_image = real
+    launches = k1.launches
+
+    n = len(gt_boxes)
+    check(len(first) == n == len(enrolled), f"image_mode: {len(first)} faces, rendered {n}")
+    check(all(l.startswith("Unknown_") for l in enrolled), "image_mode: first run enrols")
+    check([d["label"] for d in second] == [d["label"] for d in first] and after_second == enrolled,
+          "image_mode: the second run recognises the same labels and enrols none")
+    check(relabelled == ["alice"] * n, f"image_mode: --label gave {relabelled}")
+    saved = imageio.imread(out)
+    check(saved is not None and saved.shape == scene.shape, "image_mode: out.bmp")
+    for d in second:
+        x, y, w, h = d["bbox"]
+        box = np.s_[y : y + h + 2, x : x + w + 2]
+        check(bool((saved[box] != scene[box]).any()), "image_mode: out.bmp carries no box")
+    ious = [max((_iou_xywh(g, d["bbox"]) for d in default), default=0.0) for g in gt_boxes]
+    check(len(default) == n and min(ious) >= 0.5,
+          f"image_mode: default detector found {len(default)} of {n} faces, IoU {ious}")
+    # the second run queries once for all its faces, --label once per face
+    check(launches == 1 + n and 1 <= max(sizes, default=0) <= 8,
+          f"image_mode: K1 {launches} launches, M {sizes}")
+    ctx["k1_launches_image_mode"] = launches
+    emit({"phase": "image_mode", "faces": n, "k1_launches": launches, "k1_query_sizes": sizes,
+          "seconds": {"yunet, first (enrols)": t_first, "yunet, second (recognises)": t_second,
+                      "yunet, --label + shrink_db_ids": t_label,
+                      "default (blazeface-192)": t_default},
+          "stage_seconds": {"yunet, first": st_first, "yunet, second": st_second,
+                            "default": st_default},
+          "default_detector_iou": ious})
 
 
 def phase_cross_device(ctx) -> None:
@@ -384,19 +650,18 @@ def phase_cross_device(ctx) -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    wt = os.path.join(REPO, "weights_trained")
     cfg = RecognizerConfig(
         detector_type="yunet", encoder_model_type="512", similarity_threshold=0.7,
         unknown_trigger_count=1, detection_interval=1, weights_dir=None,
         engine=EngineConfig(compute_dtype="float32", strict_f32_preprocess=True),
     ).with_embedding_dim()
     frames = np.stack(_frames(seed=2, n_scenes=1, per_scene=8))
-    rows = _gallery_rows()
+    rows = _gallery_rows(ctx)
     sides = {}
     for dev in ("cuda", "cpu"):
         eng = DeviceEngine(cfg, device=dev)
-        eng.load_trained_detector(os.path.join(wt, "yunet_synth.msgpack"))
-        eng.load_trained_encoder(os.path.join(wt, "facenet512_synth.msgpack"))
+        eng.load_trained_detector(_trained("yunet_synth.msgpack"))
+        eng.load_trained_encoder(_trained("facenet512_synth.msgpack"))
         gal = DeviceGallery(DIM, device=dev)
         gal.load_rows(rows)
         sides[dev] = (BatchStreamEngine(eng, gal, cfg), gal)
@@ -421,9 +686,79 @@ def phase_cross_device(ctx) -> None:
         bse.reset()
     a, b, be2, se2 = run_both()
     check(bool((a.gid[a.mask] == N_GALLERY).any()), "cross_device: the enrolled face matched")
+    per_frame = _cross_device_per_frame({d: bse.engine for d, (bse, _) in sides.items()}, cfg)
     emit({"phase": "cross_device", "frames": len(frames), "dtype": "float32", "tf32": False,
           "box_err_px": max(be1, be2), "sim_err": max(se1, se2),
-          "matched_gid": N_GALLERY})
+          "matched_gid": N_GALLERY, "per_frame": per_frame})
+
+
+def _cross_device_per_frame(yunet: dict, cfg) -> dict:
+    """The per-frame engine calls on the card against the CPU, float32:
+    boxes and landmarks within 1 px, cosine of paired embeddings at
+    least 0.9999.  ``yunet`` maps a device name to a loaded engine."""
+    import dataclasses
+
+    import numpy as np
+
+    from fire_tpu_torch.config import EngineConfig
+    from fire_tpu_torch.pipeline.engine import DeviceEngine
+    from fire_tpu_torch.train.scenes import compose_scene, make_identities
+
+    def min_cos(a, b):
+        return float(((a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)).min())
+
+    out = {}
+    frame = _frames(seed=5, n_scenes=1, per_scene=1, n_faces=(2, 3))[0]
+    dets = {d: e.detect_faces(frame) for d, e in yunet.items()}
+    a, b = dets["cuda"], dets["cpu"]
+    check(len(a) == len(b) > 0, f"cross_device: detect_faces found {len(a)} vs {len(b)}")
+    out["detect_faces"] = {
+        "faces": len(a),
+        "box_err_px": int(max(np.abs(np.subtract(x["bbox"], y["bbox"])).max()
+                              for x, y in zip(a, b))),
+        "landmark_err_px": int(max(np.abs(x["landmarks"] - y["landmarks"]).max()
+                                   for x, y in zip(a, b)))}
+    check(out["detect_faces"]["box_err_px"] <= 1 and out["detect_faces"]["landmark_err_px"] <= 1,
+          f"cross_device: detect_faces {out['detect_faces']}")
+    boxes = np.asarray([d["bbox"] for d in b], np.float32)
+    lms3 = np.stack([d["landmarks"][[1, 0, 2]] for d in b]).astype(np.float32)
+    for name, arg in (("encode_boxes", boxes), ("encode_landmarks", lms3)):
+        e = {d: getattr(eng, name)(frame, arg) for d, eng in yunet.items()}
+        out[name] = {"min_cos": min_cos(e["cuda"], e["cpu"])}
+        check(out[name]["min_cos"] >= 0.9999, f"cross_device: {name} {out[name]}")
+    for align in (True, False):
+        crops = {d: eng.extract_faces(frame, align=align) for d, eng in yunet.items()}
+        check(len(crops["cuda"]) == len(crops["cpu"]) == len(a),
+              "cross_device: extract_faces count")
+        err = float(max(np.abs(x - y).mean() for x, y in zip(crops["cuda"], crops["cpu"])))
+        out[f"extract_faces(align={align})"] = {"mean_abs_err": err}
+        check(err <= 2e-3, f"cross_device: extract_faces(align={align}) differs by {err}")
+
+    # BlazeFace at 192² on a short-range scene (the scale its weights know)
+    bcfg = dataclasses.replace(
+        cfg, detector_type="mediapipe",
+        engine=EngineConfig(compute_dtype="float32", strict_f32_preprocess=True,
+                            blazeface_size=(192, 192)))
+    scene = compose_scene(np.random.default_rng(9), make_identities(8, seed=9), hw=(1080, 1920),
+                          n_faces=(2, 2), face_px=(420, 700))[0]
+    found = {}
+    for dev in yunet:
+        eng = DeviceEngine(bcfg, device=yunet[dev].device, encoder=yunet[dev].encoder)
+        eng.load_trained_detector(_trained("blazeface192_synth.msgpack"))
+        eng.weight_source["encoder"] = yunet[dev].weight_source["encoder"]
+        d = eng.detect(scene)
+        keep = d.mask.cpu().numpy()
+        found[dev] = (d.boxes_xywh.cpu().numpy()[keep], d.landmarks.cpu().numpy()[keep],
+                      d.scores.cpu().numpy()[keep])
+    (ba, la, sa), (bb, lb, sb) = found["cuda"], found["cpu"]
+    check(len(ba) == len(bb) > 0, f"cross_device: BlazeFace found {len(ba)} vs {len(bb)}")
+    out["blazeface_detect"] = {"faces": len(ba), "box_err_px": float(np.abs(ba - bb).max()),
+                               "landmark_err_px": float(np.abs(la - lb).max()),
+                               "score_err": float(np.abs(sa - sb).max())}
+    check(out["blazeface_detect"]["box_err_px"] <= 1.0
+          and out["blazeface_detect"]["landmark_err_px"] <= 1.0,
+          f"cross_device: BlazeFace {out['blazeface_detect']}")
+    return out
 
 
 # -------------------------------------------------------------------- main --
@@ -431,7 +766,8 @@ def phase_cross_device(ctx) -> None:
 
 def kernel_summary(ctx) -> dict:
     """The contract line: K1 at the main path's shape (M = one query per
-    frame of a 64-frame batch, the smallest compaction rung)."""
+    frame of a 64-frame batch, the smallest compaction rung), with its
+    launch counts on the batched path, the per-frame path and image mode."""
     from fire_tpu_torch.ops import cosine_top1 as k1
 
     main = next(r for r in ctx["k1"] if r.get("case") == f"M={BATCH}")
@@ -439,6 +775,8 @@ def kernel_summary(ctx) -> dict:
     return {"kernels": [{
         "name": k1.NAME, "route": "cuda", "source": "fire_tpu_torch/csrc/cosine_top1.cu",
         "replaces": "fire_tpu/ops/pallas_topk.py:61", "launches": ctx["k1_launches"],
+        "launches_frame_path": ctx["k1_launches_frame_path"],
+        "launches_image_mode": ctx["k1_launches_image_mode"],
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "device_ms": main["kernel_device_ms"],
@@ -464,6 +802,8 @@ def main() -> int:
         for name in PHASES:
             globals()[f"phase_{name}"](ctx)
     finally:
+        if "fr" in ctx:  # a phase failed before the trace phase closed it
+            ctx["fr"].close()
         shutil.rmtree(ctx["tmp"], ignore_errors=True)
     print(json.dumps(kernel_summary(ctx)))
     print(ctx["smi"])

@@ -42,6 +42,8 @@ def _round_up(x: int, m: int) -> int:
 class DeviceGallery:
     """Exact cosine top-k index with HNSWManager-compatible semantics."""
 
+    QUERY_ROWS = 1024  # queries per plain top-k product
+
     def __init__(
         self,
         embedding_dim: int,
@@ -333,21 +335,29 @@ class DeviceGallery:
 
     def query_batch(self, embeddings: np.ndarray, k: int = 1):
         """Batched query: k=1 through K1 on the bf16 shadow; k>1 and
-        strict matching through the plain top-k."""
+        strict matching through the plain top-k, taken ``QUERY_ROWS``
+        queries at a time so that the (rows × padded capacity) float32
+        similarity matrix stays bounded however many queries come
+        (``shrink_db_ids`` sends one per gallery row)."""
         if self.count == 0:
             return None, None
         self._flush_pending()
         q = torch.from_numpy(np.ascontiguousarray(embeddings, np.float32)).to(self.device)
-        if self.strict_f32_match:
-            valid = torch.arange(self.padded, device=self.device) < self.count
-            sims, idx = cosine_topk_f32(q, self._gal, valid, min(k, self.count))
-            return idx.cpu().numpy(), 1.0 - sims.cpu().numpy()
-        if k == 1:
+        if k == 1 and not self.strict_f32_match:
             sims, idx = cosine_top1(q, self._gal16, self.count)
             return idx.cpu().numpy()[:, None], 1.0 - sims.cpu().numpy()[:, None]
         valid = torch.arange(self.padded, device=self.device) < self.count
-        sims, idx = cosine_topk(q, self._gal16, valid, min(k, self.count))
-        return idx.cpu().numpy(), 1.0 - sims.cpu().numpy()
+        k = min(k, self.count)
+        sims, idx = [], []
+        for i in range(0, q.shape[0], self.QUERY_ROWS):
+            rows = q[i : i + self.QUERY_ROWS]
+            if self.strict_f32_match:
+                s, j = cosine_topk_f32(rows, self._gal, valid, k)
+            else:
+                s, j = cosine_topk(rows, self._gal16, valid, k)
+            sims.append(s.cpu().numpy())
+            idx.append(j.cpu().numpy())
+        return np.concatenate(idx), 1.0 - np.concatenate(sims)
 
     def find_similar(self, embedding: np.ndarray, threshold: float, k: int = 50) -> List[int]:
         """All ids with similarity ≥ threshold among the top min(k, count)."""

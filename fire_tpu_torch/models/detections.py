@@ -23,6 +23,13 @@ class Detections(NamedTuple):
     scores: torch.Tensor
     mask: torch.Tensor
 
+    @property
+    def landmarks3(self) -> torch.Tensor:
+        """(..., N, 3, 2) (left_eye, right_eye, nose) for 3-point
+        alignment."""
+        lm = self.landmarks
+        return torch.stack([lm[..., 1, :], lm[..., 0, :], lm[..., 2, :]], dim=-2)
+
 
 def pad_detections(boxes, landmarks, scores, keep_idx, keep_mask) -> Detections:
     """Gather NMS survivors into the padded struct (masked slots zeroed).

@@ -8,7 +8,7 @@ first) and the per-round pick is ``argmax`` (first maximum).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -96,3 +96,40 @@ def nms(
         live = torch.where(ok[..., None] & sup, torch.full_like(live, NEG), live)
         n_kept = n_kept + ok.long()
     return keep_idx, keep_mask
+
+
+def weighted_blend(
+    boxes_xyxy: torch.Tensor,
+    scores: torch.Tensor,
+    keep_idx: torch.Tensor,
+    keep_mask: torch.Tensor,
+    iou_threshold: float,
+    score_threshold: float,
+    payload: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """MediaPipe-style weighted overlap resolution after greedy NMS,
+    batched over leading axes.
+
+    Each kept box (``keep_idx`` (..., K) into ``boxes_xyxy`` (..., N, 4))
+    becomes the score-weighted mean of every candidate with
+    ``IoU >= iou_threshold`` against it and ``score > score_threshold``;
+    the kept box itself always takes part.  ``payload`` (..., N, *rest)
+    is blended with the same weights.  Masked slots keep their gathered
+    values."""
+    def take(x):
+        idx = keep_idx.reshape(*keep_idx.shape, *([1] * (x.dim() - keep_idx.dim())))
+        return torch.gather(x, keep_idx.dim() - 1, idx.expand(*keep_idx.shape, *x.shape[keep_idx.dim():]))
+
+    kept = take(boxes_xyxy)  # (..., K, 4)
+    ious = iou_matrix(kept, boxes_xyxy)  # (..., K, N)
+    live = (ious >= iou_threshold) & (scores > score_threshold)[..., None, :]
+    w = torch.where(live, scores[..., None, :], torch.zeros_like(ious))
+    denom = torch.clamp(w.sum(-1, keepdim=True), min=1e-6)
+    blended = torch.where(keep_mask[..., None], (w @ boxes_xyxy) / denom, kept)
+    if payload is None:
+        return blended, None
+    lead = scores.dim()
+    flat = payload.reshape(*payload.shape[:lead], -1)
+    out = ((w @ flat) / denom).reshape(*keep_idx.shape, *payload.shape[lead:])
+    mask = keep_mask.reshape(*keep_mask.shape, *([1] * (payload.dim() - lead)))
+    return blended, torch.where(mask, out, take(payload))

@@ -35,6 +35,20 @@ def resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tenso
     return y.permute(0, 2, 3, 1).reshape(*lead, out_hw[0], out_hw[1], c)
 
 
+def resize_area(image: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``cv2.INTER_AREA``-style downscale of (..., H, W, C): an exact box
+    average for integer factors, antialiased linear resampling otherwise
+    (``image.py:47``)."""
+    *lead, h, w, c = image.shape
+    oh, ow = out_hw
+    if h % oh == 0 and w % ow == 0 and h >= oh and w >= ow:
+        x = image.reshape(*lead, oh, h // oh, ow, w // ow, c)
+        return x.mean(dim=(-4, -2))
+    x = image.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=(oh, ow), mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).reshape(*lead, oh, ow, c)
+
+
 def letterbox(image: torch.Tensor, out_hw: Tuple[int, int], pad_value: float = 0.0):
     """Aspect-preserving resize + bottom/right pad of (..., H, W, C).
 
@@ -95,6 +109,49 @@ def _rows_then_cols(rows_src: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, 
     r16 = rows_src.to(torch.bfloat16)
     rows = r16[:, :, 0] * (1.0 - wy) + r16[:, :, 1] * wy
     return torch.einsum("kxw,kywc->kyxc", _tent(xs, w).to(torch.bfloat16).float(), rows.float())
+
+
+def crop_and_resize_rows(image: torch.Tensor, boxes_xywh: torch.Tensor,
+                         out_hw: Tuple[int, int] = (160, 160)) -> torch.Tensor:
+    """Crop + resize of K boxes from one (H, W, C) frame by a gather of
+    the bracketing rows and one column product (``image.py:204``).
+    Returns (K, oh, ow, C) float32."""
+    h, w = image.shape[0], image.shape[1]
+    ys, xs = _crop_coords(boxes_xywh.float(), out_hw, (h, w))
+    y0i = torch.clamp(torch.floor(ys).long(), 0, h - 1)
+    y01 = torch.stack([y0i, torch.clamp(y0i + 1, 0, h - 1)], dim=-1)
+    return _rows_then_cols(image[y01], ys, xs, w)
+
+
+def crop_and_resize(image: torch.Tensor, boxes_xywh: torch.Tensor,
+                    out_hw: Tuple[int, int] = (160, 160)) -> torch.Tensor:
+    """Crop + bilinear resize of K boxes from one (H, W, C) float frame
+    by a 4-tap gather (``image.py:286``): half-pixel centres clamped to
+    the crop, taps clamped to the image (edge replicate).  Degenerate
+    boxes are widened to 1 px.  Returns (K, oh, ow, C)."""
+    oh, ow = out_hw
+    h, w = image.shape[0], image.shape[1]
+    box = boxes_xywh.float()
+    dev = box.device
+    x, y = box[:, 0:1], box[:, 1:2]
+    bw = torch.clamp(box[:, 2:3], min=1.0)
+    bh = torch.clamp(box[:, 3:4], min=1.0)
+    ys = y + (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5) * bh / oh - 0.5
+    xs = x + (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5) * bw / ow - 0.5
+    ys = torch.minimum(torch.maximum(ys, y), y + bh - 1.0)  # (K, oh)
+    xs = torch.minimum(torch.maximum(xs, x), x + bw - 1.0)  # (K, ow)
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    wy = (ys - y0)[:, :, None, None]
+    wx = (xs - x0)[:, None, :, None]
+    y0i = torch.clamp(y0.long(), 0, h - 1)
+    y1i = torch.clamp(y0i + 1, 0, h - 1)
+    x0i = torch.clamp(x0.long(), 0, w - 1)
+    x1i = torch.clamp(x0i + 1, 0, w - 1)
+    ya, yb = y0i[:, :, None], y1i[:, :, None]
+    xa, xb = x0i[:, None, :], x1i[:, None, :]
+    top = image[ya, xa] * (1.0 - wx) + image[ya, xb] * wx
+    bot = image[yb, xa] * (1.0 - wx) + image[yb, xb] * wx
+    return top * (1.0 - wy) + bot * wy
 
 
 def crop_selected_rows(frames: torch.Tensor, frame_idx: torch.Tensor,

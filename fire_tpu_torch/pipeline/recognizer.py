@@ -1,13 +1,26 @@
-"""FaceRecognition orchestrator, batched video path (counterpart of
-``fire_tpu.pipeline.recognizer.FaceRecognition`` in the subset that
-``process_frames(..., batch_size > 0)`` needs: storage layout, SQLite
-hydrate, enrollment, relabel, the batched stream loop and ``close``).
+"""FaceRecognition orchestrator (counterpart of
+``fire_tpu.pipeline.recognizer.FaceRecognition``): storage layout,
+SQLite hydrate, the three-tier per-frame matcher (track-label cache →
+recent-embedding cache → gallery query), the unknown-face lifecycle,
+enrollment with dedup, rename / merge (``shrink_db_ids``), image mode,
+the per-frame and the batched stream loops, and ``close``.
+
+Differences from the JAX class, all deliberate:
+
+* every tensor lives on an explicit ``device`` (the engine's);
+* files and windows go through :mod:`fire_tpu_torch.utils.imageio`, so
+  BMP / PPM images need no OpenCV and anything else imports it at the
+  call;
+* an error inside ``process_image``, ``add_face`` or a stream loop
+  propagates instead of being logged and dropped: a failing device call
+  must not look like an empty frame;
+* ``_enroll_now`` counts ``unknown_enrolled`` itself, on every path;
+* the timer also records ``tracker`` and ``match`` stages.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for
-(ROADMAP.md, PyTorch/CUDA port queue): the per-frame path and image
-mode, annotation / video writing / ``show``, landmark alignment,
-encryption, the ONNX weight probe of ``weights_dir``, multi-stream and
-the sharded gallery.
+(ROADMAP.md, PyTorch/CUDA port queue): encryption, multi-stream
+(``process_videos``), the sharded gallery and the ONNX / TFLite weight
+probe of ``weights_dir``.
 """
 
 from __future__ import annotations
@@ -24,15 +37,75 @@ from fire_tpu_torch.config import EngineConfig, GalleryConfig, RecognizerConfig,
 from fire_tpu_torch.device import DeviceLike
 from fire_tpu_torch.gallery.index import DeviceGallery
 from fire_tpu_torch.gallery.store import FaceStore
+from fire_tpu_torch.pipeline.annotate import annotate_faces, resize_frame_to_screen
 from fire_tpu_torch.pipeline.engine import DeviceEngine
-from fire_tpu_torch.pipeline.stream import FrameSequenceCapture, PrefetchReader
+from fire_tpu_torch.pipeline.stream import (CAP_PROP_FPS, CAP_PROP_FRAME_HEIGHT,
+                                            CAP_PROP_FRAME_WIDTH, FrameSequenceCapture,
+                                            PrefetchReader)
 from fire_tpu_torch.pipeline.timing import StageTimer
+from fire_tpu_torch.track.sort import Sort
+from fire_tpu_torch.utils import imageio
 
 log = logging.getLogger(__name__)
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, PyTorch/CUDA port queue)"
 ENCRYPTION_TODO = ("encryption_password: encryption is not ported yet (ROADMAP.md, "
                    "PyTorch/CUDA port queue: 'gallery/crypto.py')")
+MULTISTREAM_TODO = ("process_videos / --inputs: multi-stream video is not ported yet "
+                    "(ROADMAP.md, PyTorch/CUDA port queue: 'multi-stream and sharded gallery')")
+
+OnFrame = Optional[Callable[[np.ndarray, List[dict]], None]]
+
+
+def _ensure_parent_dir(path: str) -> None:
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+
+
+class _StreamSink:
+    """What both stream loops do with a finished frame: annotate, show,
+    write to the video file, hand to ``on_frame``.  ``emit`` returns
+    False when the user asked to quit."""
+
+    def __init__(self, cap, annotate: bool, save_path: Optional[str], show: bool,
+                 stream_type: str, on_frame: OnFrame, timer: StageTimer):
+        self.annotate, self.show, self.on_frame, self.timer = annotate, show, on_frame, timer
+        self.title = f"Face Recognition - {stream_type.capitalize()}"
+        self.stream_type = stream_type
+        self.save_path = save_path
+        self.writer = None
+        if save_path:
+            _ensure_parent_dir(save_path)
+            fps = cap.get(CAP_PROP_FPS) or 30
+            wh = (int(cap.get(CAP_PROP_FRAME_WIDTH)), int(cap.get(CAP_PROP_FRAME_HEIGHT)))
+            self.writer = imageio.open_video_writer(save_path, fps, wh)
+            if not self.writer.isOpened():
+                raise OSError(f"Failed to open video writer for {save_path}")
+
+    def emit(self, frame: np.ndarray, faces: List[dict]) -> bool:
+        if self.on_frame is not None:
+            self.on_frame(frame, faces)
+        if not self.show and self.writer is None:
+            return True
+        t0 = time.perf_counter()
+        out = annotate_faces(frame, faces, with_confidence=True) if self.annotate else frame
+        self.timer.add("host annotate", time.perf_counter() - t0)
+        if self.show:
+            if imageio.imshow(self.title, resize_frame_to_screen(out), 1) == ord("q"):
+                log.info("User requested to quit %s processing.", self.stream_type)
+                return False
+        if self.writer is not None:
+            t0 = time.perf_counter()
+            self.writer.write(out)
+            self.timer.add("host writer.write", time.perf_counter() - t0)
+        return True
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.release()
+            log.info("Annotated video saved to %s", self.save_path)
+        if self.show:
+            imageio.destroy_windows()
 
 
 class FaceRecognition:
@@ -68,10 +141,6 @@ class FaceRecognition:
     ):
         if encryption_password:
             raise NotImplementedError(ENCRYPTION_TODO)
-        if show:
-            raise NotImplementedError(f"show=True: display is {_NOT_PORTED}")
-        if align_video:
-            raise NotImplementedError(f"align_video=True: alignment is {_NOT_PORTED}")
         encoder_model_type = encoder_model_type or "128"
         self.cfg = RecognizerConfig(
             detector_type=detector_type.lower(),
@@ -82,6 +151,7 @@ class FaceRecognition:
             unknown_similarity_threshold=unknown_similarity_threshold,
             unknown_trigger_count=unknown_trigger_count,
             enable_logging=enable_logging,
+            show=show,
             detection_interval=detection_interval,
             encode_budget=encode_budget,
             interested_label=interested_label,
@@ -92,12 +162,30 @@ class FaceRecognition:
         ).with_embedding_dim()
         cfg = self.cfg
         self.similarity_threshold = similarity_threshold
+        self.unknown_similarity_threshold = unknown_similarity_threshold
         self.unknown_trigger_count = unknown_trigger_count
         self.detection_interval = detection_interval
+        self.align = align
+        # landmark-aligned crops in the video loop too (off = the raw
+        # track-box crop)
+        self.align_video = align_video
+        self.show = show
         self.enable_logging = enable_logging
         self.interested_label = interested_label
         self.embedding_dim = cfg.embedding_dim
         self.tracker_cfg = tracker_cfg or TrackerConfig()
+        self.frame_index = 0
+
+        # the engine first: an unported detector slot raises before any
+        # directory is made
+        self.engine = engine or DeviceEngine(cfg, device=device)
+        if trained_encoder:
+            self.engine.load_trained_encoder(trained_encoder)
+        if trained_detector:
+            self.engine.load_trained_detector(trained_detector)
+        self.device = self.engine.device
+        self.detect_faces = self.engine.detect_faces
+        self.extract_faces = self.engine.extract_faces
 
         # storage layout: storage/<detector>_<encoder>_unencrypted/{db,hnsw}
         pipeline_dir = os.path.join(storage_root, f"{cfg.detector_type}_{encoder_model_type}_unencrypted")
@@ -111,13 +199,6 @@ class FaceRecognition:
         hnsw_db_ids_path = hnsw_db_ids_path or os.path.join(hnsw_dir, f"hnsw_db_ids_{stem}.pkl")
         sqlite_db_path = sqlite_db_path or os.path.join(db_dir, f"face_embeddings_{stem}.db")
 
-        self.engine = engine or DeviceEngine(cfg, device=device)
-        if trained_encoder:
-            self.engine.load_trained_encoder(trained_encoder)
-        if trained_detector:
-            self.engine.load_trained_detector(trained_detector)
-        self.device = self.engine.device
-
         self.db_manager = FaceStore(sqlite_db_path, embedding_dim=self.embedding_dim)
         self.gallery = DeviceGallery(
             self.embedding_dim, hnsw_index_path, hnsw_labels_path, hnsw_db_ids_path,
@@ -129,13 +210,142 @@ class FaceRecognition:
             self.gallery.load_rows(self.db_manager.load_all())
             self.gallery.save()
 
+        # caches + buffers of the per-frame path
+        self.recent_embeddings = np.empty((0, self.embedding_dim), np.float32)
+        self.recent_labels: List[str] = []
+        self.max_recent = max_recent
+        self.new_embeddings: List[np.ndarray] = []
+        self.new_labels: List[str] = []
+        self.max_new = max_new
+        self.unknown_faces: dict = {}
+        self.track_id_to_label: dict = {}
         # host-side window of recent enrollments: covers gallery rows
-        # added after a batched step's device snapshot
+        # added after a batched step's device snapshot.  Every enrollment
+        # path feeds it through _enroll_now, so mixing paths in one
+        # process cannot slip a duplicate past the device-checked dedup.
         self._recent_enrollments: list = []
+
+        self.face_tracker = Sort(self.tracker_cfg, device=self.device)
         self.timer = StageTimer()
-        self.counters = {"faces_detected": 0, "unknown_enrolled": 0}
+        self.counters = {
+            "faces_detected": 0, "tier1_track_cache": 0,
+            "tier2_recent_cache": 0, "tier3_gallery": 0,
+            "unknown_enrolled": 0,
+        }
+
+    # ------------------------------------------------------------- buffers --
+
+    def _flush_new_embeddings(self) -> None:
+        """Write the ``add_face`` buffer to SQLite and the gallery."""
+        for label, emb in zip(self.new_labels, self.new_embeddings):
+            db_id = self.db_manager.add(label, emb)
+            if db_id == -1:
+                continue
+            self.gallery.add(emb, label, db_id)
+        self.new_embeddings, self.new_labels = [], []
+        self.gallery.save()
+
+    def save_database_to_sqlite(self) -> None:
+        if self.new_embeddings:
+            self._flush_new_embeddings()
+        log.info("Saved new embeddings to SQLite and the gallery index.")
 
     # ---------------------------------------------------------- enrollment --
+
+    def add_face(self, image: np.ndarray, label: str) -> bool:
+        """Buffered enrollment with dedup: every face of ``image`` that is
+        not within the threshold of a gallery row is queued under
+        ``label``; the queue is flushed at ``max_new`` and at close."""
+        faces = self.extract_faces(image, align=self.align)
+        if not faces:
+            log.warning("No faces detected to add.")
+            return False
+        t0 = time.perf_counter()
+        embs = self.engine.encode_faces(np.stack(faces))
+        self.timer.add("encoding", time.perf_counter() - t0)
+        success = False
+        for emb in embs:
+            if np.linalg.norm(emb) == 0:
+                log.error("Received zero vector from encoder. Skipping this face.")
+                continue
+            if self.gallery.count > 0:
+                ids, dists = self.gallery.query(emb, k=1)
+                if ids is not None and 1.0 - dists[0][0] > self.similarity_threshold:
+                    log.info("Face is too similar to an existing face (Label: %s). Not adding.",
+                             self.gallery.labels[ids[0][0]])
+                    continue
+            self.new_embeddings.append(emb)
+            self.new_labels.append(label)
+            log.info("Added face for label '%s' to the new embeddings buffer.", label)
+            success = True
+        if len(self.new_embeddings) >= self.max_new:
+            self._flush_new_embeddings()
+        return success
+
+    def _add_to_recent(self, emb: np.ndarray, label: str) -> None:
+        """FIFO recent cache."""
+        self.recent_embeddings = np.vstack([self.recent_embeddings, emb[None]])
+        self.recent_labels.append(label)
+        if self.recent_embeddings.shape[0] > self.max_recent:
+            self.recent_embeddings = self.recent_embeddings[1:]
+            self.recent_labels.pop(0)
+
+    # ----------------------------------------------------- rename / shrink --
+
+    def update_label(self, gallery_id: int, new_label: str) -> None:
+        self.gallery.update_label(gallery_id, new_label, self.db_manager,
+                                  similarity_threshold=self.similarity_threshold)
+
+    def shrink_db_ids(self, similarity_threshold: float = 0.75) -> None:
+        """Unify similar groups unless known labels conflict.
+
+        All N neighbour sets come from one batched query (taken in row
+        chunks by the gallery); they depend only on the stored vectors
+        (one SQLite read, renormalised), while the conflict check reads
+        labels at visit time, like a sequential loop over the ids."""
+        n = len(self.gallery.labels)
+        if n == 0:
+            log.info("DB ID shrinking completed with 0 unification operations.")
+            return
+        by_id = {}
+        for db_id, _, blob in self.db_manager.load_all():
+            emb = np.frombuffer(blob, np.float32)
+            norm = np.linalg.norm(emb)
+            if emb.shape[0] == self.embedding_dim and norm > 0:
+                by_id[int(db_id)] = emb / norm
+        embs = np.zeros((n, self.embedding_dim), np.float32)
+        have = np.zeros(n, bool)
+        for gid in range(n):
+            vec = by_id.get(int(self.gallery.db_ids[gid]))
+            if vec is not None:
+                embs[gid] = vec
+                have[gid] = True
+        k = min(self.cfg.gallery.group_k, n)
+        ids, dists = self.gallery.query_batch(embs, k=k)
+        processed = set()
+        total = 0
+        for gid in range(n):
+            if gid in processed or not have[gid]:
+                continue
+            similar = [int(i) for i, d in zip(ids[gid], dists[gid])
+                       if 1.0 - d >= similarity_threshold]
+            if len(similar) <= 1:
+                processed.add(gid)
+                continue
+            labels = [self.gallery.labels[s] for s in similar]
+            known = [l for l in labels if not l.lower().startswith("unknown")]
+            if len(set(known)) > 1:
+                processed.update(similar)
+                continue
+            final = known[0] if known else self.gallery.labels[gid]
+            self.gallery.unify_labels(similar, final, self.db_manager, save=False)
+            total += 1
+            processed.update(similar)
+        if total:
+            self.gallery.save()  # one compaction for the whole pass
+        log.info("DB ID shrinking completed with %d unification operations.", total)
+
+    # ------------------------------------------------------------ unknowns --
 
     @staticmethod
     def _generate_unique_label() -> str:
@@ -152,6 +362,39 @@ class FaceRecognition:
                 self.counters["unknown_enrolled"] += 1
         else:
             log.warning("Gallery has reached its maximum capacity. Cannot add more embeddings.")
+
+    def _handle_unknown_embedding(self, track_id: int, emb: np.ndarray,
+                                  rename_label: Optional[str] = None) -> str:
+        """Accumulate a track's unknown sightings; at
+        ``unknown_trigger_count`` enroll their mean as ``Unknown_*``
+        unless it is within the threshold of a gallery row."""
+        if rename_label:
+            log.info("Enrolling face with label '%s'.", rename_label)
+            self._enroll_now(rename_label, emb)
+            self._flush_new_embeddings()
+            return rename_label
+
+        entry = self.unknown_faces.setdefault(track_id, {"embeddings": [], "count": 0})
+        entry["embeddings"].append(emb)
+        entry["count"] += 1
+        if entry["count"] < self.unknown_trigger_count:
+            return "Unknown"
+
+        avg = np.mean(entry["embeddings"], axis=0)
+        if self.gallery.count > 0:
+            ids, dists = self.gallery.query(avg, k=1)
+            if ids is not None and 1.0 - dists[0][0] > self.similarity_threshold:
+                gid = int(ids[0][0])
+                log.info("Unknown face is too similar to an existing face. Not adding.")
+                return self.gallery.labels[gid] if gid < len(self.gallery.labels) else "Unknown"
+        label = self._generate_unique_label()
+        log.info("Enrolling unknown face as '%s'.", label)
+        self._enroll_now(label, avg)
+        self._flush_new_embeddings()
+        del self.unknown_faces[track_id]
+        return label
+
+    # ----------------------------------------------------------- hot path --
 
     def enroll_unknown_now(self, emb: np.ndarray, rename_label: Optional[str] = None,
                            device_checked: bool = False) -> str:
@@ -177,11 +420,291 @@ class FaceRecognition:
         self.gallery.save()
         return label
 
-    def update_label(self, gallery_id: int, new_label: str) -> None:
-        self.gallery.update_label(gallery_id, new_label, self.db_manager,
-                                  similarity_threshold=self.similarity_threshold)
+    def recognize_faces(self, image, rename_label: Optional[str] = None) -> List[dict]:
+        """Per-frame recognition: detect (every ``detection_interval``-th
+        frame) → track → encode every track that has no label yet in one
+        pass → recent cache → one batched gallery query → unknown
+        lifecycle.  Each stage ends in a readback, so the host clock
+        around it times synchronised work."""
+        timer = self.timer
+        timer.start()
+        self.frame_index += 1
+        detecting = self.frame_index % self.detection_interval == 0
+
+        # one host→device copy per frame, shared by detect and encode
+        image_dev = self.engine.to_device(image)
+
+        detected: List[dict] = []
+        if detecting:
+            t0 = time.perf_counter()
+            detected = self.detect_faces(image_dev)
+            timer.add("detection", time.perf_counter() - t0)
+            self.counters["faces_detected"] += len(detected)
+        t0 = time.perf_counter()
+        tracks = self.face_tracker.update(
+            [{"bbox": d["bbox"], "confidence": d["confidence"]} for d in detected])
+        timer.add("tracker", time.perf_counter() - t0)
+
+        # drop state of dead tracks
+        active = {t["id"] for t in tracks}
+        for tid in set(self.track_id_to_label) - active:
+            del self.track_id_to_label[tid]
+            self.unknown_faces.pop(tid, None)
+
+        # split cached / to-encode tracks
+        h, w = image.shape[:2]
+        to_encode = []
+        for trk in tracks:
+            if trk["id"] in self.track_id_to_label:
+                continue
+            x, y, bw, bh = trk["bbox"]
+            x, y = max(0, x), max(0, y)
+            bw, bh = max(0, bw), max(0, bh)
+            bw, bh = min(bw, w - x), min(bh, h - y)
+            if bw <= 0 or bh <= 0:
+                log.warning("Face image has zero size for track ID %s. Skipping.", trk["id"])
+                continue
+            to_encode.append((trk["id"], [x, y, bw, bh], trk.get("src_det", -1)))
+
+        # one encode for every new face of the frame.  With align_video
+        # on, a track updated by a detection this frame encodes a
+        # landmark-aligned crop (src_det → that detection's landmarks);
+        # a coasting track falls back to the raw box crop.
+        embs = {}
+        if to_encode:
+            t0 = time.perf_counter()
+            lms_of = {}
+            if self.align_video and detecting:
+                for si, d in enumerate(detected):
+                    lm = np.asarray(d.get("landmarks", ()), np.float32)
+                    if lm.shape == (5, 2) and np.abs(lm).sum() > 0:
+                        # (left_eye, right_eye, nose) from the
+                        # (right, left, nose, ...) layout: landmarks3's swap
+                        lms_of[si] = lm[[1, 0, 2]]
+            ali = [i for i, (_, _, src) in enumerate(to_encode) if src in lms_of]
+            rest = [i for i in range(len(to_encode)) if i not in set(ali)]
+            batch = np.zeros((len(to_encode), self.embedding_dim), np.float32)
+            if ali:
+                lms3 = np.stack([lms_of[to_encode[i][2]] for i in ali])
+                batch[ali] = self.engine.encode_landmarks(image_dev, lms3)
+            if rest:
+                boxes = np.asarray([to_encode[i][1] for i in rest], np.float32)
+                batch[rest] = self.engine.encode_boxes(image_dev, boxes)
+            timer.add("encoding", time.perf_counter() - t0)
+            # one batched gallery query for the same faces
+            t0 = time.perf_counter()
+            gal_ids, gal_dists = (None, None)
+            if self.gallery.count > 0:
+                gal_ids, gal_dists = self.gallery.query_batch(batch, k=1)
+            timer.add("match", time.perf_counter() - t0)
+            for i, (tid, _, _src) in enumerate(to_encode):
+                embs[tid] = (
+                    batch[i],
+                    None if gal_ids is None else int(gal_ids[i][0]),
+                    None if gal_dists is None else float(1.0 - gal_dists[i][0]),
+                )
+
+        results = []
+        for trk in tracks:
+            tid = trk["id"]
+            if tid in self.track_id_to_label:
+                label = self.track_id_to_label[tid]
+                confidence = 1.0
+                self.counters["tier1_track_cache"] += 1
+            elif tid in embs:
+                emb, gal_gid, gal_sim = embs[tid]
+                if np.linalg.norm(emb) == 0:
+                    log.error("Received zero vector from encoder. Skipping this face.")
+                    continue
+                label, confidence = "Unknown", 0.0
+                # tier 2: recent-embedding cache
+                if self.recent_embeddings.shape[0] > 0:
+                    sims = self.recent_embeddings @ emb
+                    mi = int(np.argmax(sims))
+                    if sims[mi] > self.similarity_threshold:
+                        label = self.recent_labels[mi]
+                        confidence = float(sims[mi])
+                        self.counters["tier2_recent_cache"] += 1
+                # tier 3: gallery
+                if label == "Unknown" and gal_gid is not None:
+                    if gal_sim > self.similarity_threshold:
+                        label = self.gallery.labels[gal_gid]
+                        confidence = gal_sim
+                        self.counters["tier3_gallery"] += 1
+                        if rename_label:
+                            self.update_label(gal_gid, rename_label)
+                            label = rename_label
+                if label == "Unknown":
+                    label = self._handle_unknown_embedding(tid, emb, rename_label)
+                    confidence = 1.0
+                self.track_id_to_label[tid] = label
+                self._add_to_recent(emb, label)
+            else:
+                continue  # degenerate box skipped above
+
+            if self.interested_label is not None and label != self.interested_label:
+                continue
+            results.append({"label": self.track_id_to_label[tid], "confidence": float(confidence),
+                            "bbox": trk["bbox"]})
+
+        timer.tick_frame()
+        return results
+
+    # --------------------------------------------------------- image mode --
+
+    def process_image(self, image_path: str, annotate: bool = True,
+                      save_path: Optional[str] = None, label: Optional[str] = None) -> List[dict]:
+        """One still image, no tracker: detect, encode every face in one
+        pass, then either relabel the matched gallery rows (``label``) or
+        recognise and enroll.  Returns the recognised
+        ``[{'label', 'bbox'}]`` list (empty on the relabel path)."""
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        image = imageio.imread(image_path)
+        if image is None:
+            log.error("Image not found at path: %s", image_path)
+            return []
+        timer.add("Image Loading", time.perf_counter() - t0)
+
+        image_dev = self.engine.to_device(image)
+        t0 = time.perf_counter()
+        detected = self.detect_faces(image_dev)
+        timer.add("Face Detection", time.perf_counter() - t0)
+        self.counters["faces_detected"] += len(detected)
+
+        # clamp boxes, drop degenerates
+        h, w = image.shape[:2]
+        valid = []
+        for fd in detected:
+            x, y, bw, bh = [max(0, int(v)) for v in fd.get("bbox", [0, 0, 0, 0])]
+            bw, bh = min(bw, w - x), min(bh, h - y)
+            if bw <= 0 or bh <= 0:
+                log.warning("Detected face with zero width or height.")
+                continue
+            valid.append({"bbox": [x, y, bw, bh]})
+
+        embs = np.zeros((0, self.embedding_dim), np.float32)
+        if valid:
+            t0 = time.perf_counter()
+            boxes = np.asarray([f["bbox"] for f in valid], np.float32)
+            embs = self.engine.encode_boxes(image_dev, boxes)
+            timer.add("Face Encoding", time.perf_counter() - t0)
+
+        if label:
+            # relabel path: a face with no match is only warned about,
+            # never enrolled under the given label
+            for emb in embs:
+                if np.linalg.norm(emb) == 0:
+                    continue
+                matched = False
+                if self.gallery.count > 0:
+                    ids, dists = self.gallery.query(emb, k=1)
+                    if ids is not None and 1.0 - dists[0][0] > self.similarity_threshold:
+                        gid = int(ids[0][0])
+                        self.update_label(gid, label)
+                        log.info("Updated label for gallery id %d to '%s'.", gid, label)
+                        matched = True
+                if not matched:
+                    log.warning("No matching face found to update with the provided label.")
+            self._save_image(image, save_path)
+            timer.print_image_report()
+            return []
+
+        recognized = []
+        new_embs, new_labels = [], []
+        t0 = time.perf_counter()
+        if self.gallery.count > 0 and len(embs):
+            ids, dists = self.gallery.query_batch(embs, k=1)
+        else:
+            ids = dists = None
+        for i, face in enumerate(valid):
+            emb = embs[i]
+            if np.linalg.norm(emb) == 0:
+                continue
+            found = None
+            if ids is not None and 1.0 - dists[i][0] > self.similarity_threshold:
+                found = self.gallery.labels[int(ids[i][0])]
+            if found is None:
+                found = self._generate_unique_label()
+                new_embs.append(emb)
+                new_labels.append(found)
+            recognized.append({"label": found, "bbox": face["bbox"]})
+        timer.add("Face Recognition", time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        for lbl, emb in zip(new_labels, new_embs):
+            self._enroll_now(lbl, emb)
+        if new_embs:
+            self.gallery.save()
+        timer.add("Flushing Embeddings", time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        out = annotate_faces(image, recognized) if annotate else image.copy()
+        timer.add("Image Annotation", time.perf_counter() - t0)
+
+        if self.show:
+            imageio.imshow("Face Recognition - Image", out, 0)
+            imageio.destroy_windows()
+
+        t0 = time.perf_counter()
+        self._save_image(out, save_path)
+        timer.add("Image Saving", time.perf_counter() - t0)
+        timer.print_image_report()
+        return recognized
+
+    def _save_image(self, image: np.ndarray, save_path: Optional[str]) -> None:
+        if not save_path:
+            return
+        _ensure_parent_dir(save_path)
+        imageio.imwrite(save_path, image)
+        log.info("Processed image saved to %s", save_path)
 
     # -------------------------------------------------------- stream modes --
+
+    def _process_stream(self, cap, annotate: bool = True, save_path: Optional[str] = None,
+                        duration: int = 0, name: Optional[str] = None,
+                        stream_type: str = "video", on_frame: OnFrame = None) -> None:
+        """Per-frame loop with a decode-ahead reader: ``recognize_faces``
+        on every frame, then annotate / show / write."""
+        self.timer = StageTimer()
+        self.timer.start()
+        sink = reader = None
+        try:
+            sink = _StreamSink(cap, annotate, save_path, self.show, stream_type, on_frame,
+                               self.timer)
+            reader = PrefetchReader(cap)
+            for frame in reader.frames():
+                faces = self.recognize_faces(frame, rename_label=name)
+                if not sink.emit(frame, faces):
+                    break
+                if duration > 0 and (time.time() - self.timer.start_time) >= duration:
+                    log.info("Duration of %d seconds reached. Stopping.", duration)
+                    break
+        finally:
+            if reader is not None:
+                reader.close()
+            cap.release()
+            if sink is not None:
+                sink.close()
+
+    def _run_stream(self, cap, annotate, save_path, batch_size, duration, name, stream_type,
+                    on_frame=None) -> None:
+        if batch_size > 0:
+            self._process_stream_batched(cap, annotate, save_path, batch_size, duration, name,
+                                         stream_type, on_frame)
+        else:
+            self._process_stream(cap, annotate, save_path, duration, name, stream_type, on_frame)
+
+    def process_video(self, video_path: str, annotate: bool = True,
+                      save_path: Optional[str] = None, batch_size: int = 0,
+                      duration: int = 0, name: Optional[str] = None) -> None:
+        """``batch_size > 0`` selects the batched device-resident
+        pipeline, 0 the per-frame one."""
+        cap = imageio.open_video(video_path)
+        if not cap.isOpened():
+            log.error("Cannot open video file: %s", video_path)
+            return
+        self._run_stream(cap, annotate, save_path, batch_size, duration, name, "video")
 
     def process_frames(
         self,
@@ -192,28 +715,38 @@ class FaceRecognition:
         duration: int = 0,
         name: Optional[str] = None,
         fps: float = 30.0,
-        on_frame: Optional[Callable[[np.ndarray, List[dict]], None]] = None,
+        on_frame: OnFrame = None,
     ) -> None:
-        """Run the batched video pipeline over in-RAM BGR uint8 frames.
-        ``on_frame(frame, faces)`` receives each frame's
-        ``[{'label','confidence','bbox'}]`` list (the JAX package hands
-        them to annotation and the video writer, not ported yet)."""
-        if batch_size <= 0:
-            raise NotImplementedError(f"batch_size=0: the per-frame path is {_NOT_PORTED}")
-        if annotate or save_path:
-            raise NotImplementedError(
-                f"annotate/save_path: annotation and video writing are {_NOT_PORTED}; "
-                "pass annotate=False")
+        """Run the video pipeline over in-RAM BGR uint8 frames, with the
+        semantics of :meth:`process_video`.  ``on_frame(frame, faces)``
+        receives each frame's ``[{'label','confidence','bbox'}]`` list."""
         cap = FrameSequenceCapture(frames, fps=fps)
         if not cap.isOpened():
             log.error("process_frames received no frames.")
             return
-        self._process_stream_batched(cap, batch_size, duration, name, on_frame)
+        self._run_stream(cap, annotate, save_path, batch_size, duration, name, "video", on_frame)
 
-    def _process_stream_batched(self, cap, batch_size: int, duration: int = 0,
-                                name: Optional[str] = None, on_frame=None) -> None:
+    def process_webcam(self, annotate: bool = True, save_path: Optional[str] = None,
+                       duration: int = 0, name: Optional[str] = None,
+                       batch_size: int = 0) -> None:
+        """Camera 0 through either loop; with ``batch_size > 0`` results
+        trail the live feed by up to two batches."""
+        cap = imageio.open_video(0)
+        if not cap.isOpened():
+            log.error("Cannot open webcam.")
+            return
+        self._run_stream(cap, annotate, save_path, batch_size, duration, name, "webcam")
+
+    def process_videos(self, video_paths: List[str], *args, **kwargs) -> None:
+        raise NotImplementedError(MULTISTREAM_TODO)
+
+    def _process_stream_batched(self, cap, annotate: bool, save_path: Optional[str],
+                                batch_size: int, duration: int = 0,
+                                name: Optional[str] = None, stream_type: str = "video",
+                                on_frame: OnFrame = None) -> None:
         """Batched loop with one batch in flight: batch i+1 is submitted
-        before batch i is collected."""
+        before batch i is collected, so annotation and writing overlap
+        the device step."""
         from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine, stream_results
 
         interval = max(self.detection_interval, 1)
@@ -227,7 +760,7 @@ class FaceRecognition:
         bse = BatchStreamEngine(self.engine, self.gallery, self.cfg,
                                 tracker_cfg=self.tracker_cfg, detection_interval=interval,
                                 encode_budget=self.cfg.encode_budget, timer=self.timer)
-        reader = PrefetchReader(cap)
+        sink = reader = None
 
         def emit(token, frames) -> bool:
             t0 = time.perf_counter()
@@ -239,8 +772,8 @@ class FaceRecognition:
             self.timer.add("host stream_results", time.perf_counter() - t0)
             for frame, faces in zip(frames, labelled):
                 self.timer.tick_frame()
-                if on_frame is not None:
-                    on_frame(frame, faces)
+                if not sink.emit(frame, faces):
+                    return False
             if duration > 0 and (time.time() - self.timer.start_time) >= duration:
                 log.info("Duration of %d seconds reached. Stopping.", duration)
                 return False
@@ -248,6 +781,9 @@ class FaceRecognition:
 
         inflight = None
         try:
+            sink = _StreamSink(cap, annotate, save_path, self.show, stream_type, on_frame,
+                               self.timer)
+            reader = PrefetchReader(cap)
             batch = []
             stopped = False
             frame_iter = reader.frames()
@@ -280,16 +816,22 @@ class FaceRecognition:
             if not stopped and inflight is not None:
                 emit(*inflight)
         finally:
-            reader.close()
+            if reader is not None:
+                reader.close()
             cap.release()
+            if sink is not None:
+                sink.close()
 
     # -------------------------------------------------------------- close --
 
     def close(self) -> None:
-        """Persist the gallery snapshot and the SQLite store."""
+        """Flush the enrollment buffer, persist the gallery snapshot and
+        the SQLite store, and report."""
         try:
+            self.save_database_to_sqlite()
             self.gallery.save(compact=True)
             self.db_manager.save()
+            log.info("Closed FaceRecognition system and saved all data.")
         except Exception as e:
             log.error("Error closing FaceRecognition system: %s", e)
         if self.enable_logging:

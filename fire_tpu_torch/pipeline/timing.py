@@ -64,6 +64,13 @@ class StageTimer:
     def tick_frame(self) -> None:
         self.frame_count += 1
 
+    def print_image_report(self) -> None:
+        """Image-mode stage table."""
+        print("\n--- Image Processing Timings ---")
+        for step, duration in self.totals.items():
+            print(f"{step}: {duration:.4f} seconds")
+        print(f"Total Processing Time: {sum(self.totals.values()):.4f} seconds\n")
+
     def log_stream_report(self) -> None:
         """End-of-run FPS + per-stage ms/frame."""
         self.resolve()

@@ -1,7 +1,8 @@
-"""Detection↔track assignment on device (counterpart of
+"""Detection↔track assignment (counterpart of
 ``fire_tpu.track.assignment``: ``cost_matrix``, ``lap_assign`` with
 ``_solve_with_fast_path`` and the float32 Jonker-Volgenant
-``_lap_solve``, and ``greedy_assign``).
+``_lap_solve``, ``greedy_assign``, and ``hungarian_assign``, the same
+optimum solved on the host by SciPy).
 
 JAX's ``lax.while_loop`` / ``lax.cond`` become Python control flow over
 device tensors: the fast-path conflict test costs one host read per
@@ -12,6 +13,7 @@ taking the first extremum as JAX does.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from fire_tpu_torch.ops.boxes import iou_matrix_xywh
@@ -29,6 +31,26 @@ def cost_matrix(det_boxes: torch.Tensor, trk_boxes: torch.Tensor,
     tc = trk_boxes[:, :2] + trk_boxes[:, 2:4] / 2.0
     dist = torch.linalg.norm(dc[:, None, :] - tc[None, :, :], dim=-1)
     return (1.0 - iou) + dist / max_distance
+
+
+def hungarian_assign(cost: np.ndarray, det_mask: np.ndarray, trk_mask: np.ndarray,
+                     gate: float) -> np.ndarray:
+    """Exact assignment on the host → ``match`` (T,) int32: detection
+    index matched to each track, or −1.  Invalid rows and columns are
+    masked with a large cost before solving and filtered after, so
+    padding never changes the optimum over real pairs."""
+    from scipy.optimize import linear_sum_assignment
+
+    match = np.full((cost.shape[1],), -1, np.int32)
+    if det_mask.sum() == 0 or trk_mask.sum() == 0:
+        return match
+    c = np.array(cost, np.float64)
+    c[~det_mask, :] = BIG
+    c[:, ~trk_mask] = BIG
+    for r, cidx in zip(*linear_sum_assignment(c)):
+        if det_mask[r] and trk_mask[cidx] and cost[r, cidx] <= gate:
+            match[cidx] = r
+    return match
 
 
 def _lap_solve(c: torch.Tensor, row_valid: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Fixed-capacity SORT tracker on device (counterpart of
 ``fire_tpu.track.sort``: ``TrackTable``, ``make_table``,
-``predict_tracks``, ``apply_assignment``, ``sort_step``).
+``predict_tracks``, ``apply_assignment``, ``sort_step`` and the host
+class ``Sort``).
 
 The track table is a structure of arrays with an ``active`` mask; one
 frame step is predict (batched KF) → associate (exact LAP) →
@@ -10,11 +11,13 @@ pairing and clamps, so ids, masks and provenance match it exactly.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fire_tpu_torch.config import TrackerConfig
+from fire_tpu_torch.device import DeviceLike, resolve_device
 from fire_tpu_torch.track import assignment as assign
 from fire_tpu_torch.track.ukf import kf_predict, kf_update_tracker, tracker_f_matrix
 
@@ -187,3 +190,72 @@ def sort_step(table: TrackTable, det_boxes: torch.Tensor, det_mask: torch.Tensor
     else:
         match = assign.lap_assign(cost, det_mask, table.active, gate)
     return apply_assignment(table, det_boxes, det_mask, match, cfg)
+
+
+def _pack_outputs(out: TrackOutputs) -> torch.Tensor:
+    """(8T,) int32: tid ‖ boxes(4) ‖ age ‖ mask ‖ src_det, one readback."""
+    return torch.cat([out.tid, out.boxes.reshape(-1).to(torch.int32), out.age,
+                      out.mask.to(torch.int32), out.src_det])
+
+
+def _pack_cost_active(cost: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """(D·T + T,) float32: cost matrix ‖ active mask in one transfer."""
+    return torch.cat([cost.reshape(-1), active.float()])
+
+
+class Sort:
+    """Host API of the tracker: ``update(detections)`` takes a list of
+    ``{'bbox': [x, y, w, h], ...}`` dicts and returns
+    ``[{'id', 'bbox', 'age', 'src_det'}, ...]`` for the confirmed tracks.
+    The track table lives on ``device``; each frame costs one packed
+    int32 readback (plus one of cost ‖ active under
+    ``assignment="hungarian_host"``)."""
+
+    def __init__(self, cfg: Optional[TrackerConfig] = None, max_dets: int = 32,
+                 device: DeviceLike = None):
+        self.cfg = cfg or TrackerConfig()
+        self.max_dets = max_dets
+        self.device = resolve_device(device)
+        self.table = make_table(self.cfg, self.device)
+
+    def reset(self) -> None:
+        self.table = make_table(self.cfg, self.device)
+
+    @torch.no_grad()
+    def update(self, detections: List[dict]) -> List[dict]:
+        cfg = self.cfg
+        d_cap = self.max_dets
+        det_boxes = np.zeros((d_cap, 4), np.float32)
+        det_mask = np.zeros((d_cap,), bool)
+        for i, det in enumerate(detections[:d_cap]):
+            det_boxes[i] = np.asarray(det["bbox"], np.float32)
+            det_mask[i] = True
+        tb = torch.from_numpy(det_boxes).to(self.device)
+        tm = torch.from_numpy(det_mask).to(self.device)
+
+        if cfg.assignment == "hungarian_host":
+            # exact LAP solved on the host (SciPy): one packed readback
+            self.table, trk_boxes = predict_tracks(self.table, cfg)
+            packed = _pack_cost_active(
+                assign.cost_matrix(tb, trk_boxes, max_distance=cfg.max_distance),
+                self.table.active).cpu().numpy()
+            t_cap = self.table.x.shape[0]
+            cost = packed[: d_cap * t_cap].reshape(d_cap, t_cap)
+            active = packed[d_cap * t_cap :] > 0.5
+            gate = (1.0 - cfg.iou_threshold) + 1.0
+            match = assign.hungarian_assign(cost, det_mask, active, gate)
+            self.table, out = apply_assignment(
+                self.table, tb, tm, torch.from_numpy(match).to(self.device), cfg)
+        else:
+            self.table, out = sort_step(self.table, tb, tm, cfg)
+
+        buf = _pack_outputs(out).cpu().numpy()
+        t = buf.shape[0] // 8
+        tids, boxes, ages = buf[:t], buf[t : 5 * t].reshape(t, 4), buf[5 * t : 6 * t]
+        mask = buf[6 * t : 7 * t] > 0
+        src = buf[7 * t :]
+        return [
+            {"id": int(tids[i]), "bbox": [int(v) for v in boxes[i]],
+             "age": int(ages[i]), "src_det": int(src[i])}
+            for i in np.nonzero(mask)[0]
+        ]

@@ -1,7 +1,7 @@
-"""Linear Kalman filter — the tracker's exact specialisation of the
-10-dim Merwe UKF (counterpart of ``fire_tpu.track.ukf``'s
-``kf_predict``, ``kf_update_tracker``, ``_inv4_spd`` and the F / H
-matrices).
+"""Kalman filters of the tracker (counterpart of ``fire_tpu.track.ukf``):
+the general sigma-point :class:`MerweUKF`, and the linear KF that is its
+exact specialisation for the tracker's linear models (``kf_predict``,
+``kf_update_tracker``, ``_inv4_spd`` and the F / H matrices).
 
 The process and measurement models are linear, so the UKF equals the
 linear KF; the JAX package runs this specialisation on its hot path in
@@ -12,7 +12,67 @@ off for matmuls by default).
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable, Tuple
+
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MerweUKF:
+    """Functional UKF with Merwe scaled sigma points: rows of the upper
+    Cholesky factor of ``(n + λ) P`` as sigma directions, filterpy's
+    Wm / Wc weights, and sigma points regenerated from the predicted
+    state for the update.  ``fx`` / ``hx`` map one state vector; they are
+    applied to each of the 2n+1 sigma points.  With ``alpha`` near 1e-3
+    the centre weight is about 1e6: use float64 tensors there."""
+
+    n: int
+    fx: Callable[[torch.Tensor], torch.Tensor]
+    hx: Callable[[torch.Tensor], torch.Tensor]
+    alpha: float = 1e-3
+    beta: float = 2.0
+    kappa: float = 0.0
+
+    @property
+    def lambda_(self) -> float:
+        return self.alpha ** 2 * (self.n + self.kappa) - self.n
+
+    def weights(self, like: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        n, lam = self.n, self.lambda_
+        wm = torch.full((2 * n + 1,), 0.5 / (n + lam), dtype=like.dtype, device=like.device)
+        wc = wm.clone()
+        wm[0] = lam / (n + lam)
+        wc[0] = lam / (n + lam) + (1.0 - self.alpha ** 2 + self.beta)
+        return wm, wc
+
+    def sigma_points(self, x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """(2n+1, n) sigma points around ``x``."""
+        u = torch.linalg.cholesky((self.lambda_ + self.n) * p, upper=True)
+        return torch.cat([x[None, :], x[None, :] + u, x[None, :] - u], dim=0)
+
+    def predict(self, x, p, q):
+        """Returns ``(x', P', sigmas)`` with the sigma points rebuilt from
+        the predicted ``(x', P')``, so the update sees the process noise."""
+        wm, wc = self.weights(x)
+        sig_f = torch.stack([self.fx(s) for s in self.sigma_points(x, p)])
+        xp = wm @ sig_f
+        d = sig_f - xp[None, :]
+        pp = d.T @ (wc[:, None] * d) + q
+        return xp, pp, self.sigma_points(xp, pp)
+
+    def update(self, x, p, sigmas_f, z, r):
+        wm, wc = self.weights(x)
+        sig_h = torch.stack([self.hx(s) for s in sigmas_f])
+        zp = wm @ sig_h
+        dz = sig_h - zp[None, :]
+        s = dz.T @ (wc[:, None] * dz) + r
+        dx = sigmas_f - x[None, :]
+        pxz = dx.T @ (wc[:, None] * dz)
+        k = torch.linalg.solve(s.T, pxz.T).T  # K = Pxz S⁻¹
+        xn = x + k @ (z - zp)
+        pn = p - (k @ s) @ k.T
+        return xn, pn
 
 
 def tracker_f_matrix(dt: float = 1.0, device=None) -> torch.Tensor:

@@ -13,7 +13,8 @@ machine with the card has neither ``flax``, ``msgpack`` nor
   whose payload is itself msgpack ``(shape, dtype_name, raw_bytes)``.
   ``bfloat16`` leaves are decoded by hand (uint16 shifted left by 16,
   viewed as float32 — exact).
-* :func:`from_flax_yunet` / :func:`from_flax_facenet` — the numpy tree
+* :func:`from_flax_yunet` / :func:`from_flax_blazeface` /
+  :func:`from_flax_facenet` — the numpy tree
   to a torch state_dict for :mod:`fire_tpu_torch.models`: HWIO conv
   kernels become OIHW (a depthwise ``(3,3,1,f)`` becomes ``(f,1,3,3)``
   by the same transpose), Dense ``(in,out)`` becomes Linear ``(out,in)``,
@@ -205,6 +206,14 @@ def _convert(tree: Dict[str, Any], unit_bn_scale: bool) -> Dict[str, torch.Tenso
 def from_flax_yunet(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """YuNet variables (``{"params", "batch_stats"}``) → state_dict of
     :class:`fire_tpu_torch.models.yunet.YuNet`."""
+    return _convert(tree, unit_bn_scale=False)
+
+
+def from_flax_blazeface(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """BlazeFace variables (``{"params"}`` only: biased convs, BatchNorm
+    folded) → state_dict of
+    :class:`fire_tpu_torch.models.blazeface.BlazeFace`.  A depthwise
+    ``(5,5,1,C)`` kernel becomes ``(C,1,5,5)``."""
     return _convert(tree, unit_bn_scale=False)
 
 

@@ -1,0 +1,193 @@
+"""The port's command line: its parser against ``fire_tpu.cli`` flag for
+flag, and ``main(argv)`` in process on the CPU (trained YuNet at 640² /
+BlazeFace at 192², FaceNet-512 in bf16, a 480×640 rendered scene: the
+sizes the committed default weights need; one image each).
+"""
+
+import os
+import sqlite3
+
+import numpy as np
+import pytest
+
+import fire_tpu.cli as JCLI
+from fire_tpu_torch import cli
+from fire_tpu_torch.train.scenes import compose_scene, make_identities
+from fire_tpu_torch.utils import imageio
+
+
+def _flags(parser):
+    return {a.dest: a for a in parser._actions if a.option_strings and a.dest != "help"}
+
+
+J, T = _flags(JCLI.build_parser()), _flags(cli.build_parser())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """These tests run beside other workers on shared cores: more
+    intra-op threads than that only make them wait for each other."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_parser_has_the_same_flags_plus_device():
+    assert set(T) - set(J) == {"device"} and set(J) <= set(T)
+    assert T["device"].default == "cuda" and T["device"].option_strings == ["--device"]
+
+
+@pytest.mark.parametrize("dest", sorted(J))
+def test_parser_flag_equals_jax(dest):
+    j, t = J[dest], T[dest]
+    for field in ("option_strings", "choices", "default", "nargs", "type", "const", "required"):
+        assert getattr(t, field) == getattr(j, field), (dest, field)
+    assert type(t).__name__ == type(j).__name__  # store / store_true / store_false
+
+
+def test_parser_defaults_equal_jax():
+    j, t = vars(JCLI.build_parser().parse_args([])), vars(cli.build_parser().parse_args([]))
+    assert t.pop("device") == "cuda"
+    assert j == t
+    assert t["mode"] == "image" and t["detector"] == "mediapipe" and t["annotate"] is True
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["--annotate", "--no-annotate"])
+
+
+def test_trained_defaults_table_equals_jax():
+    assert cli._TRAINED_DEFAULTS == JCLI._TRAINED_DEFAULTS
+    assert cli._TRAINED_BLAZE_128 == JCLI._TRAINED_BLAZE_128
+    for name in set(cli._TRAINED_DEFAULTS.values()) | {cli._TRAINED_BLAZE_128}:
+        assert os.path.exists(os.path.join(cli._weights_trained_dir(), name))
+
+
+@pytest.fixture
+def scene(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # storage/ is made under the working directory
+    idents = make_identities(6, seed=31)
+    img, boxes = compose_scene(np.random.default_rng(32), idents, hw=(480, 640), n_faces=(1, 1),
+                               face_px=(230, 270), occlusion_prob=0.0)[:2]
+    imageio.imwrite("scene.bmp", img)
+    return img, boxes
+
+
+def _labels(stem):
+    con = sqlite3.connect(f"storage/{stem}_512_unencrypted/db/face_embeddings_{stem}_512.db")
+    rows = [r[0] for r in con.execute("SELECT label FROM faces ORDER BY id")]
+    con.close()
+    return rows
+
+
+BASE = ["--mode", "image", "--input", "scene.bmp", "--encoder", "512", "--device", "cpu"]
+
+
+def test_main_image_mode_yunet_enrol_recognise_relabel(scene, capsys):
+    img, _ = scene
+    cli.main(BASE + ["--detector", "yunet", "--save", "out.bmp"])
+    first = _labels("yunet")
+    assert len(first) == 1 and first[0].startswith("Unknown_")
+    out = imageio.imread("out.bmp")
+    assert out.shape == img.shape and (out != img).any()
+    assert "Image Processing Timings" in capsys.readouterr().out
+    cli.main(BASE + ["--detector", "yunet", "--no-annotate", "--save", "plain.bmp"])
+    assert _labels("yunet") == first  # recognised, nothing enrolled
+    np.testing.assert_array_equal(imageio.imread("plain.bmp"), img)
+    cli.main(BASE + ["--detector", "yunet", "--label", "alice"])  # relabel + shrink_db_ids
+    assert _labels("yunet") == ["alice"]
+
+
+def test_main_default_detector_is_blazeface_192(scene):
+    _, boxes = scene
+    from fire_tpu_torch.pipeline import recognizer as R
+
+    seen = {}
+    real = R.FaceRecognition.process_image
+
+    def spy(self, **kw):
+        seen["cfg"], seen["src"] = self.cfg, dict(self.engine.weight_source)
+        seen["faces"] = real(self, **kw)
+
+    R.FaceRecognition.process_image = spy
+    try:
+        cli.main(BASE)
+    finally:
+        R.FaceRecognition.process_image = real
+    cfg = seen["cfg"]
+    assert cfg.detector_type == "mediapipe" and cfg.engine.blazeface_size == (192, 192)
+    assert cfg.similarity_threshold == 0.7 and cfg.unknown_trigger_count == 1
+    assert cfg.detection_interval == 1
+    assert seen["src"]["detector"].endswith("blazeface192_synth.msgpack")
+    assert seen["src"]["encoder"].endswith("facenet512_synth.msgpack")
+    assert len(seen["faces"]) == 1
+    x, y, w, h = seen["faces"][0]["bbox"]
+    gx, gy, gw, gh = boxes[0]
+    iw = min(x + w, gx + gw) - max(x, gx)
+    ih = min(y + h, gy + gh) - max(y, gy)
+    assert iw > 0 and ih > 0 and iw * ih / (w * h + gw * gh - iw * ih) >= 0.5
+    assert len(_labels("mediapipe")) == 1
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--password", "pw"], "encryption is not ported yet (ROADMAP.md"),
+    (["--mode", "video", "--inputs", "a.avi", "b.avi"],
+     "multi-stream video is not ported yet (ROADMAP.md"),
+    (["--detector", "retinaface"], "retinaface' is not ported yet (ROADMAP.md"),
+    (["--no_default_weights"], "random-init engines are not ported (ROADMAP.md)"),
+], ids=["password", "inputs", "retinaface", "no_default_weights"])
+def test_main_exits_on_what_is_not_ported(scene, argv, needle):
+    with pytest.raises(SystemExit) as e:
+        cli.main(BASE + argv)
+    assert needle in str(e.value.code)
+
+
+def test_main_without_encoder_512_names_the_missing_weights(scene):
+    argv = [a for a in BASE if a not in ("--encoder", "512")] + ["--detector", "yunet"]
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    msg = str(e.value.code)
+    assert "no 128-d encoder weights are committed" in msg and "facenet512_synth.msgpack" in msg
+    assert "ROADMAP.md" in msg
+
+
+def test_main_names_a_format_that_needs_opencv(scene, monkeypatch):
+    import builtins
+
+    real = builtins.__import__
+    monkeypatch.setattr(builtins, "__import__", lambda name, *a, **k: (_ for _ in ()).throw(
+        ImportError(name)) if name == "cv2" else real(name, *a, **k))
+    with pytest.raises(SystemExit) as e:
+        cli.main(BASE + ["--detector", "yunet", "--save", "out.jpg", "--no-annotate"])
+    assert ".jpg" in str(e.value.code) and "OpenCV" in str(e.value.code)
+
+
+def test_main_defaults_to_cuda_and_does_not_fall_back(scene):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card: the refusal cannot be shown here")
+    argv = [a for a in BASE if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv + ["--detector", "yunet"])
+
+
+def test_main_profile_writes_a_chrome_trace(scene):
+    cli.main(BASE + ["--detector", "yunet", "--profile", "prof"])
+    assert os.path.getsize("prof/trace.json") > 1000
+
+
+def test_python_dash_m_entry_point():
+    import runpy
+
+    with pytest.raises(SystemExit) as e:  # argparse --help exits 0
+        import sys
+
+        old = sys.argv
+        sys.argv = ["fire_tpu_torch", "--help"]
+        try:
+            runpy.run_module("fire_tpu_torch", run_name="__main__")
+        finally:
+            sys.argv = old
+    assert e.value.code == 0

@@ -108,14 +108,20 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FaceRecognition(**FR_KW, storage_root=str(tmp_path), engine=teng, encryption_password="pw")
     fr = FaceRecognition(**FR_KW, storage_root=str(tmp_path), engine=teng)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fr.process_videos(["a.avi", "b.avi"])
+    # ported since: annotate defaults to True and the per-frame loop runs
     frame = np.zeros((64, 64, 3), np.uint8)
-    with pytest.raises(NotImplementedError):
-        fr.process_frames([frame], batch_size=8)  # annotate defaults to True
-    with pytest.raises(NotImplementedError):
-        fr.process_frames([frame], annotate=False, batch_size=0)
+    seen = []
+    fr.process_frames([frame], batch_size=8, on_frame=lambda f, faces: seen.append(faces))
+    fr.process_frames([frame], annotate=False, batch_size=0,
+                      on_frame=lambda f, faces: seen.append(faces))
+    assert seen == [[], []]
     unloaded = DeviceEngine(RecognizerConfig(), device="cpu")
     from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine
 
     with pytest.raises(NotImplementedError, match="random-init"):
         BatchStreamEngine(unloaded, fr.gallery, fr.cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DeviceEngine(RecognizerConfig(detector_type="retinaface"), device="cpu")
     fr.close()
