@@ -1,4 +1,5 @@
-"""FIRE on PyTorch/CUDA: the batched video path of :mod:`fire_tpu`, ported.
+"""FIRE on PyTorch/CUDA: :mod:`fire_tpu`'s batched video path, per-frame
+path, image mode and command line (``python -m fire_tpu_torch``), ported.
 
 The package mirrors ``fire_tpu``'s module names so each counterpart is
 easy to find.  It imports ``torch`` and never JAX, Flax or anything of
