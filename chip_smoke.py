@@ -7,7 +7,9 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
 
 1. ``env``: torch / CUDA versions, the card's name and power limit.
 2. ``build``: compiles kernel K1 (``fire_tpu_torch/csrc/cosine_top1.cu``)
-   with nvcc for sm_90a; fails if ptxas reports a spill.
+   with nvcc for sm_90a, and beside it the host AES-128-CBC library of
+   the at-rest encryption (``csrc/aes128_cbc.cpp``) with the host C++
+   compiler, both at once; fails if ptxas reports a spill.
 3. ``kernels``: K1 against its plain PyTorch version on the card at the
    host query path's and the batched path's shapes (M = 1…2048 queries ×
    the 100,352-row padded gallery × 512), with its launch plan and its
@@ -18,23 +20,34 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    width (YuNet-64 at 640², FaceNet-512, 99,900-row gallery, committed
    trained weights) over rendered 1-face 1080p scenes; K1's launch count
    is set to 0 just before and read just after.
-5. ``frame_path``: ``process_frames(batch_size=0)``, the per-frame loop
+5. ``retina_path``: the same batched path and frames with the RetinaFace
+   slot (ResNet-50 + FPN + SSH at 512², committed weights).
+6. ``frame_path``: ``process_frames(batch_size=0)``, the per-frame loop
    (detect → host ``Sort`` → encode new tracks → K1 at M = 1…8 → unknown
    lifecycle), over 64 rendered 1080p frames with 1–3 faces against the
    same gallery; frames/s and ms per frame by stage.  A second, shorter
    run uses ``detection_interval=3`` and ``align_video=True`` (coasting
    and landmark-aligned encoding).
-6. ``image_mode``: ``fire_tpu_torch.cli.main`` in process on a rendered
+7. ``retina_frame``: the per-frame loop's first run with RetinaFace.
+8. ``image_mode``: ``fire_tpu_torch.cli.main`` in process on a rendered
    1080p BMP: enrol, recognise, relabel (``--label``), then the default
    command (BlazeFace at 192²).
-7. ``trace``: one more batch of the batched path and 16 frames of the
-   per-frame path under ``torch.profiler``, for the device's busy time
-   and its idle share of the traced wall time (two ``trace`` lines).  It
-   runs after every timed phase: the profiler leaves launches slower.
-8. ``cross_device``: one 8-frame batched step, and the per-frame engine
+9. ``default_command``: ``cli.main`` image mode without ``--encoder``
+   (the random-init FaceNet-128 and its params cache), twice on fresh
+   storage: the first call writes the cache, the second reads it.
+10. ``encrypted``: ``FaceRecognition(encryption_password=...)`` on the
+   99,900-row gallery: enrolment, close, reopen, an encrypted BMP save, a
+   wrong password; AES MB/s and the seconds of the 204 MB snapshot.
+11. ``trace``: one more batch of the batched path and 16 frames of the
+   per-frame path under ``torch.profiler``, with YuNet and with
+   RetinaFace, for the device's busy time and its idle share of the
+   traced wall time (four ``trace`` lines).  It runs after every timed
+   phase: the profiler leaves launches slower.
+12. ``cross_device``: one 8-frame batched step, the per-frame engine
    calls (``detect_faces``, ``encode_boxes``, ``encode_landmarks``,
-   ``extract_faces``, BlazeFace ``detect``), on the card and on the CPU
-   in float32, compared.
+   ``extract_faces``, BlazeFace and RetinaFace ``detect``), and the
+   random-init FaceNet-128, on the card and on the CPU in float32,
+   compared.
 
 Any failed check raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or ``fire_tpu`` is
@@ -52,8 +65,8 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "main_path", "frame_path", "image_mode", "trace",
-          "cross_device")
+PHASES = ("env", "build", "kernels", "main_path", "retina_path", "frame_path", "retina_frame",
+          "image_mode", "default_command", "encrypted", "trace", "cross_device")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 and dense bf16.
 HBM_BYTES_PER_S = 3.35e12
@@ -166,14 +179,24 @@ def phase_env(ctx) -> None:
 
 
 def phase_build(ctx) -> None:
+    """K1 with nvcc and the AES library with the host compiler, started
+    together; each from the checkout's source, never from an old build."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fire_tpu_torch.gallery import crypto
     from fire_tpu_torch.ops import cosine_top1 as k1
 
-    lib = k1.library_path()
-    if os.path.exists(lib):
-        os.remove(lib)  # always prove the build from the checkout's source
-    t0 = time.time()
-    k1.build()
-    secs = time.time() - t0
+    def timed(build, path):
+        if os.path.exists(path):
+            os.remove(path)  # always prove the build from the checkout's source
+        t0 = time.time()
+        build()
+        return time.time() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        k1_job = pool.submit(timed, k1.build, k1.library_path())
+        aes_job = pool.submit(timed, crypto.build, crypto.library_path())
+        secs, aes_secs = k1_job.result(), aes_job.result()
     ptxas = [ln.strip() for ln in k1.build_log.splitlines() if "registers" in ln or "spill" in ln]
     clean = "0 bytes spill stores, 0 bytes spill loads"
     spills = [ln for ln in ptxas if "spill" in ln and clean not in ln]
@@ -181,7 +204,10 @@ def phase_build(ctx) -> None:
                        "registers": [int(ln.split("Used ")[1].split()[0]) for ln in ptxas
                                      if "Used " in ln]}
     emit({"phase": "build", "kernel": k1.NAME, "arch": "sm_90a", "nvcc_flags": list(k1.NVCC_FLAGS),
-          "ptxas": ptxas, **ctx["k1_build"]})
+          "ptxas": ptxas, **ctx["k1_build"],
+          "aes_library": {"source": "fire_tpu_torch/csrc/aes128_cbc.cpp",
+                          "flags": list(crypto.CXX_FLAGS), "seconds": round(aes_secs, 3),
+                          "backend": crypto.backend()}})
     check(bool(ptxas) and not spills, f"K1 build: ptxas reports spills: {spills}")
 
 
@@ -325,20 +351,32 @@ class _K1Sizes:
         self._index.cosine_top1 = self._real
 
 
-def phase_main_path(ctx) -> None:
+YUNET = dict(detector_type="yunet", trained_detector=_trained("yunet_synth.msgpack"))
+
+
+def _retina():
+    from fire_tpu_torch.config import EngineConfig
+
+    # the CLI's sizing rule: the committed weights are trained at 512²
+    return dict(detector_type="retinaface", engine_cfg=EngineConfig(retinaface_size=(512, 512)),
+                trained_detector=_trained("retinaface_synth.msgpack"))
+
+
+def _batched_run(ctx, storage: str, detector: dict):
+    """``process_frames(batch_size=64)`` at full width against the
+    99,900-row gallery, after a warm-up batch.  Returns the recognizer
+    (still open) and what the phase checks and prints."""
     import torch
 
     from fire_tpu_torch.config import TrackerConfig
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.pipeline.recognizer import FaceRecognition
 
-    storage = ctx["tmp"]
     fr = FaceRecognition(
-        detector_type="yunet", encoder_model_type="512", similarity_threshold=0.7,
+        encoder_model_type="512", similarity_threshold=0.7,
         unknown_trigger_count=1, detection_interval=1, enable_logging=False,
         storage_root=storage, tracker_cfg=TrackerConfig(assignment="hungarian"),
-        trained_detector=_trained("yunet_synth.msgpack"),
-        trained_encoder=_trained("facenet512_synth.msgpack"), device="cuda")
+        trained_encoder=_trained("facenet512_synth.msgpack"), device="cuda", **detector)
     fr.gallery.load_rows(_gallery_rows(ctx))
     check(fr.gallery.count == N_GALLERY and fr.gallery.padded == PADDED_ROWS, "gallery size")
 
@@ -348,8 +386,10 @@ def phase_main_path(ctx) -> None:
     sql_before = fr.db_manager.count()
 
     per_scene = 32
-    frames = _frames(seed=0, n_scenes=2 * BATCH // per_scene, per_scene=per_scene)
+    n_scenes = 2 * BATCH // per_scene
+    frames = _frames(seed=0, n_scenes=n_scenes, per_scene=per_scene)
     faces_per_frame = []
+    torch.cuda.reset_peak_memory_stats()
     k1.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -359,40 +399,57 @@ def phase_main_path(ctx) -> None:
     wall = time.perf_counter() - t0
     launches = k1.launches
     n_batches = len(frames) // BATCH
-    sql_after = fr.db_manager.count()
+    added = fr.db_manager.count() - sql_before
 
     # warm-up: a scene's first min_hits frames carry no confirmed track
     tracked = _tracked_fraction(faces_per_frame, per_scene, TrackerConfig().min_hits)
-    check(len(faces_per_frame) == len(frames), "every frame produced a result")
-    check(launches >= n_batches, f"K1 launched {launches} times for {n_batches} batches")
-    check(tracked >= 0.9, f"faces tracked in {tracked:.3f} of the frames after warm-up")
-    check(sql_after > sql_before, "enrolments reached SQLite")
+    name = fr.cfg.detector_type
+    check(len(faces_per_frame) == len(frames), f"{name}: every frame produced a result")
+    check(launches >= n_batches, f"{name}: K1 launched {launches} times for {n_batches} batches")
+    check(tracked >= 0.9, f"{name}: faces tracked in {tracked:.3f} of the frames after warm-up")
+    # each scene's one face is enrolled at most once, and something is
+    check(1 <= added <= n_scenes, f"{name}: {added} enrolments for {n_scenes} one-face scenes")
     totals = fr.timer.totals
     stages = {k: round(v / n_batches * 1e3, 3) for k, v in totals.items()}
-    rec = {"phase": "main_path", "frames": len(frames), "batch": BATCH, "batches": n_batches,
-           "frames_per_s": len(frames) / wall, "wall_s": wall, "k1_launches": launches,
-           "tracked_fraction": tracked, "sqlite_rows_added": sql_after - sql_before,
-           "gallery_count": fr.gallery.count, "stage_ms_per_batch": stages,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    ctx["k1_launches"] = launches
+    return fr, {"frames": len(frames), "batch": BATCH, "batches": n_batches,
+                "frames_per_s": len(frames) / wall, "wall_s": wall, "k1_launches": launches,
+                "tracked_fraction": tracked, "sqlite_rows_added": added,
+                "gallery_count": fr.gallery.count, "stage_ms_per_batch": stages,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_main_path(ctx) -> None:
+    fr, rec = _batched_run(ctx, ctx["tmp"], YUNET)
+    ctx["k1_launches"] = rec["k1_launches"]
     ctx["fr"] = fr  # the trace phase runs it once more, then closes it
-    emit(rec)
+    emit({"phase": "main_path", **rec})
+
+
+def phase_retina_path(ctx) -> None:
+    """The batched path with RetinaFace at 512² (its detect stage is
+    ResNet-50 + FPN + SSH over 64 frames, then decode + NMS)."""
+    fr, rec = _batched_run(ctx, os.path.join(ctx["tmp"], "retina_path"), _retina())
+    ctx["fr_retina"] = fr  # traced too, then closed, by the trace phase
+    ctx["k1_launches_retina_path"] = rec["k1_launches"]
+    emit({"phase": "retina_path", "detector": "retinaface-512", **rec})
 
 
 def phase_trace(ctx) -> None:
     """One more batch of the batched path, then 16 frames of the
-    per-frame path, under ``torch.profiler``.  The profiler leaves
-    launches slower for the rest of the process, so this phase comes
-    after every phase that reports a time."""
-    fr = ctx.pop("fr")
-    try:
-        emit(trace_frames(fr, _frames(seed=3, n_scenes=2, per_scene=BATCH // 2)))
-        fr.process_frames(_frames(seed=6, n_scenes=1, per_scene=8, n_faces=(1, 3)),
-                          annotate=False, batch_size=0)  # warm-up of this path
-        emit(trace_frames(fr, _frames(seed=7, n_scenes=2, per_scene=8, n_faces=(1, 3)),
-                          batch_size=0))
-    finally:
-        fr.close()
+    per-frame path, under ``torch.profiler``, with YuNet and with
+    RetinaFace.  The profiler leaves launches slower for the rest of the
+    process, so this phase comes after every phase that reports a time."""
+    for key, detector in (("fr", "yunet-640"), ("fr_retina", "retinaface-512")):
+        fr = ctx.pop(key)
+        try:
+            emit({**trace_frames(fr, _frames(seed=3, n_scenes=2, per_scene=BATCH // 2)),
+                  "detector": detector})
+            fr.process_frames(_frames(seed=6, n_scenes=1, per_scene=8, n_faces=(1, 3)),
+                              annotate=False, batch_size=0)  # warm-up of this path
+            emit({**trace_frames(fr, _frames(seed=7, n_scenes=2, per_scene=8, n_faces=(1, 3)),
+                                 batch_size=0), "detector": detector})
+        finally:
+            fr.close()
 
 
 def trace_frames(fr, frames, batch_size: int = BATCH) -> dict:
@@ -431,7 +488,8 @@ def trace_frames(fr, frames, batch_size: int = BATCH) -> dict:
             "top_device_ms": {k: v / 1e3 for k, v in top}}
 
 
-def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, **fr_kw) -> dict:
+def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: dict,
+                   **fr_kw) -> dict:
     """One ``process_frames(batch_size=0)`` run at full width against the
     99,900-row gallery; returns what the phase checks and prints."""
     import torch
@@ -440,10 +498,9 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, **fr_kw) -
     from fire_tpu_torch.pipeline.recognizer import FaceRecognition
 
     fr = FaceRecognition(
-        detector_type="yunet", encoder_model_type="512", similarity_threshold=0.7,
+        encoder_model_type="512", similarity_threshold=0.7,
         unknown_trigger_count=1, enable_logging=False, storage_root=storage,
-        trained_detector=_trained("yunet_synth.msgpack"),
-        trained_encoder=_trained("facenet512_synth.msgpack"), device="cuda", **fr_kw)
+        trained_encoder=_trained("facenet512_synth.msgpack"), device="cuda", **detector, **fr_kw)
     try:
         fr.gallery.load_rows(_gallery_rows(ctx))
         check(fr.gallery.count == N_GALLERY and fr.gallery.padded == PADDED_ROWS, "gallery size")
@@ -517,7 +574,7 @@ def phase_frame_path(ctx) -> None:
     warmup = _frames(seed=1, n_scenes=2, per_scene=8, n_faces=(1, 3))
     rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "frame_path"),
                          _frames(seed=0, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
-                         per_scene, warmup, detection_interval=1)
+                         per_scene, warmup, YUNET, detection_interval=1)
     emit({"phase": "frame_path", "run": "detect every frame, box crops", **rec})
     _check_per_frame(rec, "frame_path")
     ctx["k1_launches_frame_path"] = rec["k1_launches"]
@@ -526,10 +583,24 @@ def phase_frame_path(ctx) -> None:
     rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "frame_path_aligned"),
                          _frames(seed=4, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
                          per_scene, _frames(seed=1, n_scenes=1, per_scene=18, n_faces=(1, 3)),
-                         detection_interval=3, align_video=True)
+                         YUNET, detection_interval=3, align_video=True)
     emit({"phase": "frame_path", "run": "detection_interval=3, align_video", **rec})
     _check_per_frame(rec, "frame_path (interval 3, aligned)")
     check(rec["encode_frames_aligned"] > 0, "frame_path: no landmark-aligned crop was encoded")
+
+
+def phase_retina_frame(ctx) -> None:
+    """The per-frame loop's first run (64 frames, 1–3 faces, detect every
+    frame) with RetinaFace at 512²."""
+    per_scene = 32
+    rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "retina_frame"),
+                         _frames(seed=0, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
+                         per_scene, _frames(seed=1, n_scenes=2, per_scene=8, n_faces=(1, 3)),
+                         _retina(), detection_interval=1)
+    emit({"phase": "retina_frame", "detector": "retinaface-512",
+          "run": "detect every frame, box crops", **rec})
+    _check_per_frame(rec, "retina_frame")
+    ctx["k1_launches_retina_frame"] = rec["k1_launches"]
 
 
 def _iou_xywh(a, b) -> float:
@@ -637,6 +708,215 @@ def phase_image_mode(ctx) -> None:
           "stage_seconds": {"yunet, first": st_first, "yunet, second": st_second,
                             "default": st_default},
           "default_detector_iou": ious})
+
+
+def _one_face_bmp(work: str, seed: int):
+    """A rendered short-range 1080p scene with one face, as a BMP."""
+    import numpy as np
+
+    from fire_tpu_torch.train.scenes import compose_scene, make_identities
+    from fire_tpu_torch.utils import imageio
+
+    os.makedirs(work, exist_ok=True)
+    scene = compose_scene(np.random.default_rng(seed), make_identities(8, seed=seed),
+                          hw=(1080, 1920), n_faces=(1, 1), face_px=(420, 700))[0]
+    src = os.path.join(work, "scene.bmp")
+    imageio.imwrite(src, scene)
+    return scene, src
+
+
+def phase_default_command(ctx) -> None:
+    """``python -m fire_tpu_torch --mode image --input scene.bmp
+    --detector yunet`` without ``--encoder``: no 128-d weights are
+    committed, so the encoder is the random init of seed 0.  Twice in
+    one process on fresh storage: the first call writes the params
+    cache, the second reads it.  The face's embedding must be bitwise the
+    same in both calls and in an engine materialized here, and the face
+    must enrol, then be recognised."""
+    import contextlib
+    import io
+    import sqlite3
+
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch import cli
+    from fire_tpu_torch.config import RecognizerConfig
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.pipeline import engine as E
+
+    work = os.path.join(ctx["tmp"], "default_command")
+    scene, src = _one_face_bmp(work, seed=13)
+    cache = os.path.join(work, "storage", "yunet_128_unencrypted", "params",
+                         "params_yunet_128.msgpack")
+    calls = {"materialize": 0}
+    embs, boxes_seen = [], []
+    real_mat, real_enc = E.materialize, E.DeviceEngine.encode_boxes
+
+    def counting(tree, seed):
+        calls["materialize"] += 1
+        return real_mat(tree, seed)
+
+    def noting(self, frame, boxes):
+        out = real_enc(self, frame, boxes)
+        embs.append(out.copy())
+        boxes_seen.append(np.array(boxes))
+        return out
+
+    def labels():
+        con = sqlite3.connect(os.path.join(work, "storage", "yunet_128_unencrypted", "db",
+                                           "face_embeddings_yunet_128.db"))
+        try:
+            return [r[0] for r in con.execute("SELECT label FROM faces ORDER BY id")]
+        finally:
+            con.close()
+
+    cwd = os.getcwd()
+    E.materialize, E.DeviceEngine.encode_boxes = counting, noting
+    k1.reset_launches()
+    seconds, materialized = [], []
+    try:
+        os.chdir(work)
+        for _ in range(2):
+            before = calls["materialize"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["--mode", "image", "--input", src, "--detector", "yunet"])
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            materialized.append(calls["materialize"] - before)
+            if len(seconds) == 1:
+                check(os.path.exists(cache), "default_command: the first call wrote no params cache")
+                cache_mtime = os.path.getmtime(cache)
+                enrolled = labels()
+    finally:
+        os.chdir(cwd)
+        E.materialize, E.DeviceEngine.encode_boxes = real_mat, real_enc
+    launches = k1.launches
+    check(materialized == [2, 0], f"default_command: materialize calls per run {materialized}")
+    check(os.path.getmtime(cache) == cache_mtime, "default_command: the second call rewrote the cache")
+    check(len(embs) == 2 and embs[0].shape == (1, 128), f"default_command: embeddings {len(embs)}")
+    check(np.array_equal(embs[0], embs[1]), "default_command: embeddings differ between the calls")
+    # the same weights materialized here, with no cache
+    cfg = RecognizerConfig(detector_type="yunet", weights_dir=None).with_embedding_dim()
+    eng = E.DeviceEngine(cfg, device="cuda")
+    here = eng.encode_boxes(scene, boxes_seen[0])
+    check(np.array_equal(here, embs[0]),
+          f"default_command: materialize(seed 0) embeds differently, max "
+          f"{float(np.abs(here - embs[0]).max())}")
+    check(len(enrolled) == 1 and enrolled[0].startswith("Unknown_"),
+          f"default_command: the first call enrolled {enrolled}")
+    check(labels() == enrolled, "default_command: the second call did not recognise the face")
+    check(launches == 1, f"default_command: K1 launched {launches} times")
+    ctx["k1_launches_default_command"] = launches
+    emit({"phase": "default_command", "encoder": "facenet128 random-init (seed 0)",
+          "seconds": {"first (writes the cache)": seconds[0], "second (reads it)": seconds[1]},
+          "params_cache_bytes": os.path.getsize(cache), "k1_launches": launches,
+          "embedding_bitwise_equal": True, "enrolled": enrolled})
+
+
+def phase_encrypted(ctx) -> None:
+    """``FaceRecognition(encryption_password=...)`` at full width on the
+    99,900-row gallery: an image enrols a face (the first encrypted
+    snapshot, 204 MB), close, reopen; the reopened gallery must be
+    bitwise the same and K1 must return the same (sim, idx) on it; an
+    encrypted BMP save decrypts to the plain BMP's bytes; a wrong
+    password gives an empty store and gallery.  Also the AES rate and
+    the seconds of one encrypt and one decrypt of the snapshot."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.gallery import crypto
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+    from fire_tpu_torch.utils import imageio
+
+    work = os.path.join(ctx["tmp"], "encrypted")
+    scene, src = _one_face_bmp(work, seed=17)
+    kw = dict(detector_type="yunet", encoder_model_type="512", similarity_threshold=0.7,
+              unknown_trigger_count=1, detection_interval=1, enable_logging=False,
+              storage_root=os.path.join(work, "storage"), device="cuda",
+              trained_detector=_trained("yunet_synth.msgpack"),
+              trained_encoder=_trained("facenet512_synth.msgpack"))
+    password = "chip-smoke-password"
+    k1.reset_launches()
+    times = {}
+    fr = FaceRecognition(encryption_password=password, **kw)
+    fr.gallery.load_rows(_gallery_rows(ctx))
+    t0 = time.perf_counter()
+    first = fr.process_image(src, annotate=False)  # enrols: the first snapshot
+    times["enrol (first encrypted snapshot)"] = time.perf_counter() - t0
+    check(len(first) == 1 and first[0]["label"].startswith("Unknown_"),
+          f"encrypted: the image gave {first}")
+    t0 = time.perf_counter()
+    fr.close()
+    times["close"] = time.perf_counter() - t0
+    count = fr.gallery.count
+    check(count == N_GALLERY + 1, f"encrypted: gallery count {count}")
+    before = fr.gallery._gal[:count].clone()
+
+    t0 = time.perf_counter()
+    fr2 = FaceRecognition(encryption_password=password, **kw)
+    times["reopen"] = time.perf_counter() - t0
+    check(fr2.gallery.count == count and fr2.gallery.labels == fr.gallery.labels
+          and fr2.gallery.db_ids == fr.gallery.db_ids, "encrypted: reopened labels or ids differ")
+    check(torch.equal(fr2.gallery._gal[:count], before), "encrypted: reopened rows differ")
+    check(fr2.db_manager.count() == 1, f"encrypted: SQLite holds {fr2.db_manager.count()} rows")
+    q = torch.from_numpy(unit_rows(np.random.default_rng(5), 8, DIM)).cuda()
+    q[0] = before[count - 1]  # the enrolled face itself
+    a = k1.cosine_top1(q, fr.gallery.gal_matmul, count)
+    b = k1.cosine_top1(q, fr2.gallery.gal_matmul, count)
+    torch.cuda.synchronize()
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and int(b[1][0]) == count - 1,
+          "encrypted: K1 differs on the reopened gallery")
+    out = os.path.join(work, "out.bmp")
+    second = fr2.process_image(src, annotate=False, save_path=out)
+    check([d["label"] for d in second] == [d["label"] for d in first],
+          "encrypted: the reopened store did not recognise the face")
+    check(crypto.Encryptor(password).read_and_decrypt(out) == imageio.imencode(".bmp", scene),
+          "encrypted: the saved BMP does not decrypt to the plain BMP")
+    fr2.close()
+    launches = k1.launches - 2  # the two comparison launches above do not count
+
+    # the snapshot's bytes: one encrypt and one decrypt, then AES alone
+    buf = io.BytesIO()
+    np.save(buf, before.cpu().numpy())
+    snap = buf.getvalue()
+    enc = crypto.Encryptor(password)
+    t0 = time.perf_counter()
+    blob = enc.encrypt_data(snap)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(enc.decrypt_data(blob) == snap, "encrypted: snapshot round trip")
+    t_dec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    crypto.derive_key(password.encode(), b"0" * 16)
+    t_kdf = time.perf_counter() - t0
+    key, iv = os.urandom(16), os.urandom(16)
+    t0 = time.perf_counter()
+    ct = crypto.aes128_cbc_encrypt(key, iv, snap)
+    t_aes_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    crypto.aes128_cbc_decrypt(key, iv, ct)
+    t_aes_dec = time.perf_counter() - t0
+
+    # a wrong password: an empty store and gallery, no exception (last:
+    # its start-up writes an empty snapshot over the files)
+    wrong = FaceRecognition(encryption_password="not-the-password", **kw)
+    check(wrong.gallery.count == 0 and wrong.db_manager.count() == 0,
+          "encrypted: a wrong password opened something")
+    wrong.close()
+    ctx["k1_launches_encrypted"] = launches
+    mb = len(snap) / 1e6
+    emit({"phase": "encrypted", "aes_backend": crypto.backend(), "snapshot_mb": mb,
+          "encrypted_blob_mb": len(blob) / 1e6,
+          "seconds": {**times, "encrypt_data(snapshot)": t_enc, "decrypt_data(snapshot)": t_dec,
+                      f"pbkdf2 ({crypto.PBKDF2_ITERATIONS:,} iterations)": t_kdf},
+          "aes_mb_per_s": {"cbc encrypt": mb / t_aes_enc, "cbc decrypt": mb / t_aes_dec},
+          "k1_launches": launches, "gallery_count": count})
 
 
 def phase_cross_device(ctx) -> None:
@@ -758,6 +1038,36 @@ def _cross_device_per_frame(yunet: dict, cfg) -> dict:
     check(out["blazeface_detect"]["box_err_px"] <= 1.0
           and out["blazeface_detect"]["landmark_err_px"] <= 1.0,
           f"cross_device: BlazeFace {out['blazeface_detect']}")
+
+    # RetinaFace at 512², committed weights, on a 1080p frame of 1–3 faces:
+    # the same faces kept, IoU >= 0.9 box by box, landmarks within 2 px
+    rcfg = dataclasses.replace(
+        cfg, detector_type="retinaface",
+        engine=EngineConfig(compute_dtype="float32", strict_f32_preprocess=True,
+                            retinaface_size=(512, 512)))
+    frame = _frames(seed=11, n_scenes=1, per_scene=1, n_faces=(1, 3))[0]
+    found = {}
+    for dev in yunet:
+        eng = DeviceEngine(rcfg, device=yunet[dev].device, encoder=yunet[dev].encoder)
+        eng.load_trained_detector(_trained("retinaface_synth.msgpack"))
+        d = eng.detect(frame)
+        keep = d.mask.cpu().numpy()
+        found[dev] = (d.boxes_xywh.cpu().numpy()[keep], d.landmarks.cpu().numpy()[keep])
+    (ba, la), (bb, lb) = found["cuda"], found["cpu"]
+    check(len(ba) == len(bb) > 0, f"cross_device: RetinaFace found {len(ba)} vs {len(bb)}")
+    ious = [_iou_xywh(x, y) for x, y in zip(ba, bb)]
+    out["retinaface_detect"] = {"faces": len(ba), "min_iou": min(ious),
+                                "landmark_err_px": float(np.abs(la - lb).max())}
+    check(min(ious) >= 0.9 and out["retinaface_detect"]["landmark_err_px"] <= 2.0,
+          f"cross_device: RetinaFace {out['retinaface_detect']}")
+
+    # the random-init FaceNet-128 (seed 0) at B = 4
+    ecfg = dataclasses.replace(cfg, encoder_model_type="128").with_embedding_dim()
+    crops = np.random.default_rng(12).uniform(0, 1, (4, 160, 160, 3)).astype(np.float32)
+    embs = {dev: DeviceEngine(ecfg, device=dev).encode_faces(crops) for dev in yunet}
+    out["facenet128_random_init"] = {"batch": 4, "min_cos": min_cos(embs["cuda"], embs["cpu"])}
+    check(out["facenet128_random_init"]["min_cos"] >= 0.999,
+          f"cross_device: random-init FaceNet-128 {out['facenet128_random_init']}")
     return out
 
 
@@ -767,7 +1077,8 @@ def _cross_device_per_frame(yunet: dict, cfg) -> dict:
 def kernel_summary(ctx) -> dict:
     """The contract line: K1 at the main path's shape (M = one query per
     frame of a 64-frame batch, the smallest compaction rung), with its
-    launch counts on the batched path, the per-frame path and image mode."""
+    launch counts on every path: batched (YuNet, RetinaFace), per-frame
+    (YuNet, RetinaFace), image mode, the default command, encrypted."""
     from fire_tpu_torch.ops import cosine_top1 as k1
 
     main = next(r for r in ctx["k1"] if r.get("case") == f"M={BATCH}")
@@ -777,6 +1088,10 @@ def kernel_summary(ctx) -> dict:
         "replaces": "fire_tpu/ops/pallas_topk.py:61", "launches": ctx["k1_launches"],
         "launches_frame_path": ctx["k1_launches_frame_path"],
         "launches_image_mode": ctx["k1_launches_image_mode"],
+        "launches_retina_path": ctx["k1_launches_retina_path"],
+        "launches_retina_frame": ctx["k1_launches_retina_frame"],
+        "launches_default_command": ctx["k1_launches_default_command"],
+        "launches_encrypted": ctx["k1_launches_encrypted"],
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "device_ms": main["kernel_device_ms"],
@@ -802,8 +1117,9 @@ def main() -> int:
         for name in PHASES:
             globals()[f"phase_{name}"](ctx)
     finally:
-        if "fr" in ctx:  # a phase failed before the trace phase closed it
-            ctx["fr"].close()
+        for key in ("fr", "fr_retina"):  # a phase failed before the trace phase closed it
+            if key in ctx:
+                ctx[key].close()
         shutil.rmtree(ctx["tmp"], ignore_errors=True)
     print(json.dumps(kernel_summary(ctx)))
     print(ctx["smi"])

@@ -1,10 +1,14 @@
 """FIRE on PyTorch/CUDA: :mod:`fire_tpu`'s batched video path, per-frame
-path, image mode and command line (``python -m fire_tpu_torch``), ported.
+path, image mode and command line (``python -m fire_tpu_torch``), with
+every detector slot (YuNet, RetinaFace, BlazeFace) and at-rest
+encryption, ported.
 
 The package mirrors ``fire_tpu``'s module names so each counterpart is
 easy to find.  It imports ``torch`` and never JAX, Flax or anything of
 ``fire_tpu``; weights load from the same Flax msgpack files through its
-own decoder (:mod:`fire_tpu_torch.weights`).
+own decoder, and models without committed weights get the JAX engine's
+deterministic random init, kept in the same params cache
+(:mod:`fire_tpu_torch.weights`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device they raise instead of falling back.
@@ -12,7 +16,9 @@ without a CUDA device they raise instead of falling back.
 The one hand-written kernel, K1 (fused cosine top-1 over the gallery),
 is CUDA C++ under ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first
 use into ``_build/`` and bound with ``ctypes``
-(:mod:`fire_tpu_torch.ops.cosine_top1`).
+(:mod:`fire_tpu_torch.ops.cosine_top1`).  Beside it, ``csrc/`` holds the
+encryption's AES-128-CBC for the host CPU, built the same way with the
+host C++ compiler (:mod:`fire_tpu_torch.gallery.crypto`).
 """
 
 __version__ = "0.1.0"

@@ -1,17 +1,19 @@
 """Command-line interface of the port (counterpart of ``fire_tpu.cli``):
 the same flags, choices and defaults, plus ``--device``, and the same
 wiring (``similarity_threshold=0.7``, ``unknown_trigger_count=1``,
-detection interval forced to 1 in image mode, ``shrink_db_ids`` after
+detection interval forced to 1 in image mode, the committed
+``weights_trained/`` defaults loaded into whichever model is still
+random-init, RetinaFace sized to its committed 512² weights and the
+mediapipe slot to 192² when no size is given, ``shrink_db_ids`` after
 ``--label`` runs, ``close`` at exit).
 
-    python -m fire_tpu_torch --mode image --input scene.bmp --encoder 512 --save out.bmp
+    python -m fire_tpu_torch --mode image --input scene.bmp --save out.bmp
 
+A model with no committed weights (the 128-d encoder, the default) runs
+the deterministic random init kept in the params cache, as in JAX.
 What the port does not have yet ends the run with a message that names
-ROADMAP.md: ``--password``, ``--inputs``, ``--detector retinaface``, and
-any model whose weights are neither given (``--trained`` /
-``--trained_detector``) nor committed under ``weights_trained/``:
-engines with random weights are not ported.  ``--weights_dir`` is
-accepted and not probed: the ONNX / TFLite importers are not ported.
+ROADMAP.md: ``--inputs`` (multi-stream), and a real ONNX / TFLite file
+in ``--weights_dir`` (the importers).
 """
 
 from __future__ import annotations
@@ -43,10 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Identity name: relabels the matched face in image mode, renames recognized faces in webcam mode")
     p.add_argument("--log", action="store_true", help="Verbose INFO-level logging (default: critical only)")
     p.add_argument("--show", action="store_true", help="Open a window showing each processed frame (press q to stop streams; needs OpenCV)")
-    p.add_argument("--password", type=str, default=None, help="At-rest encryption of database, index and outputs (not ported yet)")
+    p.add_argument("--password", type=str, default=None, help="At-rest encryption of database, index and outputs")
     p.add_argument("--detector", type=str, default="mediapipe",
                    choices=["mediapipe", "yunet", "retinaface"],
-                   help="Detector type (mediapipe selects the BlazeFace-class fast path; retinaface is not ported yet)")
+                   help="Detector type (mediapipe selects the BlazeFace-class fast path)")
     p.add_argument("--encoder", type=str, default=None, choices=["128", "512"],
                    help="FaceNet embedding width: 128-d or 512-d")
     p.add_argument("--encoder_mode", type=str, default="cpu_optimized",
@@ -85,14 +87,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", type=str, default=None,
                    help="Write a torch.profiler Chrome trace (trace.json) to this directory")
     p.add_argument("--weights_dir", type=str, default="weights",
-                   help="Directory of reference ONNX / TFLite weight files (accepted; "
-                        "the importers are not ported yet)")
+                   help="Directory of reference ONNX / TFLite weight files (the importers "
+                        "are not ported: a real file there stops the run)")
     p.add_argument("--trained", type=str, default=None,
                    help="Encoder variables from `python -m fire_tpu.train` (msgpack)")
     p.add_argument("--trained_detector", type=str, default=None,
                    help="Detector variables from `python -m fire_tpu.train.detect` (msgpack)")
     p.add_argument("--retinaface_size", type=int, default=None,
-                   help="RetinaFace network input size (retinaface is not ported yet)")
+                   help="RetinaFace network input size (default: 512, the size the committed "
+                        "default weights are trained at)")
     p.add_argument("--blazeface_size", type=int, default=None,
                    help="mediapipe-slot input size (default: 192, the size the committed "
                         "default weights are trained at; 128 selects the weaker 128 file)")
@@ -122,39 +125,56 @@ def _weights_trained_dir() -> str:
 
 def _load_trained_defaults(face_recog: FaceRecognition, args) -> None:
     """Load the committed ``weights_trained/`` files into whichever model
-    is still ``"unloaded"``.  A model without a committed file stays
-    unloaded, and the engine then refuses to run."""
+    is still ``"random-init"``; a model without a committed file keeps
+    the random init (the engine has warned about a random detector)."""
     wdir = _weights_trained_dir()
     eng = face_recog.engine
-    if eng.weight_source["detector"] == "unloaded":
+    if eng.weight_source["detector"] == "random-init":
         fname = _TRAINED_DEFAULTS.get(args.detector)
         if args.detector in ("mediapipe", "blazeface") and args.blazeface_size == 128:
             fname = _TRAINED_BLAZE_128
         path = os.path.join(wdir, fname) if fname else None
-        if path and os.path.exists(path):
+        if args.detector == "retinaface" and args.retinaface_size != 512:
+            # the committed weights are trained at 512: at any other size
+            # they are no better than random
+            log.warning("retinaface has no reference ONNX weights and the trained default needs "
+                        "--retinaface_size 512 (got %s) — running RANDOM INIT; it will not find "
+                        "real faces.", args.retinaface_size or 1024)
+        elif path and os.path.exists(path):
             eng.load_trained_detector(path)
         else:
-            log.warning("No committed default weights for detector %r at %s.", args.detector, path)
-    if eng.weight_source["encoder"] == "unloaded":
+            log.warning("No weights found for detector %r (no committed default at %s) — "
+                        "running RANDOM INIT.", args.detector, path)
+    if eng.weight_source["encoder"] == "random-init":
         path = os.path.join(wdir, f"facenet{face_recog.cfg.encoder_model_type}_synth.msgpack")
         if os.path.exists(path):
             eng.load_trained_encoder(path)
-        else:
-            have = sorted(f for f in os.listdir(wdir) if f.startswith("facenet")) \
-                if os.path.isdir(wdir) else []
-            raise NotImplementedError(
-                f"no {face_recog.cfg.encoder_model_type}-d encoder weights are committed "
-                f"(weights_trained/ holds {', '.join(have) or 'none'}); pass --encoder 512 or "
-                "--trained FILE: engines with random weights are not ported (ROADMAP.md)")
+
+
+def _usable(path: str, min_bytes: int) -> bool:
+    """A reference file the JAX CLI's sizing rule counts: present and
+    larger than a Git-LFS pointer could be."""
+    return os.path.exists(path) and os.path.getsize(path) > min_bytes
 
 
 def _run(args) -> None:
     if args.inputs:
         raise NotImplementedError(MULTISTREAM_TODO)
-    # the mediapipe slot's committed weights are trained at 192²
-    if (args.detector in ("mediapipe", "blazeface") and args.blazeface_size is None
-            and not args.no_default_weights and args.trained_detector is None
-            and os.path.exists(os.path.join(_weights_trained_dir(), _TRAINED_DEFAULTS["mediapipe"]))):
+    defaults = not args.no_default_weights and args.trained_detector is None
+    wd = args.weights_dir or "weights"
+    # the committed RetinaFace weights are trained at 512², the mediapipe
+    # slot's at 192²; an explicit size or a usable reference file wins
+    if (args.detector == "retinaface" and args.retinaface_size is None and defaults
+            and not _usable(os.path.join(wd, "retinaface.onnx"), 1_000_000)
+            and os.path.exists(os.path.join(_weights_trained_dir(),
+                                            _TRAINED_DEFAULTS["retinaface"]))):
+        args.retinaface_size = 512
+    if (args.detector in ("mediapipe", "blazeface") and args.blazeface_size is None and defaults
+            and not any(_usable(os.path.join(wd, f), 100_000)
+                        for f in ("face_detection_short_range.tflite", "blazeface.tflite",
+                                  "blazeface.onnx", "face_detection_short_range.onnx"))
+            and os.path.exists(os.path.join(_weights_trained_dir(),
+                                            _TRAINED_DEFAULTS["mediapipe"]))):
         args.blazeface_size = 192
     size_kw = {}
     if args.retinaface_size:
@@ -178,7 +198,9 @@ def _run(args) -> None:
         hnsw_labels_path=args.hnsw_labels_path,
         hnsw_db_ids_path=args.hnsw_db_ids_path,
         sqlite_db_path=args.sqlite_db_path,
+        sqlite_db_encrypted_path=args.sqlite_db_encrypted_path,
         interested_label=args.interested_label,
+        weights_dir=args.weights_dir,
         trained_encoder=args.trained,
         trained_detector=args.trained_detector,
         engine_cfg=EngineConfig(**size_kw) if size_kw else None,
@@ -188,7 +210,6 @@ def _run(args) -> None:
     try:
         if not args.no_default_weights:
             _load_trained_defaults(face_recog, args)
-        face_recog.engine.require_weights()
 
         if args.core:
             print(f"Use only 1 cpu core: {bool(args.core)}")

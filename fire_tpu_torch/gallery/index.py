@@ -13,8 +13,10 @@ persisted index falls back to a fresh one rebuilt from SQLite.
 Persistence is the JAX package's, byte for byte: the snapshot triplet
 (index ``.npy`` bytes, labels pickle, db_ids pickle) plus the
 ``<index>.journal`` of length-prefixed pickled records, so either
-package reads the other's files.  Encryption is not ported yet
-(the recognizer refuses a password).
+package reads the other's files.  With an ``encryptor`` each file of the
+triplet is one encrypted blob, and each journal record's payload is
+encrypted on its own (:mod:`fire_tpu_torch.gallery.crypto`, the JAX
+package's format).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from fire_tpu_torch.device import DeviceLike, resolve_device
+from fire_tpu_torch.gallery.crypto import Encryptor
 from fire_tpu_torch.ops.cosine_top1 import cosine_top1
 from fire_tpu_torch.ops.gallery_match import cosine_topk, cosine_topk_f32
 
@@ -50,6 +53,7 @@ class DeviceGallery:
         index_path: Optional[str] = None,
         labels_path: Optional[str] = None,
         db_ids_path: Optional[str] = None,
+        encryptor: Optional[Encryptor] = None,
         capacity: int = 100_000,
         journal_compact_threshold: int = 4096,
         strict_f32_match: bool = False,
@@ -64,6 +68,7 @@ class DeviceGallery:
         self.index_path = index_path
         self.labels_path = labels_path
         self.db_ids_path = db_ids_path
+        self.encryptor = encryptor
         self.journal_compact_threshold = journal_compact_threshold
         self.strict_f32_match = strict_f32_match
 
@@ -130,19 +135,22 @@ class DeviceGallery:
 
     # -- persistence -------------------------------------------------------
 
-    @staticmethod
-    def _read(path: str) -> bytes:
+    def _read(self, path: str) -> bytes:
+        if self.encryptor:
+            return self.encryptor.read_and_decrypt(path)
         with open(path, "rb") as f:
             return f.read()
 
-    @staticmethod
-    def _write(path: str, data: bytes) -> None:
+    def _write(self, path: str, data: bytes) -> None:
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            f.write(data)
+        tmp = path + ".tmp"  # atomic replace: a crash leaves the old file whole
+        if self.encryptor:
+            self.encryptor.encrypt_and_write(tmp, data)
+        else:
+            with open(tmp, "wb") as f:
+                f.write(data)
         os.replace(tmp, path)
 
     @property
@@ -156,7 +164,8 @@ class DeviceGallery:
         path = self._journal_path
         if not path or not os.path.exists(path):
             return
-        data = self._read(path)
+        with open(path, "rb") as f:
+            data = f.read()
         off = 0
         next_row = self._snapshot_rows
         while off < len(data):
@@ -166,8 +175,11 @@ class DeviceGallery:
             off += 4
             if off + n > len(data):
                 raise ValueError("truncated journal record payload")
-            rec = pickle.loads(data[off : off + n])
+            payload = data[off : off + n]
             off += n
+            if self.encryptor:
+                payload = self.encryptor.decrypt_data(payload)
+            rec = pickle.loads(payload)
             if isinstance(rec, dict):
                 start, rows = int(rec["start"]), rec["rows"]
             elif isinstance(rec, (list, tuple)):
@@ -188,6 +200,8 @@ class DeviceGallery:
             "rows": [(label, db_id, np.asarray(vec, np.float32).tobytes())
                      for label, db_id, vec in rows],
         })
+        if self.encryptor:
+            payload = self.encryptor.encrypt_data(payload)
         with open(self._journal_path, "ab") as f:
             f.write(len(payload).to_bytes(4, "little"))
             f.write(payload)

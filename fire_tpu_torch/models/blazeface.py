@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fire_tpu_torch.models.detections import Detections
+from fire_tpu_torch.models.layers import same_pad
 from fire_tpu_torch.ops import boxes as fbox
 
 # (features, stride) per BlazeBlock: the published short-range progression
@@ -50,16 +51,6 @@ def blaze_anchors(input_px: int = 128) -> np.ndarray:
     return np.asarray(anchors, np.float32)
 
 
-def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    """Zero-pad NCHW ``x`` the way XLA's ``SAME`` does: the total a
-    ``ceil(n / stride)`` output needs, the odd pixel going after."""
-    pads = []
-    for n in (x.shape[-1], x.shape[-2]):  # F.pad takes the last axis first
-        total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
-
-
 class BlazeBlock(nn.Module):
     """Depthwise 5×5 + pointwise 1×1 with a residual shortcut."""
 
@@ -70,7 +61,7 @@ class BlazeBlock(nn.Module):
         self.pw = nn.Conv2d(cin, features, 1, bias=True)
 
     def forward(self, x):
-        y = self.pw(self.dw(_same_pad(x, 5, self.stride)))
+        y = self.pw(self.dw(same_pad(x, 5, self.stride)))
         if self.stride == 2:
             x = F.max_pool2d(x, 2, 2)
         if self.features > self.cin:
@@ -104,7 +95,7 @@ class BlazeFace(nn.Module):
         ``(scores (B, A), regressions (B, A, 16))`` float32 in anchor
         order."""
         x = ((x01_nhwc.to(self.dtype) - 0.5) * 2.0).permute(0, 3, 1, 2)
-        x = torch.relu(self.conv1(_same_pad(x, 5, 2)))
+        x = torch.relu(self.conv1(same_pad(x, 5, 2)))
         f16 = None
         for i, (feats, stride) in enumerate(BLAZE_BLOCKS):
             if stride == 2 and feats == 96:

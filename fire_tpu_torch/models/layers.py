@@ -37,6 +37,22 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def same_pad(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:
+    """Pad NCHW ``x`` the way XLA's ``SAME`` does: the total a
+    ``ceil(n / stride)`` output needs, the odd pixel going after (so a
+    stride-2 layer on an even side pads less before than after)."""
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):  # F.pad takes the last axis first
+        total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads, value=value)
+
+
+def max_pool_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """Flax ``max_pool(padding="SAME")``: the pad is ``-inf``, not zero."""
+    return F.max_pool2d(same_pad(x, k, s, value=float("-inf")), k, s)
+
+
 def max_pool_valid(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     """Flax ``max_pool(padding="VALID")`` = torch floor mode, no pad."""
     return F.max_pool2d(x, k, s)

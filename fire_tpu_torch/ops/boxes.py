@@ -23,15 +23,18 @@ def xyxy_to_xywh(b: torch.Tensor) -> torch.Tensor:
     return torch.cat([b[..., :2], b[..., 2:4] - b[..., :2]], dim=-1)
 
 
-def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU of xyxy boxes ``a`` (..., N, 4) × ``b`` (..., M, 4)."""
+def iou_matrix(a: torch.Tensor, b: torch.Tensor, plus_one: bool = False) -> torch.Tensor:
+    """Pairwise IoU of xyxy boxes ``a`` (..., N, 4) × ``b`` (..., M, 4).
+    ``plus_one`` counts a box's pixels inclusively (the legacy ``+1``
+    area of the RetinaFace decode)."""
+    off = 1.0 if plus_one else 0.0
     ax1, ay1, ax2, ay2 = (a[..., :, None, i] for i in range(4))
     bx1, by1, bx2, by2 = (b[..., None, :, i] for i in range(4))
-    iw = torch.clamp(torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1), min=0.0)
-    ih = torch.clamp(torch.minimum(ay2, by2) - torch.maximum(ay1, by1), min=0.0)
+    iw = torch.clamp(torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1) + off, min=0.0)
+    ih = torch.clamp(torch.minimum(ay2, by2) - torch.maximum(ay1, by1) + off, min=0.0)
     inter = iw * ih
-    area_a = (ax2 - ax1) * (ay2 - ay1)
-    area_b = (bx2 - bx1) * (by2 - by1)
+    area_a = (ax2 - ax1 + off) * (ay2 - ay1 + off)
+    area_b = (bx2 - bx1 + off) * (by2 - by1 + off)
     union = area_a + area_b - inter
     return torch.where(union > 0, inter / torch.where(union > 0, union, 1.0),
                        torch.zeros_like(inter))
@@ -58,13 +61,15 @@ def nms(
     iou_threshold: float,
     max_out: int,
     score_threshold: float = 0.0,
+    plus_one: bool = False,
+    suppress_equal: bool = False,
     pre_top_k: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy NMS over a fixed candidate set, batched over leading axes.
 
     ``boxes_xyxy`` (..., N, 4), ``scores`` (..., N).  Strict ``>``
-    suppression (the legacy ``+1`` / ``>=`` variants of the JAX version
-    serve RetinaFace, not ported yet).  ``pre_top_k`` restricts
+    suppression by default; ``plus_one`` and ``suppress_equal`` (``>=``)
+    give RetinaFace's legacy rule.  ``pre_top_k`` restricts
     suppression to the highest-scoring candidates first (exact whenever
     no more than that many clear ``score_threshold``).
     Returns ``(keep_idx (..., max_out) int64, keep_mask (..., max_out))``;
@@ -74,10 +79,11 @@ def nms(
     if pre_top_k and n > pre_top_k:
         top_scores, top_idx = top_k_stable(scores, pre_top_k)
         sub = torch.gather(boxes_xyxy, -2, top_idx[..., None].expand(*top_idx.shape, 4))
-        keep_idx, keep_mask = nms(sub, top_scores, iou_threshold, max_out, score_threshold)
+        keep_idx, keep_mask = nms(sub, top_scores, iou_threshold, max_out, score_threshold,
+                                  plus_one, suppress_equal)
         return torch.gather(top_idx, -1, keep_idx), keep_mask
 
-    ious = iou_matrix(boxes_xyxy, boxes_xyxy)
+    ious = iou_matrix(boxes_xyxy, boxes_xyxy, plus_one=plus_one)
     live = torch.where(scores > score_threshold, scores, torch.full_like(scores, NEG))
     lead = scores.shape[:-1]
     keep_idx = torch.zeros((*lead, max_out), dtype=torch.int64, device=scores.device)
@@ -92,7 +98,8 @@ def nms(
         keep_idx = torch.where(at, best[..., None], keep_idx)
         keep_mask = keep_mask | at
         overl = torch.gather(ious, -2, best[..., None, None].expand(*lead, 1, n))[..., 0, :]
-        sup = (overl > iou_threshold) | (ar == best[..., None])
+        over = overl >= iou_threshold if suppress_equal else overl > iou_threshold
+        sup = over | (ar == best[..., None])
         live = torch.where(ok[..., None] & sup, torch.full_like(live, NEG), live)
         n_kept = n_kept + ok.long()
     return keep_idx, keep_mask

@@ -1,7 +1,8 @@
 """Batched device-resident stream pipeline (counterpart of
 ``fire_tpu.pipeline.batch_engine``) — B frames per device step:
 
-    detect:  letterbox → YuNet → decode + NMS, batched over the frames
+    detect:  letterbox → detector (YuNet, RetinaFace or BlazeFace) → decode
+             + NMS, batched over the frames
     encode:  the batch's detections compacted into the smallest encoder
              bucket that holds them all, cropped, FaceNet, L2-normalised
     match:   every embedding against the gallery in one K1 launch
@@ -200,7 +201,6 @@ class BatchStreamEngine:
         """Arguments as in the JAX engine (``batch_engine.py:276``);
         ``timer`` (a :class:`~fire_tpu_torch.pipeline.timing.StageTimer`)
         records per-stage device time when given."""
-        engine.require_weights()
         self.engine = engine
         self.gallery = gallery
         self.cfg = cfg

@@ -15,18 +15,28 @@ Differences from the JAX class, all deliberate:
   propagates instead of being logged and dropped: a failing device call
   must not look like an empty frame;
 * ``_enroll_now`` counts ``unknown_enrolled`` itself, on every path;
-* the timer also records ``tracker`` and ``match`` stages.
+* the timer also records ``tracker`` and ``match`` stages;
+* an encrypted image save encodes the format its path names (JAX
+  encodes JPEG whatever the name), so BMP and PPM need no OpenCV.
+
+With ``encryption_password`` the storage directory is
+``<detector>_<encoder>_encrypted``, the SQLite database, the gallery
+files and the saved outputs are encrypted
+(:mod:`fire_tpu_torch.gallery.crypto`, the JAX package's format), and a
+saved video is written to a temporary file first and encrypted when it
+is closed.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for
-(ROADMAP.md, PyTorch/CUDA port queue): encryption, multi-stream
-(``process_videos``), the sharded gallery and the ONNX / TFLite weight
-probe of ``weights_dir``.
+(ROADMAP.md, PyTorch/CUDA port queue): multi-stream (``process_videos``),
+the sharded gallery, and the ONNX / TFLite importers (a real weight file
+in ``weights_dir`` makes the engine raise).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import tempfile
 import time
 import uuid
 from typing import Callable, List, Optional
@@ -35,6 +45,7 @@ import numpy as np
 
 from fire_tpu_torch.config import EngineConfig, GalleryConfig, RecognizerConfig, TrackerConfig
 from fire_tpu_torch.device import DeviceLike
+from fire_tpu_torch.gallery.crypto import Encryptor
 from fire_tpu_torch.gallery.index import DeviceGallery
 from fire_tpu_torch.gallery.store import FaceStore
 from fire_tpu_torch.pipeline.annotate import annotate_faces, resize_frame_to_screen
@@ -48,8 +59,6 @@ from fire_tpu_torch.utils import imageio
 
 log = logging.getLogger(__name__)
 
-ENCRYPTION_TODO = ("encryption_password: encryption is not ported yet (ROADMAP.md, "
-                   "PyTorch/CUDA port queue: 'gallery/crypto.py')")
 MULTISTREAM_TODO = ("process_videos / --inputs: multi-stream video is not ported yet "
                     "(ROADMAP.md, PyTorch/CUDA port queue: 'multi-stream and sharded gallery')")
 
@@ -68,19 +77,29 @@ class _StreamSink:
     False when the user asked to quit."""
 
     def __init__(self, cap, annotate: bool, save_path: Optional[str], show: bool,
-                 stream_type: str, on_frame: OnFrame, timer: StageTimer):
+                 stream_type: str, on_frame: OnFrame, timer: StageTimer,
+                 encryptor: Optional[Encryptor] = None):
         self.annotate, self.show, self.on_frame, self.timer = annotate, show, on_frame, timer
         self.title = f"Face Recognition - {stream_type.capitalize()}"
         self.stream_type = stream_type
         self.save_path = save_path
+        self.encryptor = encryptor
+        self.temp_path = None  # the plain video, encrypted into save_path at close
         self.writer = None
         if save_path:
             _ensure_parent_dir(save_path)
             fps = cap.get(CAP_PROP_FPS) or 30
             wh = (int(cap.get(CAP_PROP_FRAME_WIDTH)), int(cap.get(CAP_PROP_FRAME_HEIGHT)))
-            self.writer = imageio.open_video_writer(save_path, fps, wh)
+            target = save_path
+            if encryptor:
+                fd, self.temp_path = tempfile.mkstemp(suffix=".avi")
+                os.close(fd)
+                target = self.temp_path
+            self.writer = imageio.open_video_writer(target, fps, wh)
             if not self.writer.isOpened():
-                raise OSError(f"Failed to open video writer for {save_path}")
+                if self.temp_path is not None:
+                    os.remove(self.temp_path)
+                raise OSError(f"Failed to open video writer for {target}")
 
     def emit(self, frame: np.ndarray, faces: List[dict]) -> bool:
         if self.on_frame is not None:
@@ -103,7 +122,15 @@ class _StreamSink:
     def close(self) -> None:
         if self.writer is not None:
             self.writer.release()
-            log.info("Annotated video saved to %s", self.save_path)
+            if self.temp_path is not None:
+                try:
+                    with open(self.temp_path, "rb") as f:
+                        self.encryptor.encrypt_and_write(self.save_path, f.read())
+                finally:
+                    os.remove(self.temp_path)
+                log.info("Encrypted video saved to %s", self.save_path)
+            else:
+                log.info("Annotated video saved to %s", self.save_path)
         if self.show:
             imageio.destroy_windows()
 
@@ -128,19 +155,19 @@ class FaceRecognition:
         max_recent: int = 200,
         max_new: int = 250,
         sqlite_db_path: Optional[str] = None,
+        sqlite_db_encrypted_path: Optional[str] = None,
         encryption_password: Optional[str] = None,
         interested_label: Optional[str] = None,
         storage_root: str = "storage",
         engine: Optional[DeviceEngine] = None,
         tracker_cfg: Optional[TrackerConfig] = None,
+        weights_dir: Optional[str] = "weights",
         trained_encoder: Optional[str] = None,
         trained_detector: Optional[str] = None,
         engine_cfg: Optional[EngineConfig] = None,
         encode_budget: Optional[int] = None,
         device: DeviceLike = None,
     ):
-        if encryption_password:
-            raise NotImplementedError(ENCRYPTION_TODO)
         encoder_model_type = encoder_model_type or "128"
         self.cfg = RecognizerConfig(
             detector_type=detector_type.lower(),
@@ -154,9 +181,10 @@ class FaceRecognition:
             show=show,
             detection_interval=detection_interval,
             encode_budget=encode_budget,
+            encryption_password=encryption_password,
             interested_label=interested_label,
             storage_root=storage_root,
-            weights_dir=None,
+            weights_dir=weights_dir,
             gallery=GalleryConfig(max_recent=max_recent, max_new=max_new),
             engine=engine_cfg or EngineConfig(),
         ).with_embedding_dim()
@@ -176,19 +204,15 @@ class FaceRecognition:
         self.tracker_cfg = tracker_cfg or TrackerConfig()
         self.frame_index = 0
 
-        # the engine first: an unported detector slot raises before any
-        # directory is made
-        self.engine = engine or DeviceEngine(cfg, device=device)
-        if trained_encoder:
-            self.engine.load_trained_encoder(trained_encoder)
-        if trained_detector:
-            self.engine.load_trained_detector(trained_detector)
-        self.device = self.engine.device
-        self.detect_faces = self.engine.detect_faces
-        self.extract_faces = self.engine.extract_faces
+        self.encryption_password = encryption_password
+        self.encryptor = Encryptor(encryption_password) if encryption_password else None
+        status = "encrypted" if encryption_password else "unencrypted"
+        log.info("Encryption is %s.",
+                 "enabled for file operations" if self.encryptor else "disabled")
 
-        # storage layout: storage/<detector>_<encoder>_unencrypted/{db,hnsw}
-        pipeline_dir = os.path.join(storage_root, f"{cfg.detector_type}_{encoder_model_type}_unencrypted")
+        # storage layout: storage/<detector>_<encoder>_<status>/{db,hnsw,params}
+        pipeline_dir = os.path.join(storage_root,
+                                    f"{cfg.detector_type}_{encoder_model_type}_{status}")
         db_dir = os.path.join(pipeline_dir, "db")
         hnsw_dir = os.path.join(pipeline_dir, "hnsw")
         os.makedirs(db_dir, exist_ok=True)
@@ -197,12 +221,29 @@ class FaceRecognition:
         hnsw_index_path = hnsw_index_path or os.path.join(hnsw_dir, f"hnsw_index_{stem}.bin")
         hnsw_labels_path = hnsw_labels_path or os.path.join(hnsw_dir, f"hnsw_labels_{stem}.pkl")
         hnsw_db_ids_path = hnsw_db_ids_path or os.path.join(hnsw_dir, f"hnsw_db_ids_{stem}.pkl")
-        sqlite_db_path = sqlite_db_path or os.path.join(db_dir, f"face_embeddings_{stem}.db")
+        if encryption_password:
+            sqlite_db_encrypted_path = sqlite_db_encrypted_path or os.path.join(
+                db_dir, f"face_embeddings_{stem}.db.enc")
+            sqlite_db_path = None
+        else:
+            sqlite_db_path = sqlite_db_path or os.path.join(db_dir, f"face_embeddings_{stem}.db")
+            sqlite_db_encrypted_path = None
 
-        self.db_manager = FaceStore(sqlite_db_path, embedding_dim=self.embedding_dim)
+        self.engine = engine or DeviceEngine(cfg, device=device,
+                                             params_dir=os.path.join(pipeline_dir, "params"))
+        if trained_encoder:
+            self.engine.load_trained_encoder(trained_encoder)
+        if trained_detector:
+            self.engine.load_trained_detector(trained_detector)
+        self.device = self.engine.device
+        self.detect_faces = self.engine.detect_faces
+        self.extract_faces = self.engine.extract_faces
+
+        self.db_manager = FaceStore(sqlite_db_path, sqlite_db_encrypted_path, self.encryptor,
+                                    self.embedding_dim)
         self.gallery = DeviceGallery(
             self.embedding_dim, hnsw_index_path, hnsw_labels_path, hnsw_db_ids_path,
-            capacity=cfg.gallery.capacity, strict_f32_match=cfg.engine.strict_f32_match,
+            self.encryptor, capacity=cfg.gallery.capacity, strict_f32_match=cfg.engine.strict_f32_match,
             device=self.device,
         )
         # cold-start hydrate from SQLite
@@ -653,11 +694,16 @@ class FaceRecognition:
         return recognized
 
     def _save_image(self, image: np.ndarray, save_path: Optional[str]) -> None:
+        """Save, encrypted when a password was given."""
         if not save_path:
             return
         _ensure_parent_dir(save_path)
-        imageio.imwrite(save_path, image)
-        log.info("Processed image saved to %s", save_path)
+        if self.encryptor:
+            ext = os.path.splitext(save_path)[1] or ".jpg"
+            self.encryptor.encrypt_and_write(save_path, imageio.imencode(ext, image))
+        else:
+            imageio.imwrite(save_path, image)
+            log.info("Processed image saved to %s", save_path)
 
     # -------------------------------------------------------- stream modes --
 
@@ -671,7 +717,7 @@ class FaceRecognition:
         sink = reader = None
         try:
             sink = _StreamSink(cap, annotate, save_path, self.show, stream_type, on_frame,
-                               self.timer)
+                               self.timer, self.encryptor)
             reader = PrefetchReader(cap)
             for frame in reader.frames():
                 faces = self.recognize_faces(frame, rename_label=name)
@@ -782,7 +828,7 @@ class FaceRecognition:
         inflight = None
         try:
             sink = _StreamSink(cap, annotate, save_path, self.show, stream_type, on_frame,
-                               self.timer)
+                               self.timer, self.encryptor)
             reader = PrefetchReader(cap)
             batch = []
             stopped = False

@@ -117,17 +117,30 @@ def imread(path: str) -> Optional[np.ndarray]:
     return require_cv2(f"reading {ext} ({path})").imread(path)
 
 
-def imwrite(path: str, image: np.ndarray) -> None:
-    """(H, W, 3) BGR uint8 → file, by the path's extension."""
-    ext = os.path.splitext(path)[1].lower()
+def imencode(ext: str, image: np.ndarray) -> bytes:
+    """(H, W, 3) BGR uint8 → the bytes of an image file of type ``ext``
+    (``".bmp"``, ``".ppm"``, or any format OpenCV writes)."""
+    ext = ext.lower()
     img = np.asarray(image)
     if ext in (".bmp", ".ppm"):
         if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-            raise ValueError(f"imwrite expects (H, W, 3) uint8, got {img.dtype} {img.shape}")
+            raise ValueError(f"imencode expects (H, W, 3) uint8, got {img.dtype} {img.shape}")
+        return _write_bmp(img) if ext == ".bmp" else _write_ppm(img)
+    ok, buf = require_cv2(f"writing {ext or 'this image format'}").imencode(ext, img)
+    if not ok:
+        raise OSError(f"could not encode an image as {ext}")
+    return buf.tobytes()
+
+
+def imwrite(path: str, image: np.ndarray) -> None:
+    """(H, W, 3) BGR uint8 → file, by the path's extension."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".bmp", ".ppm"):
+        data = imencode(ext, image)
         with open(path, "wb") as f:
-            f.write(_write_bmp(img) if ext == ".bmp" else _write_ppm(img))
+            f.write(data)
         return
-    if not require_cv2(f"writing {ext or 'this image format'} ({path})").imwrite(path, img):
+    if not require_cv2(f"writing {ext or 'this image format'} ({path})").imwrite(path, np.asarray(image)):
         raise OSError(f"could not write {path}")
 
 

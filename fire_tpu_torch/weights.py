@@ -22,16 +22,26 @@ machine with the card has neither ``flax``, ``msgpack`` nor
   running_var``.  FaceNet's BatchNorms have ``use_scale=False``; their
   weight is 1.  Any leaf the mapping does not consume raises, and
   :func:`load_into` loads strictly, so a missing or surplus tensor
-  raises too.
+  raises too.  :func:`from_flax_retinaface` does the same for RetinaFace.
+* :func:`flax_shapes` — the inverse direction for shapes: a module's
+  Flax variable tree, built from its own parameters, so that
+* :func:`materialize` — the JAX engine's deterministic random init
+  (``fire_tpu/pipeline/engine.py:54-85``), copied exactly — can fill it,
+  and
+* :func:`msgpack_serialize` — the writer of ``flax.serialization.
+  to_bytes``'s format — can store it as the JAX engine's params cache.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict, Tuple
+import zlib
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from fire_tpu_torch.models.layers import BatchNorm
 
 # ---------------------------------------------------------------- msgpack --
 
@@ -144,6 +154,113 @@ def msgpack_restore(data: bytes) -> Any:
     return out
 
 
+class _Packer:
+    """msgpack encoder for what ``flax.serialization.to_bytes`` writes,
+    byte for byte as the ``msgpack`` package packs it: the smallest
+    header for each map, array, str, bin and int; floats as doubles;
+    ndarrays as ext type 1 holding msgpack ``(shape, dtype name, raw C
+    bytes)``."""
+
+    def __init__(self):
+        self.out = []
+
+    def _head(self, n: int, fix: int, fix_max: int, codes, widths=(2, 4)) -> None:
+        if n <= fix_max:
+            self.out.append(bytes([fix | n]))
+            return
+        for code, width in zip(codes, widths):
+            if n < 1 << (8 * width):
+                self.out.append(bytes([code]) + n.to_bytes(width, "big"))
+                return
+        raise ValueError(f"msgpack object too large ({n})")
+
+    def _int(self, v: int) -> None:
+        if 0 <= v < 128:
+            self.out.append(bytes([v]))
+        elif -32 <= v < 0:
+            self.out.append(bytes([v + 0x100]))
+        elif v >= 0:
+            for code, width in ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)):
+                if v < 1 << (8 * width):
+                    self.out.append(bytes([code]) + v.to_bytes(width, "big"))
+                    return
+            raise ValueError(f"msgpack int too large ({v})")
+        else:
+            for code, width in ((0xD0, 1), (0xD1, 2), (0xD2, 4), (0xD3, 8)):
+                if v >= -(1 << (8 * width - 1)):
+                    self.out.append(bytes([code]) + v.to_bytes(width, "big", signed=True))
+                    return
+            raise ValueError(f"msgpack int too small ({v})")
+
+    def _sized(self, data: bytes, codes) -> None:
+        n = len(data)
+        for code, width in zip(codes, (1, 2, 4)):
+            if n < 1 << (8 * width):
+                self.out.append(bytes([code]) + n.to_bytes(width, "big"))
+                self.out.append(data)
+                return
+        raise ValueError(f"msgpack object too large ({n})")
+
+    def _ext(self, code: int, payload: bytes) -> None:
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.out.append(bytes([fixed[n], code]))
+        else:
+            for head, width in ((0xC7, 1), (0xC8, 2), (0xC9, 4)):
+                if n < 1 << (8 * width):
+                    self.out.append(bytes([head]) + n.to_bytes(width, "big") + bytes([code]))
+                    break
+        self.out.append(payload)
+
+    def pack(self, x) -> None:
+        if x is None:
+            self.out.append(b"\xc0")
+        elif isinstance(x, bool):
+            self.out.append(b"\xc3" if x else b"\xc2")
+        elif isinstance(x, int):
+            self._int(x)
+        elif isinstance(x, float):
+            self.out.append(b"\xcb" + struct.pack(">d", x))
+        elif isinstance(x, str):
+            data = x.encode()
+            if len(data) < 32:
+                self.out.append(bytes([0xA0 | len(data)]) + data)
+            else:
+                self._sized(data, (0xD9, 0xDA, 0xDB))
+        elif isinstance(x, (bytes, bytearray, memoryview)):
+            self._sized(bytes(x), (0xC4, 0xC5, 0xC6))
+        elif isinstance(x, dict):
+            self._head(len(x), 0x80, 15, (0xDE, 0xDF))
+            for k, v in x.items():
+                self.pack(k)
+                self.pack(v)
+        elif isinstance(x, (list, tuple)):
+            self._head(len(x), 0x90, 15, (0xDC, 0xDD))
+            for v in x:
+                self.pack(v)
+        elif isinstance(x, np.ndarray):
+            if x.dtype.hasobject or x.dtype.isalignedstruct:
+                raise ValueError(f"cannot serialize arrays of {x.dtype}")
+            inner = _Packer()
+            inner.pack(([int(d) for d in x.shape], x.dtype.name, x.tobytes("C")))
+            self._ext(_EXT_NDARRAY, inner.getvalue())
+        else:
+            raise TypeError(f"cannot msgpack-serialize {type(x).__name__}")
+
+    def getvalue(self) -> bytes:
+        return b"".join(self.out)
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode nested dicts of numpy arrays as ``flax.serialization.
+    to_bytes`` does, so ``from_bytes`` and :func:`msgpack_restore` both
+    read the result."""
+    p = _Packer()
+    p.pack(tree)
+    return p.getvalue()
+
+
 def read_msgpack(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
@@ -157,6 +274,97 @@ def flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[st
         else:
             out[prefix + (k,)] = v
     return out
+
+
+def unflatten(flat: Dict[Tuple[str, ...], Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+# ---------------------------------------------------------- random init --
+
+
+class ShapeDtype(NamedTuple):
+    """A leaf of a shape tree (what ``jax.eval_shape`` gives per leaf)."""
+
+    shape: Tuple[int, ...]
+    dtype: np.dtype
+
+
+def materialize(shape_tree: Dict[str, Any], seed: int) -> Dict[str, Any]:
+    """Variable arrays for a shape tree ``{collection: nested dicts of
+    leaves with .shape and .dtype}``: LeCun-normal kernels, zero biases
+    and means, unit scales and variances.  Deterministic per parameter
+    path (``zlib.crc32`` of ``collection/…/name``), so the same weights
+    come back in every process and in either package: this is the JAX
+    engine's ``_materialize`` (``engine.py:54-85``) line for line.  The
+    draw is made in the Flax layout (HWIO, Dense ``(in, out)``)."""
+    out = {}
+    for col, tree in shape_tree.items():
+        new = {}
+        for path, leaf in flatten(tree).items():
+            name = path[-1]
+            shape = tuple(leaf.shape)
+            dtype = np.dtype(leaf.dtype)
+            digest = zlib.crc32("/".join((col,) + path).encode())
+            rng = np.random.default_rng((seed * 1_000_003 + digest) % (2**63))
+            if name in ("var", "scale"):
+                arr = np.ones(shape, dtype)
+            elif name in ("mean", "bias"):
+                arr = np.zeros(shape, dtype)
+            elif len(shape) >= 2:
+                fan_in = int(np.prod(shape[:-1]))
+                arr = (rng.standard_normal(shape) / np.sqrt(max(fan_in, 1))).astype(dtype)
+            else:
+                arr = np.zeros(shape, dtype)
+            new[path] = arr
+        out[col] = unflatten(new)
+    return out
+
+
+def flax_shapes(module: torch.nn.Module, unit_bn_scale: bool = False) -> Dict[str, Any]:
+    """The Flax variable tree of ``module`` as shapes, the inverse of the
+    converters below: a conv's OIHW weight is an HWIO ``kernel``, a
+    Linear's ``(out, in)`` a Dense ``(in, out)`` kernel, a BatchNorm's
+    weight and bias are ``params`` ``scale`` and ``bias`` (no scale for
+    FaceNet: ``unit_bn_scale``) and its running statistics
+    ``batch_stats`` ``mean`` and ``var``.  Every leaf is float32, the
+    Flax models' parameter dtype.  A module holding tensors of any other
+    kind raises."""
+    f32 = np.dtype(np.float32)
+    flat: Dict[Tuple[str, ...], ShapeDtype] = {}
+
+    def put(col, path, shape):
+        flat[(col,) + path] = ShapeDtype(tuple(int(d) for d in shape), f32)
+
+    for name, mod in module.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        own = dict(mod.named_parameters(recurse=False))
+        own.update(mod.named_buffers(recurse=False))
+        if isinstance(mod, torch.nn.Conv2d):
+            o, i, kh, kw = mod.weight.shape
+            put("params", path + ("kernel",), (kh, kw, i, o))
+        elif isinstance(mod, torch.nn.Linear):
+            put("params", path + ("kernel",), tuple(mod.weight.shape[::-1]))
+        elif isinstance(mod, BatchNorm):
+            n = mod.running_mean.shape
+            if not unit_bn_scale:
+                put("params", path + ("scale",), n)
+            put("params", path + ("bias",), n)
+            put("batch_stats", path + ("mean",), n)
+            put("batch_stats", path + ("var",), n)
+            continue
+        elif own:
+            raise ValueError(f"flax_shapes: no Flax counterpart for {type(mod).__name__} {name}")
+        if own.get("bias") is not None:
+            put("params", path + ("bias",), own["bias"].shape)
+    tree = unflatten(flat)
+    return {col: tree[col] for col in ("params", "batch_stats") if col in tree}
 
 
 # ------------------------------------------------------- flax → state_dict --
@@ -214,6 +422,12 @@ def from_flax_blazeface(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     folded) → state_dict of
     :class:`fire_tpu_torch.models.blazeface.BlazeFace`.  A depthwise
     ``(5,5,1,C)`` kernel becomes ``(C,1,5,5)``."""
+    return _convert(tree, unit_bn_scale=False)
+
+
+def from_flax_retinaface(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """RetinaFace variables (``{"params", "batch_stats"}``) → state_dict
+    of :class:`fire_tpu_torch.models.retinaface.RetinaFace`."""
     return _convert(tree, unit_bn_scale=False)
 
 

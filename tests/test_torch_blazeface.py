@@ -20,6 +20,7 @@ from fire_tpu.ops import boxes as JBox
 from fire_tpu_torch import weights as W
 from fire_tpu_torch.models import blazeface as TB
 from fire_tpu_torch.models.detections import Detections
+from fire_tpu_torch.models.layers import same_pad
 from fire_tpu_torch.ops import boxes as TBox
 from fire_tpu_torch.train.scenes import compose_scene, make_identities
 
@@ -68,10 +69,10 @@ def test_heads_match_jax_on_committed_weights(px):
 def test_same_padding_is_one_before_two_after():
     """Stride 2, 5×5, even input: XLA's SAME pads (1, 2), not (2, 2)."""
     x = torch.arange(36, dtype=torch.float32).reshape(1, 1, 6, 6)
-    p = TB._same_pad(x, 5, 2)
+    p = same_pad(x, 5, 2)
     assert tuple(p.shape) == (1, 1, 9, 9)
     assert torch.equal(p[0, 0, 1:7, 1:7], x[0, 0])
-    assert tuple(TB._same_pad(x, 5, 1).shape) == (1, 1, 10, 10)  # stride 1: (2, 2)
+    assert tuple(same_pad(x, 5, 1).shape) == (1, 1, 10, 10)  # stride 1: (2, 2)
 
 
 @pytest.mark.parametrize("px,conf", [(128, 0.5), (192, 0.8), (192, 0.5)])

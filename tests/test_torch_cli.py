@@ -130,26 +130,112 @@ def test_main_default_detector_is_blazeface_192(scene):
     assert len(_labels("mediapipe")) == 1
 
 
+def _spy(argv):
+    """Run ``cli.main(argv)``; return what ``process_image`` saw: the
+    config, the weight sources, the faces, the storage layout."""
+    from fire_tpu_torch.pipeline import recognizer as R
+
+    seen = {}
+    real = R.FaceRecognition.process_image
+
+    def spy(self, **kw):
+        seen["cfg"], seen["src"] = self.cfg, dict(self.engine.weight_source)
+        seen["encryptor"] = self.encryptor
+        seen["faces"] = real(self, **kw)
+        return seen["faces"]
+
+    R.FaceRecognition.process_image = spy
+    try:
+        cli.main(argv)
+    finally:
+        R.FaceRecognition.process_image = real
+    return seen
+
+
 @pytest.mark.parametrize("argv,needle", [
-    (["--password", "pw"], "encryption is not ported yet (ROADMAP.md"),
     (["--mode", "video", "--inputs", "a.avi", "b.avi"],
      "multi-stream video is not ported yet (ROADMAP.md"),
-    (["--detector", "retinaface"], "retinaface' is not ported yet (ROADMAP.md"),
-    (["--no_default_weights"], "random-init engines are not ported (ROADMAP.md)"),
-], ids=["password", "inputs", "retinaface", "no_default_weights"])
+    (["--weights_dir", "ref"], "importers are not ported (ROADMAP.md"),
+], ids=["inputs", "weights_dir"])
 def test_main_exits_on_what_is_not_ported(scene, argv, needle):
+    os.makedirs("ref")
+    with open("ref/facenet512.onnx", "wb") as f:  # not a Git-LFS pointer: a real file
+        f.write(b"\x08\x07\x12\x04onnx" * 64)
     with pytest.raises(SystemExit) as e:
         cli.main(BASE + argv)
     assert needle in str(e.value.code)
 
 
+def test_main_ignores_git_lfs_pointers_in_weights_dir(scene):
+    os.makedirs("ref")
+    for name in ("facenet512.onnx", "face_detection_yunet_2023mar.onnx"):
+        with open(f"ref/{name}", "wb") as f:
+            f.write(b"version https://git-lfs.github.com/spec/v1\noid sha256:0\nsize 1\n")
+    seen = _spy(BASE + ["--detector", "yunet", "--weights_dir", "ref"])
+    assert seen["cfg"].weights_dir == "ref"
+    assert seen["src"]["detector"].endswith("yunet_synth.msgpack") and len(seen["faces"]) == 1
+
+
+@pytest.mark.parametrize("argv", [
+    ["--password", "pw"],
+    ["--detector", "retinaface"],
+    ["--no_default_weights"],
+], ids=["password", "retinaface", "no_default_weights"])
+def test_main_runs_what_is_now_ported(scene, argv):
+    """The three commands that ended the run before this slice."""
+    _, boxes = scene
+    seen = _spy(BASE + argv + ["--save", "out.bmp"])
+    cfg = seen["cfg"]
+    if "--password" in argv:
+        from fire_tpu_torch.gallery.crypto import Encryptor
+
+        assert seen["encryptor"] is not None and cfg.encryption_password == "pw"
+        assert os.path.exists("storage/mediapipe_512_encrypted/db/face_embeddings_mediapipe_512.db.enc")
+        assert not os.path.exists("storage/mediapipe_512_unencrypted")
+        plain = Encryptor("pw").read_and_decrypt("out.bmp")
+        assert plain[:2] == b"BM" and len(seen["faces"]) == 1
+    elif "retinaface" in argv:
+        # no size given and no reference file: the committed 512² weights
+        assert cfg.engine.retinaface_size == (512, 512)
+        assert seen["src"]["detector"].endswith("retinaface_synth.msgpack")
+        assert len(seen["faces"]) == 1
+        x, y, w, h = seen["faces"][0]["bbox"]
+        gx, gy, gw, gh = boxes[0]
+        iw = min(x + w, gx + gw) - max(x, gx)
+        ih = min(y + h, gy + gh) - max(y, gy)
+        assert iw > 0 and ih > 0 and iw * ih / (w * h + gw * gh - iw * ih) >= 0.5
+        assert len(_labels("retinaface")) == 1
+    else:
+        # both models random-init from the params cache, at the JAX sizes
+        assert seen["src"] == {"detector": "random-init", "encoder": "random-init"}
+        assert cfg.engine.blazeface_size == (128, 128)
+        assert os.path.exists("storage/mediapipe_512_unencrypted/params/params_mediapipe_512.msgpack")
+
+
+def test_main_retinaface_off_its_trained_size_runs_random_init(scene, caplog):
+    seen = _spy(BASE + ["--detector", "retinaface", "--retinaface_size", "256"])
+    assert seen["cfg"].engine.retinaface_size == (256, 256)
+    assert seen["src"]["detector"] == "random-init"
+    assert "needs --retinaface_size 512" in caplog.text
+
+
 def test_main_without_encoder_512_names_the_missing_weights(scene):
+    """No 128-d weights are committed: the 128-d encoder is the random
+    init, kept in the params cache, as in JAX."""
     argv = [a for a in BASE if a not in ("--encoder", "512")] + ["--detector", "yunet"]
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv)
-    msg = str(e.value.code)
-    assert "no 128-d encoder weights are committed" in msg and "facenet512_synth.msgpack" in msg
-    assert "ROADMAP.md" in msg
+    seen = _spy(argv)
+    assert seen["cfg"].encoder_model_type == "128"
+    assert seen["src"]["encoder"] == "random-init"
+    assert seen["src"]["detector"].endswith("yunet_synth.msgpack")
+    cache = "storage/yunet_128_unencrypted/params/params_yunet_128.msgpack"
+    first = os.path.getmtime(cache)
+    con = sqlite3.connect("storage/yunet_128_unencrypted/db/face_embeddings_yunet_128.db")
+    enrolled = [r[0] for r in con.execute("SELECT label FROM faces")]
+    con.close()
+    assert len(enrolled) == 1
+    again = _spy(argv)  # reads the cache: the same embedding, so recognised
+    assert os.path.getmtime(cache) == first
+    assert [f["label"] for f in again["faces"]] == enrolled
 
 
 def test_main_names_a_format_that_needs_opencv(scene, monkeypatch):

@@ -223,9 +223,14 @@ def test_one_copy_serves_detect_and_encode():
 
 
 def test_detector_slots():
-    cfg = RecognizerConfig(detector_type="retinaface")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceEngine(cfg, device="cpu")
+    from fire_tpu_torch.models.retinaface import RetinaFace
+
+    cfg = RecognizerConfig(detector_type="retinaface", weights_dir=None)
+    eng = DeviceEngine(cfg, device="cpu", detector=RetinaFace((1, 1, 1, 1), width=8),
+                       encoder=tiny_facenet(128))
+    assert isinstance(eng.detector, RetinaFace)
+    assert eng._detect_input == cfg.engine.retinaface_size
+    assert eng.weight_source == {"detector": "random-init", "encoder": "random-init"}
     with pytest.raises(ValueError, match="Invalid detector_type"):
         DeviceEngine(RecognizerConfig(detector_type="haar"), device="cpu")
     from fire_tpu_torch.models.blazeface import BlazeFace
@@ -235,5 +240,7 @@ def test_detector_slots():
                            encoder=tiny_facenet(128))
         assert isinstance(eng.detector, BlazeFace)
         assert eng._detect_input == eng.cfg.engine.blazeface_size
-        with pytest.raises(NotImplementedError, match="random-init"):
-            eng.detect_faces(np.zeros((64, 64, 3), np.uint8))
+        # random-init weights run (what they find is noise)
+        assert eng.weight_source["detector"] == "random-init"
+        found = eng.detect_faces(np.zeros((64, 64, 3), np.uint8))
+        assert isinstance(found, list) and len(found) <= eng.cfg.engine.max_faces

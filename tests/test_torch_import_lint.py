@@ -51,7 +51,8 @@ def test_lint_sees_the_whole_package():
     assert "chip_smoke.py" in rel
     assert "fire_tpu_torch/ops/cosine_top1.py" in rel
     for new in ("__main__.py", "cli.py", "models/blazeface.py", "ops/affine.py",
-                "pipeline/annotate.py", "utils/affinity.py", "utils/imageio.py"):
+                "pipeline/annotate.py", "utils/affinity.py", "utils/imageio.py",
+                "models/retinaface.py", "gallery/crypto.py"):
         assert f"fire_tpu_torch/{new}" in rel
     assert len(rel) >= 32
     assert _imports(ast.parse("import jax\ndef f():\n    import cv2\n")) == [("jax", True), ("cv2", False)]

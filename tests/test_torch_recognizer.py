@@ -104,9 +104,15 @@ def test_process_frames_same_identities(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
+    """Only multi-stream and the importers still raise; encryption and
+    random-init engines run (their own tests are in
+    test_torch_encrypted_storage.py and test_torch_random_init.py)."""
     _, teng = _engines()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FaceRecognition(**FR_KW, storage_root=str(tmp_path), engine=teng, encryption_password="pw")
+    enc = FaceRecognition(**FR_KW, storage_root=str(tmp_path), engine=teng,
+                          encryption_password="pw")
+    assert os.path.isdir(tmp_path / "yunet_128_encrypted" / "db")
+    enc.close()
+    assert os.path.exists(tmp_path / "yunet_128_encrypted/db/face_embeddings_yunet_128.db.enc")
     fr = FaceRecognition(**FR_KW, storage_root=str(tmp_path), engine=teng)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fr.process_videos(["a.avi", "b.avi"])
@@ -117,11 +123,17 @@ def test_unported_options_raise(tmp_path):
     fr.process_frames([frame], annotate=False, batch_size=0,
                       on_frame=lambda f, faces: seen.append(faces))
     assert seen == [[], []]
-    unloaded = DeviceEngine(RecognizerConfig(), device="cpu")
+    from fire_tpu_torch.models.yunet import YuNet
     from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine
 
-    with pytest.raises(NotImplementedError, match="random-init"):
-        BatchStreamEngine(unloaded, fr.gallery, fr.cfg)
+    random_init = DeviceEngine(RecognizerConfig(weights_dir=None).with_embedding_dim(),
+                               device="cpu", detector=YuNet(width=8), encoder=tiny_facenet(128))
+    assert random_init.weight_source == {"detector": "random-init", "encoder": "random-init"}
+    res = BatchStreamEngine(random_init, fr.gallery, fr.cfg).process_batch(np.stack([frame] * 2))
+    assert res.tid.shape == (2, fr.cfg.tracker.max_tracks)
+    wdir = tmp_path / "weights"
+    wdir.mkdir()
+    (wdir / "face_detection_yunet_2023mar.onnx").write_bytes(b"\x08\x07" * 100)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceEngine(RecognizerConfig(detector_type="retinaface"), device="cpu")
+        DeviceEngine(RecognizerConfig(weights_dir=str(wdir)), device="cpu")
     fr.close()
