@@ -38,16 +38,36 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
 10. ``encrypted``: ``FaceRecognition(encryption_password=...)`` on the
    99,900-row gallery: enrolment, close, reopen, an encrypted BMP save, a
    wrong password; AES MB/s and the seconds of the 204 MB snapshot.
-11. ``trace``: one more batch of the batched path and 16 frames of the
+11. ``multistream``: ``process_videos``'s loop (fed in-RAM captures) at
+   full width on the 99,900-row gallery with S = 1, 2, 4 streams on a
+   mesh of this one card repeated S times, B = 64 1080p frames per
+   stream, two measured batches after a warm-up; streams 0 and 1 show
+   one identity, which must enrol once; aggregate and per-stream
+   frames/s and K1's launches per S.  Before that, at the engine level,
+   every stream of a 4-stream step equals a single-stream engine on the
+   same frames, and an ended stream runs on the cached zero batch.
+12. ``sharded_gallery``: ``ShardedGalleryView`` over 1…4 shards on this
+   card against ``DeviceGallery.query_batch`` at M = 1, 8, 64 and
+   k = 1, 5 on the 99,900-row gallery; incremental refreshes (300
+   enrolments across a 3-shard boundary, then the rest) equal a full
+   re-shard bitwise; the sharded query's time beside K1's.
+13. ``importers``: the committed YuNet, FaceNet-512 and BlazeFace-192
+   weights exported by the port's writer into a ``weights_dir``
+   (BlazeFace as ``.tflite`` and as ``.onnx``): ``FaceRecognition``
+   imports them and detects and embeds as the msgpack-loaded engine
+   does; a FaceNet of other depths runs through the ONNX executor and
+   matches the module; ``python -m fire_tpu_torch.verify_onnx`` passes on
+   each file.
+14. ``trace``: one more batch of the batched path and 16 frames of the
    per-frame path under ``torch.profiler``, with YuNet and with
    RetinaFace, for the device's busy time and its idle share of the
    traced wall time (four ``trace`` lines).  It runs after every timed
    phase: the profiler leaves launches slower.
-12. ``cross_device``: one 8-frame batched step, the per-frame engine
-   calls (``detect_faces``, ``encode_boxes``, ``encode_landmarks``,
-   ``extract_faces``, BlazeFace and RetinaFace ``detect``), and the
-   random-init FaceNet-128, on the card and on the CPU in float32,
-   compared.
+15. ``cross_device``: one 8-frame batched step, a 2-stream step, the
+   per-frame engine calls (``detect_faces``, ``encode_boxes``,
+   ``encode_landmarks``, ``extract_faces``, BlazeFace and RetinaFace
+   ``detect``), the random-init FaceNet-128 and the ONNX executor on a
+   YuNet graph, on the card and on the CPU in float32, compared.
 
 Any failed check raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or ``fire_tpu`` is
@@ -66,7 +86,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main_path", "retina_path", "frame_path", "retina_frame",
-          "image_mode", "default_command", "encrypted", "trace", "cross_device")
+          "image_mode", "default_command", "encrypted", "multistream", "sharded_gallery",
+          "importers", "trace", "cross_device")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 and dense bf16.
 HBM_BYTES_PER_S = 3.35e12
@@ -919,6 +940,365 @@ def phase_encrypted(ctx) -> None:
           "k1_launches": launches, "gallery_count": count})
 
 
+def _identity_frames(ident: int, render_seed: int, n_scenes: int, per_scene: int):
+    """1080p scenes of one face, all of identity ``ident`` (of 8 made
+    from seed 40), each scene held ``per_scene`` frames."""
+    import numpy as np
+
+    from fire_tpu_torch.train.scenes import compose_scene, make_identities
+
+    idents = make_identities(8, seed=40)
+    rng = np.random.default_rng(render_seed)
+    scenes = [compose_scene(rng, [idents[ident]], hw=(1080, 1920), n_faces=(1, 1),
+                            face_px=(180, 360))[0] for _ in range(n_scenes)]
+    return [s for s in scenes for _ in range(per_scene)]
+
+
+def _multistream_engine_check(fr) -> dict:
+    """Four streams of one 64-frame batch through ``MultiStreamEngine`` on
+    a mesh of this card repeated, against four single-stream engines on
+    the same frames and gallery; then a second step with stream 3 ended
+    (its slot holds 255s, which it must never read)."""
+    import numpy as np
+
+    from fire_tpu_torch.parallel.mesh import make_mesh
+    from fire_tpu_torch.parallel.multistream import MultiStreamEngine
+    from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine
+
+    s = 4
+    mse = MultiStreamEngine(fr.engine, fr.gallery, fr.cfg, make_mesh(devices=["cuda:0"] * s))
+    singles = [BatchStreamEngine(fr.engine, fr.gallery, fr.cfg) for _ in range(s)]
+    steps = [np.stack([np.stack(_identity_frames(i, 500 + 10 * step + i, 1, BATCH))
+                       for i in range(s)]) for step in range(2)]
+    active = [True, True, True, False]
+    steps[1][3] = 255
+    worst = {"box_err_px": 0, "sim_err": 0.0}
+    for step, frames in enumerate(steps):
+        got = mse.collect(mse.submit(frames, active=None if step == 0 else active))
+        for i in range(s):
+            ref = singles[i].process_batch(frames[i] if step == 0 or active[i]
+                                           else np.zeros_like(frames[i]))
+            for f in ("tid", "gid", "mask", "enroll", "enroll_frame", "enroll_slot"):
+                check(np.array_equal(getattr(got[i], f), getattr(ref, f)),
+                      f"multistream: stream {i} step {step}: {f} differs from its single stream")
+            worst["box_err_px"] = max(worst["box_err_px"],
+                                      int(np.abs(got[i].boxes - ref.boxes).max()))
+            worst["sim_err"] = max(worst["sim_err"], float(np.abs(got[i].sim - ref.sim).max()))
+    check(worst["box_err_px"] == 0 and worst["sim_err"] <= 1e-6,
+          f"multistream: boxes / sims differ from the single streams: {worst}")
+    check(list(mse._zero_batches) == [(*steps[1].shape[2:4], BATCH, 3)],
+          f"multistream: cached zero batches {list(mse._zero_batches)}")
+    # the ended stream's track coasts max_age frames, then nothing is left
+    check(all(got[i].mask.any() for i in range(3)) and not got[3].mask[BATCH // 2:].any(),
+          "multistream: live streams tracked their face, the ended one nothing")
+    return {"streams": s, "batch": BATCH, **worst, "zero_batch_cached": True}
+
+
+def phase_multistream(ctx) -> None:
+    """``process_videos``'s loop with S = 1, 2, 4 streams of 1080p on this
+    one card (a mesh of ``cuda:0`` repeated S times), at full width on the
+    99,900-row gallery.  Streams 0 and 1 show one identity (the same
+    render: two cameras on one person, flagged in the same step against
+    the same gallery snapshot), the others their own; each S uses
+    identities not seen before, so the shared one must enrol exactly once,
+    through the host's window of recent enrolments.  Each stream holds its
+    render for both batches (the synthetic encoder does not promise
+    another render of a face above the 0.7 threshold)."""
+    import torch
+
+    from fire_tpu_torch.config import TrackerConfig
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.parallel.mesh import make_mesh
+    from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+    from fire_tpu_torch.pipeline.stream import FrameSequenceCapture
+
+    fr = FaceRecognition(
+        encoder_model_type="512", similarity_threshold=0.7, unknown_trigger_count=1,
+        detection_interval=1, enable_logging=False,
+        storage_root=os.path.join(ctx["tmp"], "multistream"),
+        tracker_cfg=TrackerConfig(assignment="hungarian"),
+        trained_encoder=_trained("facenet512_synth.msgpack"), device="cuda", **YUNET)
+    try:
+        fr.gallery.load_rows(_gallery_rows(ctx))
+        check(fr.gallery.count == N_GALLERY, "multistream: gallery size")
+
+        def run(streams, tag):
+            """One call of the loop; returns (wall s, labels seen per stream)."""
+            fr.mesh = make_mesh(devices=["cuda:0"] * len(streams))
+            caps = [FrameSequenceCapture(f) for f in streams]
+            labels = [set() for _ in streams]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fr._process_streams_batched(
+                caps, [f"{tag} stream {i}" for i in range(len(streams))], annotate=False,
+                save_path=None, batch_size=BATCH,
+                on_frame=lambda i, f, faces: labels[i].update(d["label"] for d in faces))
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, [l - {"Unknown"} for l in labels]
+
+        # warm-up (cuDNN plans, the first 204 MB snapshot): identity 7
+        run([_identity_frames(7, 900, 1, BATCH)], "warm-up")
+        engine_check = _multistream_engine_check(fr)
+        shared = {1: 0, 2: 1, 4: 2}  # the identity streams 0 and 1 share, by S
+        others = {4: [3, 4]}
+        per_s, launches = {}, {}
+        for n_streams in (1, 2, 4):
+            idents = [shared[n_streams]] * min(n_streams, 2) + others.get(n_streams, [])
+            streams = [_identity_frames(ident, 100 * n_streams + max(i - 1, 0), 1, 2 * BATCH)
+                       for i, ident in enumerate(idents)]
+            rows_before = fr.db_manager.count()
+            k1.reset_launches()
+            wall, labels = run(streams, f"S={n_streams}")
+            launches[n_streams] = k1.launches
+            added = fr.db_manager.count() - rows_before
+            n_frames = sum(len(f) for f in streams)
+            check(all(labels), f"multistream S={n_streams}: a stream labelled no face {labels}")
+            if n_streams > 1:
+                check(labels[0] == labels[1] and len(labels[0]) == 1,
+                      f"multistream S={n_streams}: the shared identity got labels "
+                      f"{labels[0] | labels[1]}")
+            check(1 <= added <= len(set(idents)),
+                  f"multistream S={n_streams}: {added} enrolments for {len(set(idents))} identities")
+            check(launches[n_streams] >= 2 * n_streams,
+                  f"multistream S={n_streams}: K1 launched {launches[n_streams]} times")
+            per_s[n_streams] = {
+                "frames": n_frames, "wall_s": wall, "aggregate_frames_per_s": n_frames / wall,
+                "per_stream_frames_per_s": n_frames / n_streams / wall,
+                "sqlite_rows_added": added, "k1_launches": launches[n_streams],
+                # the loop's "device step (S streams)" stage: the wait in
+                # collect, after submit has issued all S steps
+                "collect_ms_per_batch": fr.timer.totals.get("device step (S streams)", 0.0)
+                / 2 * 1e3}
+        ctx["k1_launches_multistream"] = sum(launches.values())
+        emit({"phase": "multistream", "detector": "yunet-640", "batch": BATCH,
+              "engine_check": engine_check, "by_streams": per_s})
+    finally:
+        fr.close()
+
+
+def phase_sharded_gallery(ctx) -> None:
+    """``ShardedGalleryView`` over 1, 2, 3 and 4 shards of the gallery on
+    this card, against ``DeviceGallery.query_batch`` (K1 for k = 1)."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.gallery.index import DeviceGallery, ShardedGalleryView
+    from fire_tpu_torch.parallel.mesh import make_mesh
+
+    rows = _gallery_rows(ctx)
+    gal = DeviceGallery(DIM, device="cuda")
+    first = 66_850  # 300 enrolments from here cross the 3-shard boundary at 66,902
+    gal.load_rows(rows[:first])
+    views = {n: ShardedGalleryView(gal, make_mesh(devices=["cuda:0"] * n)) for n in (1, 2, 3, 4)}
+
+    def same_as_full_reshard(stage):
+        for n, view in views.items():
+            view.refresh()
+            fresh = ShardedGalleryView(gal, view.mesh)
+            check(all(torch.equal(a, b) for a, b in zip(view._gal_sharded, fresh._gal_sharded)),
+                  f"sharded_gallery: {n} shards after {stage}: incremental != full re-shard")
+
+    for db_id, label, blob in rows[first : first + 300]:
+        gal.add(np.frombuffer(blob, np.float32), label, db_id)
+    same_as_full_reshard("300 enrolments")
+    gal.load_rows(rows[first + 300 :])
+    check(gal.count == N_GALLERY, "sharded_gallery: gallery size")
+    same_as_full_reshard("hydrating the rest")
+    check(views[3]._gal_sharded[0].shape[0] == 33_451, "sharded_gallery: 3-shard padding")
+
+    rng = np.random.default_rng(8)
+    g16 = gal.gal_matmul[:N_GALLERY].float()
+    cases, times = [], {}
+    for m in (1, 8, 64):
+        q = unit_rows(rng, m, DIM)
+        for j, i in enumerate(rng.integers(0, N_GALLERY, m // 2)):  # half are gallery rows
+            q[j] = np.frombuffer(rows[i][2], np.float32)
+        full = torch.from_numpy(q).cuda().to(torch.bfloat16).float() @ g16.T
+        top = torch.topk(full, 6, dim=1).values.cpu().numpy()
+        for k in (1, 5):
+            ids_g, d_g = gal.query_batch(q, k=k)
+            # a rank's index is decided where it beats both neighbours by 1e-3
+            gaps = top[:, :-1] - top[:, 1:]
+            decisive = np.ones((m, k), bool)
+            decisive &= gaps[:, :k] > 1e-3
+            decisive[:, 1:] &= gaps[:, : k - 1] > 1e-3
+            for n, view in views.items():
+                ids_v, d_v = view.query_batch(q, k=k)
+                err = float(np.abs(d_v - d_g).max())
+                check(err <= 1e-6, f"sharded_gallery: {n} shards M={m} k={k}: sims differ {err}")
+                check(bool((ids_v[decisive] == ids_g[decisive]).all()),
+                      f"sharded_gallery: {n} shards M={m} k={k}: indices differ")
+                cases.append({"shards": n, "M": m, "k": k, "max_abs_err": err,
+                              "decisive": int(decisive.sum())})
+        for n, view in views.items():
+            times[f"M={m}, {n} shards"] = median(_host_ms(lambda: view.query_batch(q, k=1)))
+        times[f"M={m}, K1 (DeviceGallery)"] = median(_host_ms(lambda: gal.query_batch(q, k=1)))
+    ctx["sharded_query_ms"] = times
+    emit({"phase": "sharded_gallery", "rows": N_GALLERY, "cases": len(cases),
+          "worst_sim_err": max(c["max_abs_err"] for c in cases),
+          "query_ms_host_clock_k1": times, "incremental_refresh_equals_full": True})
+
+
+def _host_ms(fn, reps: int = 10):
+    """Host-clock ms of each of ``reps`` calls of ``fn``, which ends in a
+    readback (so the clock covers finished work)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_importers(ctx) -> None:
+    """The committed weights through the port's exporter and back in
+    through ``weights_dir``; the executor on a FaceNet of other depths;
+    ``python -m fire_tpu_torch.verify_onnx`` on each file, run beside."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.config import EngineConfig, RecognizerConfig
+    from fire_tpu_torch.models.facenet import FaceNet, tiny_facenet
+    from fire_tpu_torch.models.onnx_export import export_blazeface, export_facenet, export_yunet
+    from fire_tpu_torch.models.tflite_import import write_tflite_blazeface
+    from fire_tpu_torch.pipeline.engine import DeviceEngine, OnnxEncoder
+    from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+    from fire_tpu_torch.weights import (flax_shapes, from_flax_facenet, load_into, materialize,
+                                        read_msgpack)
+
+    work = os.path.join(ctx["tmp"], "importers")
+    wdir, tdir, bdir, xdir = (os.path.join(work, d)
+                              for d in ("weights", "blaze_tflite", "blaze_onnx", "executor"))
+    t0 = time.perf_counter()
+    blaze = read_msgpack(_trained("blazeface192_synth.msgpack"))
+    other = FaceNet(embed_dim=512, depths=(2, 2, 2))
+    other_tree = materialize(flax_shapes(other, unit_bn_scale=True), seed=3)
+    files = {
+        os.path.join(wdir, "facenet512.onnx"):
+            export_facenet(read_msgpack(_trained("facenet512_synth.msgpack")), embed_dim=512),
+        os.path.join(wdir, "face_detection_yunet_2023mar.onnx"):
+            export_yunet(read_msgpack(_trained("yunet_synth.msgpack"))),
+        os.path.join(bdir, "blazeface.onnx"): export_blazeface(blaze),
+        os.path.join(xdir, "facenet512.onnx"):
+            export_facenet(other_tree, embed_dim=512, depths=(2, 2, 2)),
+    }
+    files[os.path.join(tdir, "face_detection_short_range.tflite")] = write_tflite_blazeface(
+        blaze["params"])
+    for path, blob in files.items():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(blob)
+    out = {"export_s": time.perf_counter() - t0,
+           "files_mb": {os.path.relpath(p, work): len(b) / 1e6 for p, b in files.items()}}
+
+    gates = {"facenet512": [os.path.join(wdir, "facenet512.onnx")],
+             "yunet": [os.path.join(wdir, "face_detection_yunet_2023mar.onnx"), "--role", "yunet"],
+             "blazeface": [os.path.join(bdir, "blazeface.onnx")]}
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "fire_tpu_torch.verify_onnx", *args, "--n", "2"], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for name, args in gates.items()}
+    try:
+        # FaceRecognition imports YuNet and FaceNet-512 from the files;
+        # the engine of the committed msgpack files is the reference
+        t0 = time.perf_counter()
+        imp = FaceRecognition(detector_type="yunet", encoder_model_type="512", weights_dir=wdir,
+                              enable_logging=False, device="cuda",
+                              storage_root=os.path.join(work, "storage"))
+        out["facerecognition_start_s"] = time.perf_counter() - t0
+        src = imp.engine.weight_source
+        check(src == {"encoder": f"onnx-import:{wdir}/facenet512.onnx",
+                      "detector": f"onnx-import:{wdir}/face_detection_yunet_2023mar.onnx"},
+              f"importers: weight sources {src}")
+        ref = DeviceEngine(RecognizerConfig(detector_type="yunet", encoder_model_type="512",
+                                            weights_dir=None).with_embedding_dim(), device="cuda")
+        ref.load_trained_detector(_trained("yunet_synth.msgpack"))
+        ref.load_trained_encoder(_trained("facenet512_synth.msgpack"))
+        emb_err, n_faces = 0.0, 0
+        for frame in _frames(seed=21, n_scenes=8, per_scene=1):
+            a, b = imp.engine.detect_faces(frame), ref.detect_faces(frame)
+            check([d["bbox"] for d in a] == [d["bbox"] for d in b],
+                  "importers: the imported YuNet found other boxes")
+            if a:
+                boxes = np.asarray([d["bbox"] for d in a], np.float32)
+                emb_err = max(emb_err, float(np.abs(imp.engine.encode_boxes(frame, boxes)
+                                                    - ref.encode_boxes(frame, boxes)).max()))
+                n_faces += len(a)
+        check(n_faces >= 4 and emb_err <= 1e-3,
+              f"importers: {n_faces} faces in 8 frames, embeddings differ by {emb_err}")
+        out.update(frames=8, faces=n_faces, max_abs_emb_err=emb_err)
+        imp.close()
+
+        # BlazeFace from the .tflite and from the .onnx: pinned to 128²,
+        # the same heads and boxes as the msgpack weights at 128²
+        x = torch.rand((2, 128, 128, 3), device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+        bref = DeviceEngine(RecognizerConfig(
+            detector_type="mediapipe", encoder_model_type="512", weights_dir=None,
+            engine=EngineConfig(blazeface_size=(128, 128))).with_embedding_dim(),
+            device="cuda", encoder=tiny_facenet(512))
+        bref.load_trained_detector(_trained("blazeface192_synth.msgpack"))
+        scenes = [_one_face_scene(seed) for seed in (31, 32)]
+        for kind, d in (("tflite", tdir), ("onnx", bdir)):
+            eng = DeviceEngine(RecognizerConfig(detector_type="mediapipe", encoder_model_type="512",
+                                                weights_dir=d).with_embedding_dim(),
+                               device="cuda", encoder=tiny_facenet(512))
+            src = eng.weight_source["detector"]
+            check(src.startswith(f"{kind}-import:") and tuple(eng._detect_input) == (128, 128),
+                  f"importers: BlazeFace {kind}: {src}, {eng._detect_input}")
+            with torch.no_grad():
+                heads_equal = all(torch.equal(p, q) for p, q in zip(eng.detector(x),
+                                                                    bref.detector(x)))
+            check(heads_equal, f"importers: BlazeFace {kind}: heads differ from the msgpack's")
+            check(all([f["bbox"] for f in eng.detect_faces(s)]
+                      == [f["bbox"] for f in bref.detect_faces(s)] for s in scenes),
+                  f"importers: BlazeFace {kind}: boxes differ from the msgpack's")
+            out[f"blazeface_{kind}"] = src.split(":")[0]
+
+        # a FaceNet of other depths runs through the executor; TF32 off
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            ex = DeviceEngine(RecognizerConfig(
+                detector_type="yunet", encoder_model_type="512", weights_dir=xdir,
+                engine=EngineConfig(compute_dtype="float32")).with_embedding_dim(), device="cuda")
+            check(ex.weight_source["encoder"] == f"onnx-exec:{xdir}/facenet512.onnx"
+                  and isinstance(ex.encoder, OnnxEncoder),
+                  f"importers: executor fallback {ex.weight_source}")
+            load_into(other, from_flax_facenet(other_tree))
+            other = other.cuda().eval()
+            crops = np.random.default_rng(4).uniform(0, 1, (4, 160, 160, 3)).astype(np.float32)
+            with torch.no_grad():
+                want = other(torch.from_numpy(crops).cuda()).cpu().numpy()
+                got = ex.encoder(torch.from_numpy(crops).cuda()).cpu().numpy()
+            err = float(np.abs(got - want).max())
+            check(err <= 1e-3 * max(1.0, float(np.abs(want).max())),
+                  f"importers: the executor's FaceNet differs from the module by {err}")
+            out["executor_facenet"] = {"depths": [2, 2, 2], "max_abs_err": err,
+                                       "max_abs_value": float(np.abs(want).max())}
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    finally:
+        verdicts = {name: (proc.communicate(timeout=600), proc.returncode)
+                    for name, proc in procs.items()}
+    out["verify_onnx"] = {}
+    for name, ((stdout, stderr), rc) in verdicts.items():
+        lines = stdout.strip().splitlines()
+        check(rc == 0 and lines and json.loads(lines[-1])["ok"] is True,
+              f"importers: verify_onnx {name}: rc {rc}, {lines[-1:]}, {stderr[-600:]}")
+        out["verify_onnx"][name] = json.loads(lines[-1])
+    emit({"phase": "importers", **out})
+
+
+def _one_face_scene(seed: int):
+    """A rendered short-range 1080p scene with one face (420–700 px)."""
+    import numpy as np
+
+    from fire_tpu_torch.train.scenes import compose_scene, make_identities
+
+    return compose_scene(np.random.default_rng(seed), make_identities(8, seed=seed),
+                         hw=(1080, 1920), n_faces=(1, 1), face_px=(420, 700))[0]
+
+
 def phase_cross_device(ctx) -> None:
     import numpy as np
     import torch
@@ -967,9 +1347,57 @@ def phase_cross_device(ctx) -> None:
     a, b, be2, se2 = run_both()
     check(bool((a.gid[a.mask] == N_GALLERY).any()), "cross_device: the enrolled face matched")
     per_frame = _cross_device_per_frame({d: bse.engine for d, (bse, _) in sides.items()}, cfg)
+    multi = _cross_device_multistream(sides, cfg)
+    executor = _cross_device_executor()
     emit({"phase": "cross_device", "frames": len(frames), "dtype": "float32", "tf32": False,
           "box_err_px": max(be1, be2), "sim_err": max(se1, se2),
-          "matched_gid": N_GALLERY, "per_frame": per_frame})
+          "matched_gid": N_GALLERY, "per_frame": per_frame, "multistream": multi,
+          "executor": executor})
+
+
+def _cross_device_multistream(sides: dict, cfg) -> dict:
+    """One 2-stream step of 4 frames a stream, on a mesh of the card
+    repeated and of the CPU repeated: the same ids, boxes within 1 px."""
+    import numpy as np
+
+    from fire_tpu_torch.parallel.mesh import make_mesh
+    from fire_tpu_torch.parallel.multistream import MultiStreamEngine
+
+    frames = np.stack([np.stack(_frames(seed=40 + i, n_scenes=1, per_scene=6)) for i in range(2)])
+    out = {}
+    for dev, (bse, gal) in sides.items():
+        mesh = make_mesh(devices=["cuda:0" if dev == "cuda" else "cpu"] * 2)
+        out[dev] = MultiStreamEngine(bse.engine, gal, cfg, mesh).process_batches(frames)
+    box_err, sim_err = 0, 0.0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        for f in ("tid", "gid", "mask", "enroll"):
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"cross_device: multistream {f} differs")
+        box_err = max(box_err, int(np.abs(a.boxes.astype(np.int64) - b.boxes).max()))
+        sim_err = max(sim_err, float(np.abs(a.sim - b.sim).max()))
+    check(box_err <= 1 and sim_err <= 2e-3 and any(r.mask.any() for r in out["cuda"]),
+          f"cross_device: multistream boxes {box_err} px, sims {sim_err}")
+    return {"streams": 2, "frames_per_stream": 6, "box_err_px": box_err, "sim_err": sim_err}
+
+
+def _cross_device_executor() -> dict:
+    """The ONNX executor on the committed YuNet exported as ONNX, one
+    640² input, on the card and on the CPU."""
+    import numpy as np
+
+    from fire_tpu_torch.models.onnx_exec import OnnxModel
+    from fire_tpu_torch.models.onnx_export import export_yunet
+    from fire_tpu_torch.models.onnx_import import read_onnx_bytes
+    from fire_tpu_torch.weights import read_msgpack
+
+    graph = read_onnx_bytes(export_yunet(read_msgpack(_trained("yunet_synth.msgpack"))))
+    x = np.random.default_rng(13).uniform(0, 255, (1, 3, 640, 640)).astype(np.float32)
+    outs = {dev: [t.cpu().numpy() for t in OnnxModel(graph, device=dev)(x)]
+            for dev in ("cuda", "cpu")}
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs["cuda"], outs["cpu"]))
+    check(err <= 1e-3, f"cross_device: the executor's YuNet differs by {err}")
+    return {"graph": "yunet-640 (committed weights)", "outputs": len(graph.outputs),
+            "max_abs_err": err}
 
 
 def _cross_device_per_frame(yunet: dict, cfg) -> dict:
@@ -1078,7 +1506,8 @@ def kernel_summary(ctx) -> dict:
     """The contract line: K1 at the main path's shape (M = one query per
     frame of a 64-frame batch, the smallest compaction rung), with its
     launch counts on every path: batched (YuNet, RetinaFace), per-frame
-    (YuNet, RetinaFace), image mode, the default command, encrypted."""
+    (YuNet, RetinaFace), image mode, the default command, encrypted, and
+    the multi-stream runs (S = 1, 2, 4 together)."""
     from fire_tpu_torch.ops import cosine_top1 as k1
 
     main = next(r for r in ctx["k1"] if r.get("case") == f"M={BATCH}")
@@ -1092,6 +1521,7 @@ def kernel_summary(ctx) -> dict:
         "launches_retina_frame": ctx["k1_launches_retina_frame"],
         "launches_default_command": ctx["k1_launches_default_command"],
         "launches_encrypted": ctx["k1_launches_encrypted"],
+        "launches_multistream": ctx["k1_launches_multistream"],
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "device_ms": main["kernel_device_ms"],

@@ -1,7 +1,11 @@
-"""FIRE on PyTorch/CUDA: :mod:`fire_tpu`'s batched video path, per-frame
-path, image mode and command line (``python -m fire_tpu_torch``), with
-every detector slot (YuNet, RetinaFace, BlazeFace) and at-rest
-encryption, ported.
+"""FIRE on PyTorch/CUDA: :mod:`fire_tpu`'s serving surface ported whole:
+the batched video path, the per-frame path, image mode and the command
+line (``python -m fire_tpu_torch``, every flag of ``fire_tpu.cli``),
+with every detector slot (YuNet, RetinaFace, BlazeFace), at-rest
+encryption, several streams over a mesh of devices and the row-sharded
+gallery (:mod:`fire_tpu_torch.parallel`), and the ONNX / TFLite
+importers, exporter and executor behind ``--weights_dir``
+(``python -m fire_tpu_torch.verify_onnx`` checks a file).
 
 The package mirrors ``fire_tpu``'s module names so each counterpart is
 easy to find.  It imports ``torch`` and never JAX, Flax or anything of

@@ -11,9 +11,12 @@ mediapipe slot to 192² when no size is given, ``shrink_db_ids`` after
 
 A model with no committed weights (the 128-d encoder, the default) runs
 the deterministic random init kept in the params cache, as in JAX.
-What the port does not have yet ends the run with a message that names
-ROADMAP.md: ``--inputs`` (multi-stream), and a real ONNX / TFLite file
-in ``--weights_dir`` (the importers).
+Reference ONNX / TFLite files in ``--weights_dir`` are imported, or run
+through the ONNX executor when their topology does not map.  ``--inputs``
+runs several videos at once, one stream per device of the mesh (every
+CUDA device):
+
+    python -m fire_tpu_torch --mode video --inputs a.avi b.avi --save out.avi
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import os
 from typing import Optional, Sequence
 
 from fire_tpu_torch.config import EngineConfig
-from fire_tpu_torch.pipeline.recognizer import MULTISTREAM_TODO, FaceRecognition
+from fire_tpu_torch.pipeline.recognizer import FaceRecognition
 from fire_tpu_torch.utils.affinity import set_single_core_affinity
 
 log = logging.getLogger(__name__)
@@ -39,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Which pipeline to run: one still image, a video file, or a live webcam stream")
     p.add_argument("--input", type=str, default=None, help="Input image/video location on disk")
     p.add_argument("--inputs", type=str, nargs="+", default=None,
-                   help="Video mode: multiple videos as parallel streams (not ported yet)")
+                   help="Video mode: multiple videos processed as data-parallel "
+                        "streams, one per device; all must share one resolution")
     p.add_argument("--save", type=str, default=None, help="Where to write the annotated result")
     p.add_argument("--label", type=str, default=None,
                    help="Identity name: relabels the matched face in image mode, renames recognized faces in webcam mode")
@@ -87,8 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", type=str, default=None,
                    help="Write a torch.profiler Chrome trace (trace.json) to this directory")
     p.add_argument("--weights_dir", type=str, default="weights",
-                   help="Directory of reference ONNX / TFLite weight files (the importers "
-                        "are not ported: a real file there stops the run)")
+                   help="Directory probed for reference weight files (facenet*.onnx, "
+                        "face_detection_yunet_2023mar.onnx, retinaface.onnx, "
+                        "face_detection_short_range.tflite)")
     p.add_argument("--trained", type=str, default=None,
                    help="Encoder variables from `python -m fire_tpu.train` (msgpack)")
     p.add_argument("--trained_detector", type=str, default=None,
@@ -158,8 +163,6 @@ def _usable(path: str, min_bytes: int) -> bool:
 
 
 def _run(args) -> None:
-    if args.inputs:
-        raise NotImplementedError(MULTISTREAM_TODO)
     defaults = not args.no_default_weights and args.trained_detector is None
     wd = args.weights_dir or "weights"
     # the committed RetinaFace weights are trained at 512², the mediapipe
@@ -222,7 +225,11 @@ def _run(args) -> None:
                 face_recog.process_image(image_path=args.input, annotate=args.annotate,
                                          save_path=args.save, label=args.label)
         elif args.mode == "video":
-            if args.input is None:
+            if args.inputs:
+                face_recog.process_videos(video_paths=args.inputs, annotate=args.annotate,
+                                          save_path=args.save,
+                                          batch_size=args.batch_size or 8, name=args.label)
+            elif args.input is None:
                 log.error("Please provide the path to the input video using --input")
             else:
                 face_recog.process_video(video_path=args.input, annotate=args.annotate,
@@ -254,7 +261,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     try:
         _run(args)
     except (NotImplementedError, ImportError) as e:
-        # what the port lacks, or a file format / window that needs OpenCV
+        # an ONNX op the executor lacks, or a file format / window that
+        # needs OpenCV
         raise SystemExit(f"fire_tpu_torch: {e}") from e
     finally:
         if prof is not None:

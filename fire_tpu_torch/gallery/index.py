@@ -9,6 +9,8 @@ through the plain top-k.  Semantics follow HNSWManager as in JAX: ids
 are insertion counters, ``query`` returns (ids, cosine distances), group
 relabel refuses to unify conflicting known labels, and a corrupt
 persisted index falls back to a fresh one rebuilt from SQLite.
+:class:`ShardedGalleryView` answers the same queries from row shards
+spread over a mesh.
 
 Persistence is the JAX package's, byte for byte: the snapshot triplet
 (index ``.npy`` bytes, labels pickle, db_ids pickle) plus the
@@ -419,3 +421,79 @@ class DeviceGallery:
             self.rename_single(gid, new_label, store)
             return
         self.unify_labels(similar, new_label, store)
+
+
+class ShardedGalleryView:
+    """A DeviceGallery's rows sharded over the mesh's ``dp`` axis
+    (counterpart of ``fire_tpu.gallery.index.ShardedGalleryView``):
+    queries take a local top-k on every shard and reduce the gathered
+    candidates (:mod:`fire_tpu_torch.parallel.sharded_gallery`).
+
+    The DeviceGallery stays the point of mutation (labels, SQLite);
+    :meth:`refresh` brings the shards up to date after enrolments."""
+
+    _BLOCK = 128  # incremental-refresh granularity (gallery.padded is a multiple)
+
+    def __init__(self, gallery: DeviceGallery, mesh, axis: str = "dp"):
+        self.gallery = gallery
+        self.mesh = mesh
+        self.axis = axis
+        self._gal_sharded = None
+        self._synced = 0  # gallery rows reflected in the shards
+        self.refresh()
+
+    def refresh(self, force: bool = False) -> None:
+        """Sync the shards with the gallery.  Enrolment appends rows, so
+        the usual case copies only the 128-row blocks touched since the
+        last sync, device to device; a full re-shard happens on the first
+        build, a shrink (recovery rebuilt the gallery) or a change of the
+        padded size.  No mask is kept: the query derives it per shard
+        from the row count."""
+        from fire_tpu_torch.parallel.sharded_gallery import shard_gallery, update_sharded_rows
+
+        gal = self.gallery.gal_matmul  # the bf16 shadow: half the bytes per shard
+        n = self.mesh.shape[self.axis]
+        pad = _round_up(gal.shape[0], n)
+        count = self.gallery.count
+        if (force or self._gal_sharded is None or count < self._synced
+                or len(self._gal_sharded) != n or self._gal_sharded[0].shape[0] * n != pad):
+            if pad != gal.shape[0]:
+                gal = torch.nn.functional.pad(gal, (0, 0, 0, pad - gal.shape[0]))
+            self._gal_sharded = shard_gallery(self.mesh, gal, self.axis)
+            self._synced = count
+            return
+        bk = self._BLOCK
+        for bs in range((self._synced // bk) * bk, count, bk):
+            # gallery.padded is a multiple of the block and count ≤ padded,
+            # so every dirty block is whole and in range
+            assert bs + bk <= gal.shape[0] <= pad
+            update_sharded_rows(self._gal_sharded, gal[bs : bs + bk], bs)
+        self._synced = count
+
+    def query(self, embedding: np.ndarray, k: int = 1):
+        """Single query (DeviceGallery.query's contract)."""
+        return self.query_batch(np.asarray(embedding, np.float32).reshape(1, -1), k)
+
+    @property
+    def count(self) -> int:
+        return self.gallery.count
+
+    @property
+    def labels(self):
+        return self.gallery.labels
+
+    def query_batch(self, embeddings: np.ndarray, k: int = 1):
+        """DeviceGallery.query_batch's contract, sharded:
+        ``(ids, 1 − sims)``, ``(None, None)`` when empty."""
+        from fire_tpu_torch.parallel.sharded_gallery import sharded_cosine_topk
+
+        count = self.gallery.count
+        if count == 0:
+            return None, None
+        if count != self._synced:
+            self.refresh()
+        home = self._gal_sharded[0].device
+        q = torch.from_numpy(np.ascontiguousarray(embeddings, np.float32)).to(home)
+        sims, idx = sharded_cosine_topk(self.mesh, q, self._gal_sharded, count,
+                                        k=min(k, count), axis=self.axis)
+        return idx.cpu().numpy(), 1.0 - sims.cpu().numpy()

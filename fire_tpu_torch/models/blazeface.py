@@ -1,6 +1,7 @@
 """BlazeFace short-range detector (counterpart of
 ``fire_tpu.models.blazeface``: ``BLAZE_BLOCKS``, ``blaze_anchors``,
-``BlazeBlock``, ``BlazeFace``, ``decode_blazeface``).
+``BlazeBlock``, ``BlazeFace``, ``blazeface_layer_order``,
+``decode_blazeface``).
 
 Same topology and module names as the Flax model, so the committed
 weights load key for key (:func:`fire_tpu_torch.weights.
@@ -19,7 +20,7 @@ by cell.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -112,6 +113,19 @@ class BlazeFace(nn.Module):
         scores = torch.cat([c8.reshape(b, -1), c16.reshape(b, -1)], dim=1)
         regs = torch.cat([r8.reshape(b, -1, 16), r16.reshape(b, -1, 16)], dim=1)
         return scores, regs
+
+
+def blazeface_layer_order() -> List[Tuple]:
+    """Parameterised layers in execution order for weight import (all
+    plain biased convs: the TFLite file ships BN folded), as
+    ``fire_tpu.models.blazeface.blazeface_layer_order`` lists them."""
+    order: List[Tuple] = [("conv", ("conv1",))]
+    for i in range(1, len(BLAZE_BLOCKS) + 1):
+        order.append(("conv", (f"b{i}", "dw")))
+        order.append(("conv", (f"b{i}", "pw")))
+    for head in ("classifier_8", "regressor_8", "classifier_16", "regressor_16"):
+        order.append(("conv", (head,)))
+    return order
 
 
 def decode_blazeface(

@@ -1,0 +1,129 @@
+"""Several video streams over a device mesh (counterpart of
+``fire_tpu.parallel.multistream``).
+
+S = ``mesh.shape["dp"]`` streams, stream i on the i-th device of the
+``dp`` axis, each with its own tracker and identity state.  Every stream
+runs the single-stream batched step unchanged
+(:meth:`fire_tpu_torch.pipeline.batch_engine.BatchStreamEngine.step`)
+against the one shared gallery, whose row count is read once per
+``submit`` so that every stream matches against the same snapshot, as
+the one replicated count does in JAX.  Where JAX stacks the states and
+runs one SPMD program, this process issues the S steps one after the
+other, all of them before the first readback.
+
+The models and the gallery get one replica per distinct device of the
+mesh: on one card the replicas are the engine and the gallery matrix
+themselves.  A replica of the gallery on another device is brought up to
+date when the count changes, by copying the new rows only.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from fire_tpu_torch.config import RecognizerConfig, TrackerConfig
+from fire_tpu_torch.parallel.mesh import Mesh, canonical_device
+from fire_tpu_torch.pipeline.batch_engine import (BatchResults, BatchStreamEngine,
+                                                  make_stream_state, unpack_results)
+
+
+def replicate_engine(engine, device: torch.device):
+    """``engine`` with its models copied to ``device`` (the engine itself
+    when it is already there)."""
+    if canonical_device(device) == canonical_device(engine.device):
+        return engine
+    rep = copy.copy(engine)
+    rep.device = torch.device(device)
+    memo = {}  # a module held under two names stays one module
+    for name in ("encoder", "detector", "_encoder_net", "_detector_net"):
+        module = getattr(engine, name, None)
+        if module is not None:
+            setattr(rep, name, copy.deepcopy(module, memo).to(rep.device))
+    return rep
+
+
+class MultiStreamEngine:
+    """S streams × B frames per submit, one stream per ``dp`` device."""
+
+    def __init__(self, engine, gallery, cfg: RecognizerConfig, mesh: Mesh,
+                 tracker_cfg: Optional[TrackerConfig] = None,
+                 encode_k: int = 8, detection_interval: int = 1,
+                 encode_budget: Optional[int] = None):
+        self.mesh = mesh
+        self.n_streams = mesh.shape["dp"]
+        self.inner = BatchStreamEngine(engine, gallery, cfg, tracker_cfg, encode_k=encode_k,
+                                       detection_interval=detection_interval,
+                                       encode_budget=encode_budget)
+        self.cfg = cfg
+        self.tcfg = self.inner.tcfg
+        self.devices = mesh.axis_devices("dp")
+        self.engines = {d: replicate_engine(engine, d) for d in mesh.distinct_devices()}
+        self.states = [make_stream_state(self.tcfg, cfg.embedding_dim, d) for d in self.devices]
+        self._gal_replicas: Dict[torch.device, list] = {}  # device → [matrix, rows synced]
+        # device-resident zero batches for streams that have ended, by
+        # (h, w, b, stream): uploaded once, then reused
+        self._zero_batches = {}
+
+    def _gallery_on(self, device: torch.device, gal: torch.Tensor, count: int) -> torch.Tensor:
+        """The gallery matrix on ``device``: ``gal`` itself there, else a
+        replica that copies only the rows added since its last sync (all
+        of them on the first use, a shrink or a change of shape)."""
+        if device == canonical_device(gal.device):
+            return gal
+        rep = self._gal_replicas.get(device)
+        if rep is None or rep[0].shape != gal.shape or rep[0].dtype != gal.dtype or count < rep[1]:
+            rep = self._gal_replicas[device] = [gal.to(device, copy=True), count]
+        elif count > rep[1]:
+            rep[0][rep[1] : count] = gal[rep[1] : count].to(device)
+            rep[1] = count
+        return rep[0]
+
+    def _frames_for(self, frames, i: int, live: bool) -> torch.Tensor:
+        dev = self.devices[i]
+        s, b, h, w = frames.shape[:4]
+        if live:
+            x = frames[i]
+            return (torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray)
+                    else x).to(dev)
+        key = (h, w, b, i)
+        z = self._zero_batches.get(key)
+        if z is None:
+            z = self._zero_batches[key] = torch.zeros((b, h, w, 3), dtype=torch.uint8, device=dev)
+        return z
+
+    def submit(self, frames, active: Optional[List[bool]] = None):
+        """frames: (S, B, H, W, 3) uint8, one batch per stream.  Streams
+        marked inactive in ``active`` get the cached zero batch instead of
+        a fresh upload; their step still runs and their results are
+        dropped by the caller.  Returns a token for :meth:`collect`."""
+        s, b = frames.shape[:2]
+        assert s == self.n_streams, f"need {self.n_streams} streams, got {s}"
+        gallery = self.inner.gallery
+        count = gallery.count  # one snapshot for every stream
+        gal = gallery.gal_matmul
+        packed = []
+        with torch.inference_mode():
+            for i, dev in enumerate(self.devices):
+                x = self._frames_for(frames, i, active is None or active[i])
+                self.states[i], out = self.inner.step(
+                    self.engines[dev], self._gallery_on(dev, gal, count), count, self.states[i], x)
+                packed.append(out)
+        return [self.inner._readback(p, slot=i) for i, p in enumerate(packed)], b
+
+    def collect(self, token) -> List[BatchResults]:
+        """Wait for a submitted step; one BatchResults per stream."""
+        reads, b = token
+        out = []
+        for host, done in reads:
+            if done is not None:
+                done.synchronize()
+            out.append(unpack_results(host.numpy().copy(), b, self.tcfg.max_tracks,
+                                      self.cfg.embedding_dim))
+        return out
+
+    def process_batches(self, frames) -> List[BatchResults]:
+        return self.collect(self.submit(frames))

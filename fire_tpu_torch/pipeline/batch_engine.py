@@ -213,7 +213,7 @@ class BatchStreamEngine:
         self.timer = timer
         self.state = make_stream_state(self.tcfg, cfg.embedding_dim, self.device)
         self._detect_cache = {}
-        self._pinned = []  # rotating pinned readback buffers
+        self._pinned = {}  # rotating pinned readback buffers, by slot
 
     def reset(self):
         self.state = make_stream_state(self.tcfg, self.cfg.embedding_dim, self.device)
@@ -225,6 +225,17 @@ class BatchStreamEngine:
 
     def _step(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """One batch: (B, H, W, 3) uint8 on the device → packed int32."""
+        self.state, packed = self.step(self.engine, self.gallery.gal_matmul, self.gallery.count,
+                                       self.state, frames_u8)
+        return packed
+
+    def step(self, engine, gal: torch.Tensor, count: int, state: StreamState,
+             frames_u8: torch.Tensor) -> Tuple[StreamState, torch.Tensor]:
+        """The step as a function of its operands, as the JAX step is of
+        ``(det_vars, enc_vars, gal, count, state, frames)``: ``engine``
+        holds the models on the frames' device, ``gal`` the gallery matrix
+        there with ``count`` live rows.  Returns the new state and the
+        packed int32 results."""
         cfg, k_enc = self.cfg, self.encode_k
         batch, h, w = frames_u8.shape[:3]
         interval = self.interval
@@ -232,11 +243,10 @@ class BatchStreamEngine:
             raise ValueError(f"batch {batch} not a multiple of detection_interval {interval}")
         n_det = batch // interval
         size = cfg.engine.encode_size
-        detect = self._detect_cache.get((h, w))
+        detect = self._detect_cache.get((engine.device, h, w))
         if detect is None:
-            detect = self.engine._build_detect((h, w), self.timer)
-            self._detect_cache[(h, w)] = detect
-        gal, count = self.gallery.gal_matmul, self.gallery.count
+            detect = engine._build_detect((h, w), self.timer)
+            self._detect_cache[(engine.device, h, w)] = detect
 
         # ---- detect every interval-th frame (frame-skip phase as in JAX)
         det_frames = frames_u8[interval - 1 :: interval] if interval > 1 else frames_u8
@@ -254,7 +264,7 @@ class BatchStreamEngine:
         def embed(crops):
             with self._stage("facenet"):
                 flat = bgr_to_rgb(crops / 255.0).reshape(-1, *size, 3)
-                emb_q = l2_normalize(self.engine.encode(flat).float())
+                emb_q = l2_normalize(engine.encode(flat).float())
             with self._stage("K1"):
                 sims, idx = cosine_top1(emb_q, gal, count)
             return emb_q, sims, idx
@@ -321,18 +331,20 @@ class BatchStreamEngine:
             has_emb = expand(has_emb, fill=False)
 
         with self._stage("tracker scan"):
-            self.state, res = _track_scan(
-                self.state, boxes, mask, det_gid, det_sim, emb, has_emb, self.tcfg,
+            state, res = _track_scan(
+                state, boxes, mask, det_gid, det_sim, emb, has_emb, self.tcfg,
                 cfg.similarity_threshold, cfg.unknown_trigger_count)
-            return pack_results(res)
+            return state, pack_results(res)
 
-    def _pinned_buffer(self, n: int) -> torch.Tensor:
-        # three buffers: one being filled, one in flight, one being read
-        if len(self._pinned) < 3 or self._pinned[0].numel() != n:
-            self._pinned = [torch.empty(n, dtype=torch.int32, pin_memory=True)
-                            for _ in range(3)]
-        buf = self._pinned.pop(0)
-        self._pinned.append(buf)
+    def _pinned_buffer(self, n: int, slot: int = 0) -> torch.Tensor:
+        # three buffers per slot (a stream): one being filled, one in
+        # flight, one being read
+        ring = self._pinned.get(slot)
+        if ring is None or ring[0].numel() != n:
+            ring = self._pinned[slot] = [torch.empty(n, dtype=torch.int32, pin_memory=True)
+                                         for _ in range(3)]
+        buf = ring.pop(0)
+        ring.append(buf)
         return buf
 
     def submit(self, frames):
@@ -345,13 +357,19 @@ class BatchStreamEngine:
             frames = frames.to(self.device)
         with torch.inference_mode():
             packed = self._step(frames)
-        if self.device.type != "cuda":
-            return packed, None, b
-        host = self._pinned_buffer(packed.numel())
+        return self._readback(packed) + (b,)
+
+    def _readback(self, packed: torch.Tensor, slot: int = 0):
+        """Start the copy of one packed result to host memory: ``(host
+        tensor, event to wait on or None)``.  On the card the copy goes to
+        pinned memory asynchronously, into ``slot``'s buffers."""
+        if packed.device.type != "cuda":
+            return packed, None
+        host = self._pinned_buffer(packed.numel(), slot)
         host.copy_(packed, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host, done, b
+        return host, done
 
     def collect(self, token) -> BatchResults:
         """Wait for one submitted batch and unpack its results."""

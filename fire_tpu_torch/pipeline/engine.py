@@ -18,12 +18,15 @@ random init (:func:`fire_tpu_torch.weights.materialize`, encoder seed
 ``seed``, detector ``seed + 1``), kept in a params cache
 ``params_<detector>_<encoder>.msgpack`` under ``params_dir`` so that
 embeddings stay the same across sessions; the file is Flax's
-``to_bytes`` format, so either package reads the other's.  Trained
-variables replace them through ``load_trained_*``.  The JAX engine also
-imports reference ONNX / TFLite files found in ``cfg.weights_dir``; the
-importers are not ported, so a real file there makes the port's engine
-raise rather than run other weights without a word (a Git-LFS pointer
-is ignored, as JAX ignores it).
+``to_bytes`` format, so either package reads the other's.  Then the
+reference ONNX / TFLite files found in ``cfg.weights_dir`` are imported
+in the JAX probe's order (``_load_reference_weights``): onto the Flax-
+named variable tree the engine holds (``enc_vars`` / ``det_vars``), or,
+when a file's topology does not map, by putting the ONNX executor
+(:class:`fire_tpu_torch.models.onnx_exec.OnnxModel`) in the model's slot;
+a Git-LFS pointer keeps the random init.  Trained variables replace any
+of them through ``load_trained_*``, which puts the port's own module
+back in its slot.
 
 Where the JAX engine pads each call to a power-of-two bucket to bound
 XLA recompiles, the port runs the faces it was given (in chunks of
@@ -59,33 +62,111 @@ log = logging.getLogger(__name__)
 
 Frame = Union[np.ndarray, torch.Tensor]
 
-LFS_POINTER = b"version https://git-lfs"
-IMPORTERS_TODO = ("the ONNX / TFLite importers are not ported (ROADMAP.md, PyTorch/CUDA port "
-                  "queue: 'Model importers')")
+YUNET_OUTPUTS = ["cls_8", "obj_8", "bbox_8", "kps_8", "cls_16", "obj_16",
+                 "bbox_16", "kps_16", "cls_32", "obj_32", "bbox_32", "kps_32"]
+BLAZEFACE_OUTPUTS = ["classifier_8", "regressor_8", "classifier_16", "regressor_16"]
+RETINAFACE_PERM = (7, 1, 4, 8, 0, 3, 6, 2, 5)  # the export's output order → (sc, bb, lm) × 32/16/8
 
 
-def reference_weight_files(cfg: RecognizerConfig) -> List[str]:
-    """The files the JAX engine's probe of ``cfg.weights_dir`` would try
-    to import for this configuration (``engine.py:455-520``), in its
-    order, whether or not they exist."""
-    wdir = cfg.weights_dir
-    if not wdir:
-        return []
-    names = [f"facenet{cfg.encoder_model_type}.onnx"]
-    if cfg.detector_type == "yunet":
-        names.append("face_detection_yunet_2023mar.onnx")
-    elif cfg.detector_type in ("mediapipe", "blazeface"):
-        names += ["face_detection_short_range.tflite", "blazeface.tflite", "blazeface.onnx",
-                  "face_detection_short_range.onnx"]
-    elif cfg.detector_type == "retinaface":
-        names.append("retinaface.onnx")
-    return [os.path.join(wdir, n) for n in names]
+def _ordered(model, want: List[str], what: str) -> List[int]:
+    names = list(model.graph.outputs)
+    if sorted(names) != sorted(want):
+        raise ValueError(f"unexpected {what} output names {names}")
+    return [names.index(n) for n in want]
 
 
-def is_lfs_pointer(path: str) -> bool:
-    """A Git-LFS pointer stub stands in for an absent file."""
-    with open(path, "rb") as f:
-        return f.read(len(LFS_POINTER)) == LFS_POINTER
+def _per_frame(run, x: torch.Tensor):
+    """The executor's graph runs one frame at a time, as the JAX engine
+    runs it per frame under vmap (a file may fix its batch to 1)."""
+    outs = [run(x[i : i + 1]) for i in range(x.shape[0])]
+    if isinstance(outs[0], dict):
+        return {k: tuple(torch.cat(t) for t in zip(*(o[k] for o in outs))) for k in outs[0]}
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
+class OnnxSlot(torch.nn.Module):
+    """A model slot held by the ONNX executor (``model``) instead of the
+    port's own module."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+
+class OnnxEncoder(OnnxSlot):
+    """A FaceNet ONNX graph in the encoder slot: NHWC RGB [0, 1] in (the
+    reference files' contract), the embedding out."""
+
+    def forward(self, x01_nhwc: torch.Tensor) -> torch.Tensor:
+        return self.model(x01_nhwc.float())[0]
+
+
+class OnnxYuNet(OnnxSlot):
+    """A YuNet 2023mar graph in the detector slot: raw-pixel NCHW BGR in,
+    (1, h·w, C) maps ``cls_8``…``kps_32`` out, adapted to YuNet's NHWC
+    head dict."""
+
+    def __init__(self, model: torch.nn.Module, det_hw):
+        super().__init__(model)
+        self.order = _ordered(model, YUNET_OUTPUTS, "YuNet")
+        self.det_hw = tuple(det_hw)
+
+    def _one(self, x01_nhwc):
+        outs = self.model(x01_nhwc.float().permute(0, 3, 1, 2) * 255.0)
+        outs = [outs[i] for i in self.order]
+        heads = {}
+        for level, stride in enumerate((8, 16, 32)):
+            h, w = self.det_hw[0] // stride, self.det_hw[1] // stride
+            heads[stride] = tuple(a.float().reshape(1, h, w, a.shape[-1])
+                                  for a in outs[4 * level : 4 * level + 4])
+        return heads
+
+    def forward(self, x01_nhwc):
+        return _per_frame(self._one, x01_nhwc)
+
+
+class OnnxBlazeFace(OnnxSlot):
+    """A BlazeFace graph in the detector slot: [-1, 1] RGB NCHW in, four
+    NCHW head maps out, adapted to ``(scores, regressions)`` in anchor
+    order (the 16×16 grid, then 8×8)."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__(model)
+        self.order = _ordered(model, BLAZEFACE_OUTPUTS, "BlazeFace")
+
+    def _one(self, x01_nhwc):
+        outs = self.model(((x01_nhwc.float() - 0.5) * 2.0).permute(0, 3, 1, 2))
+        c8, r8, c16, r16 = (outs[i].permute(0, 2, 3, 1).float() for i in self.order)
+        b = c8.shape[0]
+        scores = torch.cat([c8.reshape(b, -1), c16.reshape(b, -1)], dim=1)
+        regs = torch.cat([r8.reshape(b, -1, 16), r16.reshape(b, -1, 16)], dim=1)
+        return scores, regs
+
+    def forward(self, x01_nhwc):
+        return _per_frame(self._one, x01_nhwc)
+
+
+class OnnxRetinaFace(OnnxSlot):
+    """The reference RetinaFace graph in the detector slot: NHWC RGB raw
+    pixels in (its preprocessing never transposes), nine NHWC head maps
+    out in the export's order, the face probability in the last
+    ``anchors`` channels of each score map."""
+
+    def __init__(self, model: torch.nn.Module, anchors: int = 2):
+        super().__init__(model)
+        self.anchors = anchors
+
+    def _one(self, x_rgb255_nhwc):
+        outs = self.model(x_rgb255_nhwc.float())
+        outs = [outs[i] for i in RETINAFACE_PERM]
+        heads = {}
+        for level, stride in enumerate((32, 16, 8)):
+            sc, bb, lm = (a.float() for a in outs[3 * level : 3 * level + 3])
+            heads[stride] = (sc[..., self.anchors:], bb, lm)
+        return heads
+
+    def forward(self, x_rgb255_nhwc):
+        return _per_frame(self._one, x_rgb255_nhwc)
 
 
 class DeviceEngine:
@@ -111,26 +192,27 @@ class DeviceEngine:
         else:
             raise ValueError(
                 "Invalid detector_type. Choose from 'yunet', 'retinaface', 'mediapipe'.")
-        for path in reference_weight_files(cfg):
-            if os.path.isfile(path) and not is_lfs_pointer(path):
-                raise NotImplementedError(
-                    f"{path}: the JAX engine would import this file; {IMPORTERS_TODO}. "
-                    "Move it away or pass another weights_dir.")
         self.cfg = cfg
         self.params_dir = params_dir
         self.device = resolve_device(device)
         dt = cfg.engine.cdtype
-        self.detector = self._place(detector, dt)
-        self.encoder = self._place(encoder or FaceNet(embed_dim=cfg.embedding_dim), dt)
+        # the port's own modules; the slots hold them, or the ONNX executor
+        self._detector_net = self._place(detector, dt)
+        self._encoder_net = self._place(encoder or FaceNet(embed_dim=cfg.embedding_dim), dt)
+        self.detector, self.encoder = self._detector_net, self._encoder_net
         # provenance per role: "random-init" until a loader replaces it
+        # ("trained:<path>", "onnx-import:<path>", "tflite-import:<path>",
+        # "onnx-exec:<path>")
         self.weight_source: Dict[str, str] = {"detector": "random-init",
                                               "encoder": "random-init"}
         self._init_params(seed)
+        self._load_reference_weights()
         if self.weight_source["detector"] == "random-init":
             log.warning(
                 "DETECTOR '%s' IS RUNNING RANDOM-INIT WEIGHTS — it will not find real faces. "
-                "Pass --trained_detector, or use the committed weights_trained/ defaults "
-                "(auto-loaded by the CLI).", det)
+                "Provide reference ONNX/TFLite files in %r, pass --trained_detector, or use the "
+                "committed weights_trained/ defaults (auto-loaded by the CLI).",
+                det, cfg.weights_dir)
 
     def _place(self, module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
         module = module.to(device=self.device, dtype=dtype).eval()
@@ -163,8 +245,8 @@ class DeviceEngine:
             except (OSError, ValueError, KeyError, TypeError) as e:
                 log.warning("Params cache %s is unreadable (%s); regenerating from fresh init.",
                             path, e)
-        enc_vars = materialize(flax_shapes(self.encoder, unit_bn_scale=True), seed)
-        det_vars = materialize(flax_shapes(self.detector), seed + 1)
+        enc_vars = materialize(flax_shapes(self._encoder_net, unit_bn_scale=True), seed)
+        det_vars = materialize(flax_shapes(self._detector_net), seed + 1)
         self.load_encoder_variables(enc_vars, "random-init")
         self.load_detector_variables(det_vars, "random-init")
         if path:
@@ -177,20 +259,28 @@ class DeviceEngine:
                      "(embeddings stay stable across sessions).", path)
 
     def load_encoder_variables(self, tree, source: str) -> None:
-        """Load a Flax FaceNet variable tree (nested dicts of arrays)."""
-        load_into(self.encoder, from_flax_facenet(tree))
+        """Load a Flax FaceNet variable tree (nested dicts of arrays) into
+        the port's FaceNet, which takes the slot back from an executor."""
+        if not isinstance(self.encoder, OnnxSlot):
+            self._encoder_net = self.encoder
+        load_into(self._encoder_net, from_flax_facenet(tree))
+        self.encoder, self.enc_vars = self._encoder_net, tree
         self.weight_source["encoder"] = source
 
     def load_detector_variables(self, tree, source: str) -> None:
         """Load a Flax YuNet, RetinaFace or BlazeFace variable tree
-        (nested dicts of arrays), whichever this engine's detector is."""
-        if isinstance(self.detector, BlazeFace):
+        (nested dicts of arrays), whichever this engine's detector is; the
+        port's module takes the slot back from an executor."""
+        if not isinstance(self.detector, OnnxSlot):
+            self._detector_net = self.detector
+        if isinstance(self._detector_net, BlazeFace):
             convert = from_flax_blazeface
-        elif isinstance(self.detector, RetinaFace):
+        elif isinstance(self._detector_net, RetinaFace):
             convert = from_flax_retinaface
         else:
             convert = from_flax_yunet
-        load_into(self.detector, convert(tree))
+        load_into(self._detector_net, convert(tree))
+        self.detector, self.det_vars = self._detector_net, tree
         self.weight_source["detector"] = source
 
     def load_trained_encoder(self, path: str) -> None:
@@ -203,6 +293,163 @@ class DeviceEngine:
         fire_tpu.train.detect`` / ``detect_blaze``."""
         self.load_detector_variables(read_msgpack(path), f"trained:{path}")
         log.info("Loaded trained detector variables from %s.", path)
+
+    # -- reference weight files -------------------------------------------
+
+    def _executor(self, path: str):
+        from fire_tpu_torch.models.onnx_exec import OnnxModel
+
+        return OnnxModel(path, device=self.device)
+
+    def load_onnx_weights(self, facenet_onnx: str) -> None:
+        """Import reference FaceNet weights onto the encoder's tree."""
+        from fire_tpu_torch.models.onnx_import import assign_facenet, read_onnx
+
+        graph = read_onnx(facenet_onnx)
+        params, stats = assign_facenet(self.enc_vars["params"], self.enc_vars["batch_stats"],
+                                       graph)
+        self.load_encoder_variables({"params": params, "batch_stats": stats},
+                                    f"onnx-import:{facenet_onnx}")
+        log.info("Imported FaceNet weights from %s.", facenet_onnx)
+
+    def load_yunet_onnx_weights(self, yunet_onnx: str) -> None:
+        """Import the OpenCV-zoo YuNet 2023mar weights."""
+        from fire_tpu_torch.models.onnx_import import assign_yunet, read_onnx
+
+        graph = read_onnx(yunet_onnx)
+        params, stats = assign_yunet(self.det_vars["params"], self.det_vars["batch_stats"], graph)
+        self.load_detector_variables({"params": params, "batch_stats": stats},
+                                     f"onnx-import:{yunet_onnx}")
+        log.info("Imported YuNet weights from %s.", yunet_onnx)
+
+    def _use_onnx_encoder(self, path: str) -> None:
+        """Run the FaceNet ONNX graph itself in the encoder slot."""
+        self.encoder, self.enc_vars = OnnxEncoder(self._executor(path)), None
+        self.weight_source["encoder"] = f"onnx-exec:{path}"
+        log.info("Encoder runs the exact ONNX graph from %s (executor).", path)
+
+    def _use_onnx_yunet(self, path: str) -> None:
+        """Run the YuNet ONNX graph itself in the detector slot."""
+        self.detector = OnnxYuNet(self._executor(path), self._detect_input)
+        self.det_vars = None
+        self.weight_source["detector"] = f"onnx-exec:{path}"
+        log.info("Detector runs the exact ONNX graph from %s (executor).", path)
+
+    def _force_blazeface_128(self) -> None:
+        """Reference BlazeFace weights are trained at the published 128²
+        input: importing them pins the slot to 128 even where
+        ``blazeface_size`` asks for the trained-default 192."""
+        if tuple(self._detect_input) != (128, 128):
+            log.info("Imported BlazeFace weights: forcing 128x128 input (was %s).",
+                     self._detect_input)
+            self._detect_input = (128, 128)
+
+    def load_blazeface_onnx_weights(self, path: str) -> None:
+        """Import BlazeFace short-range weights from an ONNX file."""
+        from fire_tpu_torch.models.onnx_import import assign_blazeface, read_onnx
+
+        graph = read_onnx(path)
+        params, stats = assign_blazeface(self.det_vars["params"],
+                                         self.det_vars.get("batch_stats", {}), graph)
+        self.load_detector_variables(
+            {"params": params} if not stats else {"params": params, "batch_stats": stats},
+            f"onnx-import:{path}")
+        log.info("Imported BlazeFace weights from %s.", path)
+        self._force_blazeface_128()
+
+    def load_blazeface_tflite_weights(self, path: str) -> None:
+        """Import BlazeFace weights from MediaPipe's own ``.tflite``."""
+        from fire_tpu_torch.models.tflite_import import assign_blazeface_tflite, read_tflite
+
+        params = assign_blazeface_tflite(self.det_vars["params"], read_tflite(path))
+        self.load_detector_variables({"params": params}, f"tflite-import:{path}")
+        log.info("Imported BlazeFace weights from TFLite file %s.", path)
+        self._force_blazeface_128()
+
+    def _use_onnx_blazeface(self, path: str) -> None:
+        """Run a BlazeFace ONNX graph itself in the detector slot."""
+        self.detector, self.det_vars = OnnxBlazeFace(self._executor(path)), None
+        self.weight_source["detector"] = f"onnx-exec:{path}"
+        log.info("Detector runs the exact ONNX graph from %s (executor).", path)
+        self._force_blazeface_128()
+
+    def _use_onnx_retinaface(self, path: str) -> None:
+        """Run the reference RetinaFace ONNX graph itself (a TF-converted
+        export with nine outputs that no hand-written module maps)."""
+        from fire_tpu_torch.models.onnx_import import read_onnx
+
+        graph = read_onnx(path)
+        if len(graph.outputs) != 9:
+            raise ValueError(f"expected 9 RetinaFace outputs, got {len(graph.outputs)}")
+        from fire_tpu_torch.models.onnx_exec import OnnxModel
+
+        self.detector = OnnxRetinaFace(OnnxModel(graph, device=self.device))
+        self.det_vars = None
+        self.weight_source["detector"] = f"onnx-exec:{path}"
+        log.info("Detector runs the exact ONNX graph from %s (executor).", path)
+
+    def _load_reference_weights(self) -> None:
+        """Probe ``cfg.weights_dir`` for the reference files and import
+        them; on a topology mismatch run the file's exact graph instead.
+        Git-LFS stubs and absent files keep the random init.  The order,
+        the fallbacks and the log lines are the JAX engine's."""
+        wdir = self.cfg.weights_dir
+        if not wdir or not os.path.isdir(wdir):
+            return
+        enc_path = os.path.join(wdir, f"facenet{self.cfg.encoder_model_type}.onnx")
+        if os.path.exists(enc_path):
+            try:
+                self.load_onnx_weights(enc_path)
+            except FileNotFoundError as e:  # LFS stub
+                log.info("%s", e)
+            except ValueError as e:
+                log.warning("FaceNet import mismatch (%s); executor fallback.", e)
+                self._use_onnx_encoder(enc_path)
+        det = self.cfg.detector_type
+        if det == "yunet":
+            det_path = os.path.join(wdir, "face_detection_yunet_2023mar.onnx")
+            if os.path.exists(det_path):
+                try:
+                    self.load_yunet_onnx_weights(det_path)
+                except FileNotFoundError as e:
+                    log.info("%s", e)
+                except ValueError as e:
+                    log.warning("YuNet import mismatch (%s); executor fallback.", e)
+                    self._use_onnx_yunet(det_path)
+        elif det in ("mediapipe", "blazeface"):
+            for fname in ("face_detection_short_range.tflite", "blazeface.tflite"):
+                det_path = os.path.join(wdir, fname)
+                if not os.path.exists(det_path):
+                    continue
+                try:
+                    self.load_blazeface_tflite_weights(det_path)
+                    return
+                except FileNotFoundError as e:  # LFS stub
+                    log.info("%s", e)
+                except ValueError as e:
+                    log.warning("BlazeFace TFLite import failed (%s).", e)
+                break
+            for fname in ("blazeface.onnx", "face_detection_short_range.onnx"):
+                det_path = os.path.join(wdir, fname)
+                if not os.path.exists(det_path):
+                    continue
+                try:
+                    self.load_blazeface_onnx_weights(det_path)
+                except FileNotFoundError as e:  # LFS stub
+                    log.info("%s", e)
+                except ValueError as e:
+                    log.warning("BlazeFace import mismatch (%s); executor fallback.", e)
+                    self._use_onnx_blazeface(det_path)
+                break
+        elif det == "retinaface":
+            det_path = os.path.join(wdir, "retinaface.onnx")
+            if os.path.exists(det_path):
+                try:
+                    self._use_onnx_retinaface(det_path)
+                except FileNotFoundError as e:  # LFS stub
+                    log.info("%s", e)
+                except ValueError as e:
+                    log.warning("RetinaFace ONNX unusable (%s); random init.", e)
 
     # -- detection ---------------------------------------------------------
 
@@ -223,8 +470,9 @@ class DeviceEngine:
         det_hw = self._detect_input
         resample_dtype = torch.float32 if cfg.engine.strict_f32_preprocess else torch.bfloat16
         dev = self.device
-        blaze = isinstance(self.detector, BlazeFace)
-        retina = isinstance(self.detector, RetinaFace)
+        detector = self.detector
+        blaze = isinstance(self._detector_net, BlazeFace)
+        retina = isinstance(self._detector_net, RetinaFace)
         bf_conf = (cfg.blazeface_extract_conf_threshold if variant == "extract"
                    else cfg.blazeface_conf_threshold)
 
@@ -237,13 +485,13 @@ class DeviceEngine:
                 x = canvas.float() / 255.0
             if blaze:
                 with stage("blazeface"):
-                    scores, regs = self.detector(bgr_to_rgb(x))
+                    scores, regs = detector(bgr_to_rgb(x))
                 with stage("decode+nms"):
                     return decode_blazeface(scores, regs, scale, conf_threshold=bf_conf,
                                             max_faces=cfg.engine.max_faces, input_px=det_hw[0])
             if retina:
                 with stage("retinaface"):  # raw-pixel RGB
-                    heads = self.detector(bgr_to_rgb(x) * 255.0)
+                    heads = detector(bgr_to_rgb(x) * 255.0)
                 with stage("decode+nms"):
                     return decode_retinaface(
                         heads, det_hw, scale,
@@ -252,7 +500,7 @@ class DeviceEngine:
                         max_faces=cfg.engine.max_faces,
                     )
             with stage("yunet"):
-                heads = self.detector(x)
+                heads = detector(x)
             with stage("decode+nms"):
                 return decode_yunet(
                     heads, scale,

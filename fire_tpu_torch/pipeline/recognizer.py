@@ -26,10 +26,12 @@ files and the saved outputs are encrypted
 saved video is written to a temporary file first and encrypted when it
 is closed.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for
-(ROADMAP.md, PyTorch/CUDA port queue): multi-stream (``process_videos``),
-the sharded gallery, and the ONNX / TFLite importers (a real weight file
-in ``weights_dir`` makes the engine raise).
+Several videos run at once through ``process_videos``: one stream per
+device of the ``dp`` axis of ``self.mesh``
+(:class:`fire_tpu_torch.parallel.multistream.MultiStreamEngine`); a mesh
+of one card repeated S times runs S streams on it.  With
+``sharded_gallery`` the identity queries go through a row-sharded view
+of the gallery (:class:`fire_tpu_torch.gallery.index.ShardedGalleryView`).
 """
 
 from __future__ import annotations
@@ -42,12 +44,14 @@ import uuid
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 
 from fire_tpu_torch.config import EngineConfig, GalleryConfig, RecognizerConfig, TrackerConfig
 from fire_tpu_torch.device import DeviceLike
 from fire_tpu_torch.gallery.crypto import Encryptor
-from fire_tpu_torch.gallery.index import DeviceGallery
+from fire_tpu_torch.gallery.index import DeviceGallery, ShardedGalleryView
 from fire_tpu_torch.gallery.store import FaceStore
+from fire_tpu_torch.parallel.mesh import make_mesh
 from fire_tpu_torch.pipeline.annotate import annotate_faces, resize_frame_to_screen
 from fire_tpu_torch.pipeline.engine import DeviceEngine
 from fire_tpu_torch.pipeline.stream import (CAP_PROP_FPS, CAP_PROP_FRAME_HEIGHT,
@@ -58,9 +62,6 @@ from fire_tpu_torch.track.sort import Sort
 from fire_tpu_torch.utils import imageio
 
 log = logging.getLogger(__name__)
-
-MULTISTREAM_TODO = ("process_videos / --inputs: multi-stream video is not ported yet "
-                    "(ROADMAP.md, PyTorch/CUDA port queue: 'multi-stream and sharded gallery')")
 
 OnFrame = Optional[Callable[[np.ndarray, List[dict]], None]]
 
@@ -78,9 +79,9 @@ class _StreamSink:
 
     def __init__(self, cap, annotate: bool, save_path: Optional[str], show: bool,
                  stream_type: str, on_frame: OnFrame, timer: StageTimer,
-                 encryptor: Optional[Encryptor] = None):
+                 encryptor: Optional[Encryptor] = None, title: Optional[str] = None):
         self.annotate, self.show, self.on_frame, self.timer = annotate, show, on_frame, timer
-        self.title = f"Face Recognition - {stream_type.capitalize()}"
+        self.title = title or f"Face Recognition - {stream_type.capitalize()}"
         self.stream_type = stream_type
         self.save_path = save_path
         self.encryptor = encryptor
@@ -166,6 +167,7 @@ class FaceRecognition:
         trained_detector: Optional[str] = None,
         engine_cfg: Optional[EngineConfig] = None,
         encode_budget: Optional[int] = None,
+        sharded_gallery: Optional[bool] = None,
         device: DeviceLike = None,
     ):
         encoder_model_type = encoder_model_type or "128"
@@ -251,6 +253,20 @@ class FaceRecognition:
             self.gallery.load_rows(self.db_manager.load_all())
             self.gallery.save()
 
+        # identity queries through a row-sharded view of the gallery:
+        # adopted by default when more than one card is present; True
+        # forces it (a mesh of the engine's device when that is not a card)
+        self.mesh = None
+        self._matcher = self.gallery
+        use_sharded = sharded_gallery
+        if use_sharded is None:
+            use_sharded = self.device.type == "cuda" and torch.cuda.device_count() > 1
+        if use_sharded:
+            self.mesh = self._default_mesh()
+            self._matcher = ShardedGalleryView(self.gallery, self.mesh)
+            log.info("Sharded gallery view active over %d device(s).",
+                     self.mesh.shape["dp"])
+
         # caches + buffers of the per-frame path
         self.recent_embeddings = np.empty((0, self.embedding_dim), np.float32)
         self.recent_labels: List[str] = []
@@ -273,6 +289,11 @@ class FaceRecognition:
             "tier2_recent_cache": 0, "tier3_gallery": 0,
             "unknown_enrolled": 0,
         }
+
+    def _default_mesh(self):
+        """Every CUDA device on ``dp``; the engine's device alone when that
+        is not a card."""
+        return make_mesh(devices=None if self.device.type == "cuda" else [self.device])
 
     # ------------------------------------------------------------- buffers --
 
@@ -310,7 +331,7 @@ class FaceRecognition:
                 log.error("Received zero vector from encoder. Skipping this face.")
                 continue
             if self.gallery.count > 0:
-                ids, dists = self.gallery.query(emb, k=1)
+                ids, dists = self._matcher.query(emb, k=1)
                 if ids is not None and 1.0 - dists[0][0] > self.similarity_threshold:
                     log.info("Face is too similar to an existing face (Label: %s). Not adding.",
                              self.gallery.labels[ids[0][0]])
@@ -362,7 +383,7 @@ class FaceRecognition:
                 embs[gid] = vec
                 have[gid] = True
         k = min(self.cfg.gallery.group_k, n)
-        ids, dists = self.gallery.query_batch(embs, k=k)
+        ids, dists = self._matcher.query_batch(embs, k=k)
         processed = set()
         total = 0
         for gid in range(n):
@@ -423,7 +444,7 @@ class FaceRecognition:
 
         avg = np.mean(entry["embeddings"], axis=0)
         if self.gallery.count > 0:
-            ids, dists = self.gallery.query(avg, k=1)
+            ids, dists = self._matcher.query(avg, k=1)
             if ids is not None and 1.0 - dists[0][0] > self.similarity_threshold:
                 gid = int(ids[0][0])
                 log.info("Unknown face is too similar to an existing face. Not adding.")
@@ -453,7 +474,7 @@ class FaceRecognition:
                 if float(vec @ emb) > self.similarity_threshold and gid < self.gallery.count:
                     return self.gallery.labels[gid]
         elif self.gallery.count > 0:
-            ids, dists = self.gallery.query(emb, k=1)
+            ids, dists = self._matcher.query(emb, k=1)
             if ids is not None and 1.0 - dists[0][0] > self.similarity_threshold:
                 return self.gallery.labels[int(ids[0][0])]
         label = self._generate_unique_label()
@@ -536,7 +557,7 @@ class FaceRecognition:
             t0 = time.perf_counter()
             gal_ids, gal_dists = (None, None)
             if self.gallery.count > 0:
-                gal_ids, gal_dists = self.gallery.query_batch(batch, k=1)
+                gal_ids, gal_dists = self._matcher.query_batch(batch, k=1)
             timer.add("match", time.perf_counter() - t0)
             for i, (tid, _, _src) in enumerate(to_encode):
                 embs[tid] = (
@@ -639,7 +660,7 @@ class FaceRecognition:
                     continue
                 matched = False
                 if self.gallery.count > 0:
-                    ids, dists = self.gallery.query(emb, k=1)
+                    ids, dists = self._matcher.query(emb, k=1)
                     if ids is not None and 1.0 - dists[0][0] > self.similarity_threshold:
                         gid = int(ids[0][0])
                         self.update_label(gid, label)
@@ -655,7 +676,7 @@ class FaceRecognition:
         new_embs, new_labels = [], []
         t0 = time.perf_counter()
         if self.gallery.count > 0 and len(embs):
-            ids, dists = self.gallery.query_batch(embs, k=1)
+            ids, dists = self._matcher.query_batch(embs, k=1)
         else:
             ids = dists = None
         for i, face in enumerate(valid):
@@ -783,8 +804,143 @@ class FaceRecognition:
             return
         self._run_stream(cap, annotate, save_path, batch_size, duration, name, "webcam")
 
-    def process_videos(self, video_paths: List[str], *args, **kwargs) -> None:
-        raise NotImplementedError(MULTISTREAM_TODO)
+    def process_videos(self, video_paths: List[str], annotate: bool = True,
+                       save_path: Optional[str] = None, batch_size: int = 8,
+                       duration: int = 0, name: Optional[str] = None) -> None:
+        """Several videos at once, one stream per device of the ``dp`` axis
+        of ``self.mesh`` (every CUDA device when it is None).  Each stream
+        has its own tracker state against the one shared gallery, so an
+        identity enrolled from one stream is recognised in the others;
+        with fewer videos than streams the rest run blank.  With ``--save``
+        stream i writes ``<stem>_stream<i><ext>``.  Every input must have
+        the same resolution."""
+        caps = []
+        for p in video_paths:
+            cap = imageio.open_video(p)
+            if not cap.isOpened():
+                log.error("Cannot open video file: %s", p)
+                for c in caps + [cap]:
+                    c.release()
+                return
+            caps.append(cap)
+        self._process_streams_batched(caps, list(video_paths), annotate, save_path, batch_size,
+                                      duration, name)
+
+    def _process_streams_batched(self, caps, names: List[str], annotate: bool,
+                                 save_path: Optional[str], batch_size: int, duration: int = 0,
+                                 name: Optional[str] = None,
+                                 on_frame: Optional[Callable[[int, np.ndarray, List[dict]],
+                                                             None]] = None) -> None:
+        """The loop of :meth:`process_videos` over open captures, one batch
+        in flight; ``on_frame(stream, frame, faces)`` receives every real
+        frame.  Releases the captures."""
+        from fire_tpu_torch.parallel.multistream import MultiStreamEngine
+        from fire_tpu_torch.pipeline.batch_engine import stream_results
+
+        sinks, readers = [], []
+        try:
+            wh = None
+            for p, cap in zip(names, caps):
+                cwh = (int(cap.get(CAP_PROP_FRAME_WIDTH)), int(cap.get(CAP_PROP_FRAME_HEIGHT)))
+                if wh is None:
+                    wh = cwh
+                elif cwh != wh:
+                    log.error("All streams must share one resolution: %s is %s, expected %s.",
+                              p, cwh, wh)
+                    return
+            mesh = self.mesh or self._default_mesh()
+            n_streams = mesh.shape["dp"]
+            if len(caps) > n_streams:
+                log.error("%d streams exceed the %d-device dp mesh; run in groups of %d.",
+                          len(caps), n_streams, n_streams)
+                return
+            interval = max(self.detection_interval, 1)
+            if batch_size % interval != 0:
+                rounded = ((batch_size + interval - 1) // interval) * interval
+                log.warning("batch_size %d rounded up to %d (multiple of detection_interval %d).",
+                            batch_size, rounded, interval)
+                batch_size = rounded
+            # no tracker_cfg, as in JAX (``recognizer.py:1160``)
+            mse = MultiStreamEngine(self.engine, self.gallery, self.cfg, mesh,
+                                    detection_interval=interval,
+                                    encode_budget=self.cfg.encode_budget)
+            n_real = len(caps)
+            self.timer = StageTimer()
+            self.timer.start()
+            stem, ext = os.path.splitext(save_path) if save_path else (None, None)
+            for i in range(n_real):
+                # every writer takes the first stream's frame rate, as in JAX
+                sinks.append(_StreamSink(
+                    caps[0], annotate, f"{stem}_stream{i}{ext or '.avi'}" if save_path else None,
+                    self.show, "video",
+                    None if on_frame is None else (lambda f, faces, i=i: on_frame(i, f, faces)),
+                    self.timer, self.encryptor, title=f"Face Recognition - Stream {i}"))
+            readers = [PrefetchReader(c) for c in caps]
+            iters = [r.frames() for r in readers]
+            done = [False] * n_real
+
+            def next_batches():
+                """(S, B, H, W, 3) batch, each stream's real frames, and
+                which streams are live (an ended stream gets the engine's
+                cached zero batch instead of an upload)."""
+                per_stream = []
+                for i in range(n_real):
+                    frames = []
+                    while len(frames) < batch_size and not done[i]:
+                        f = next(iters[i], None)
+                        if f is None:
+                            done[i] = True
+                        else:
+                            frames.append(f)
+                    per_stream.append(frames)
+                if all(len(f) == 0 for f in per_stream):
+                    return None, None, None
+                stacked = np.zeros((n_streams, batch_size, wh[1], wh[0], 3), np.uint8)
+                active = [False] * n_streams
+                for i, frames in enumerate(per_stream):
+                    if not frames:
+                        continue
+                    active[i] = True
+                    for b in range(batch_size):
+                        stacked[i, b] = frames[min(b, len(frames) - 1)]
+                return stacked, per_stream, active
+
+            def emit(token, per_stream) -> bool:
+                t0 = time.perf_counter()
+                results = mse.collect(token)
+                self.timer.add("device step (S streams)", time.perf_counter() - t0)
+                for i, frames in enumerate(per_stream):
+                    if not frames:
+                        continue
+                    for frame, faces in zip(frames,
+                                            stream_results(self, results[i], rename_label=name)):
+                        self.timer.tick_frame()
+                        if not sinks[i].emit(frame, faces):
+                            return False
+                if duration > 0 and (time.time() - self.timer.start_time) >= duration:
+                    log.info("Duration of %d seconds reached. Stopping.", duration)
+                    return False
+                return True
+
+            inflight = None
+            while True:
+                stacked, per_stream, active = next_batches()
+                if stacked is None:
+                    break
+                token = mse.submit(stacked, active=active)
+                prev, inflight = inflight, (token, per_stream)
+                if prev is not None and not emit(*prev):
+                    inflight = None
+                    break
+            if inflight is not None:
+                emit(*inflight)
+        finally:
+            for r in readers:
+                r.close()
+            for c in caps:
+                c.release()
+            for sink in sinks:
+                sink.close()
 
     def _process_stream_batched(self, cap, annotate: bool, save_path: Optional[str],
                                 batch_size: int, duration: int = 0,
@@ -803,8 +959,9 @@ class FaceRecognition:
             batch_size = rounded
         self.timer = StageTimer()
         self.timer.start()
-        bse = BatchStreamEngine(self.engine, self.gallery, self.cfg,
-                                tracker_cfg=self.tracker_cfg, detection_interval=interval,
+        # no tracker_cfg, as in JAX (``recognizer.py:958``): the batched
+        # step tracks with the default TrackerConfig
+        bse = BatchStreamEngine(self.engine, self.gallery, self.cfg, detection_interval=interval,
                                 encode_budget=self.cfg.encode_budget, timer=self.timer)
         sink = reader = None
 

@@ -152,18 +152,33 @@ def _spy(argv):
     return seen
 
 
-@pytest.mark.parametrize("argv,needle", [
-    (["--mode", "video", "--inputs", "a.avi", "b.avi"],
-     "multi-stream video is not ported yet (ROADMAP.md"),
-    (["--weights_dir", "ref"], "importers are not ported (ROADMAP.md"),
-], ids=["inputs", "weights_dir"])
-def test_main_exits_on_what_is_not_ported(scene, argv, needle):
+@pytest.mark.parametrize("what", ["inputs", "weights_dir"])
+def test_main_exits_on_what_is_not_ported(scene, monkeypatch, what):
+    """Named for the two commands that once ended the run; both are
+    ported now: ``--inputs`` reaches ``process_videos`` with the JAX
+    CLI's batch of 8, and a real ``facenet512.onnx`` in ``--weights_dir``
+    (the committed weights, exported) is imported."""
+    from fire_tpu_torch.pipeline import recognizer as R
+
+    if what == "inputs":
+        seen = {}
+        monkeypatch.setattr(R.FaceRecognition, "process_videos",
+                            lambda self, **kw: seen.update(kw, fr=self))
+        cli.main(["--mode", "video", "--inputs", "a.avi", "b.avi", "--encoder", "512",
+                  "--device", "cpu", "--label", "bob"])
+        assert seen["video_paths"] == ["a.avi", "b.avi"] and seen["batch_size"] == 8
+        assert seen["name"] == "bob" and seen["annotate"] is True and seen["save_path"] is None
+        return
+    from fire_tpu_torch.models.onnx_export import export_facenet
+    from fire_tpu_torch.weights import read_msgpack
+
     os.makedirs("ref")
-    with open("ref/facenet512.onnx", "wb") as f:  # not a Git-LFS pointer: a real file
-        f.write(b"\x08\x07\x12\x04onnx" * 64)
-    with pytest.raises(SystemExit) as e:
-        cli.main(BASE + argv)
-    assert needle in str(e.value.code)
+    tree = read_msgpack(os.path.join(cli._weights_trained_dir(), "facenet512_synth.msgpack"))
+    with open("ref/facenet512.onnx", "wb") as f:
+        f.write(export_facenet(tree, embed_dim=512))
+    seen = _spy(BASE + ["--weights_dir", "ref"])
+    assert seen["src"]["encoder"] == "onnx-import:ref/facenet512.onnx"
+    assert len(seen["faces"]) == 1 and len(_labels("mediapipe")) == 1
 
 
 def test_main_ignores_git_lfs_pointers_in_weights_dir(scene):

@@ -226,15 +226,19 @@ def test_random_init_engines_embed_alike(tmp_path):
 
 @pytest.mark.parametrize("detector", ["yunet", "mediapipe", "retinaface"])
 def test_weights_dir_probe(tmp_path, detector):
-    """A Git-LFS pointer is ignored, as JAX ignores it; any other file
-    the JAX probe would import stops the port's engine."""
-    from fire_tpu_torch.pipeline.engine import reference_weight_files
-
+    """Git-LFS pointers are ignored, as JAX ignores them; a file that is
+    not ONNX where the probe looks last does what it does in JAX: YuNet's
+    executor fallback cannot parse it either and raises, BlazeFace's probe
+    stops at the first file it finds, RetinaFace's logs it and keeps the
+    random init."""
+    names = {"yunet": ["face_detection_yunet_2023mar.onnx"],
+             "mediapipe": ["face_detection_short_range.tflite", "blazeface.tflite",
+                           "blazeface.onnx", "face_detection_short_range.onnx"],
+             "retinaface": ["retinaface.onnx"]}[detector]
     wdir = tmp_path / "weights"
     wdir.mkdir()
     cfg = RecognizerConfig(detector_type=detector, weights_dir=str(wdir)).with_embedding_dim()
-    files = reference_weight_files(cfg)
-    assert files[0].endswith("facenet128.onnx") and len(files) >= 2
+    files = [str(wdir / n) for n in ["facenet128.onnx"] + names]
     small = dict(detector=RetinaFace((1, 1, 1, 1), width=8) if detector == "retinaface"
                  else YuNet(width=8) if detector == "yunet" else None,
                  encoder=tiny_facenet(128))
@@ -242,8 +246,11 @@ def test_weights_dir_probe(tmp_path, detector):
         with open(path, "wb") as f:
             f.write(b"version https://git-lfs.github.com/spec/v1\noid sha256:00\nsize 9\n")
     eng = DeviceEngine(cfg, device="cpu", **small)
-    assert eng.weight_source["detector"] == "random-init"
+    assert eng.weight_source == {"detector": "random-init", "encoder": "random-init"}
     with open(files[-1], "wb") as f:
         f.write(b"\x08\x07" + bytes(200))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DeviceEngine(cfg, device="cpu", **small)
+    if detector == "yunet":
+        with pytest.raises(ValueError, match="no GraphProto"):
+            DeviceEngine(cfg, device="cpu", **small)
+    else:
+        assert DeviceEngine(cfg, device="cpu", **small).weight_source["detector"] == "random-init"

@@ -52,14 +52,10 @@ def _rows(db):
     return rows
 
 
-def test_process_frames_same_identities(tmp_path, monkeypatch):
+def _run_both(tmp_path, monkeypatch, frames, jkw=None, tkw=None):
+    """``process_frames(batch_size=8)`` through both packages; returns
+    (per-frame faces and recognizer) for JAX, then for the port."""
     jeng, teng = _engines()
-    idents = make_identities(6, seed=31)
-    rng = np.random.default_rng(32)
-    a, b = (compose_scene(rng, idents, hw=(240, 320), n_faces=(1, 2), face_px=(70, 150),
-                          occlusion_prob=0.0)[0] for _ in range(2))
-    frames = [a] * 8 + [b] * 8 + [a] * 8 + [b] * 3  # tail batch padded
-
     j_out = []
     real = JBE.stream_results
 
@@ -69,18 +65,25 @@ def test_process_frames_same_identities(tmp_path, monkeypatch):
             yield faces
 
     monkeypatch.setattr(JBE, "stream_results", spy)
-    jfr = JFR(**FR_KW, storage_root=str(tmp_path / "jax"), engine=jeng, weights_dir=None)
+    jfr = JFR(**FR_KW, storage_root=str(tmp_path / "jax"), engine=jeng, weights_dir=None,
+              **(jkw or {}))
     jfr.process_frames(frames, annotate=False, batch_size=8)
     j_out = j_out[: len(frames)]
     jfr.close()
 
     t_out = []
-    tfr = FaceRecognition(**FR_KW, storage_root=str(tmp_path / "torch"), engine=teng)
+    tfr = FaceRecognition(**FR_KW, storage_root=str(tmp_path / "torch"), engine=teng,
+                          **(tkw or {}))
     tfr.process_frames(frames, annotate=False, batch_size=8,
                        on_frame=lambda f, faces: t_out.append(faces))
     tfr.close()
+    return j_out, jfr, t_out, tfr
 
-    assert len(j_out) == len(t_out) == len(frames)
+
+def _same_faces(j_out, t_out):
+    """Frame by frame the same boxes (±1 px) and a bijection between the
+    two packages' labels; returns it."""
+    assert len(j_out) == len(t_out)
     label_map = {"Unknown": "Unknown"}
     n_faces = 0
     for f, (jf, tf) in enumerate(zip(j_out, t_out)):
@@ -92,6 +95,22 @@ def test_process_frames_same_identities(tmp_path, monkeypatch):
             n_faces += 1
     assert len(set(label_map.values())) == len(label_map)  # a bijection
     assert n_faces > 0 and len(label_map) > 1
+    return label_map
+
+
+def _scenes(n=2, seed=32):
+    idents = make_identities(6, seed=31)
+    rng = np.random.default_rng(seed)
+    return [compose_scene(rng, idents, hw=(240, 320), n_faces=(1, 2), face_px=(70, 150),
+                          occlusion_prob=0.0)[0] for _ in range(n)]
+
+
+def test_process_frames_same_identities(tmp_path, monkeypatch):
+    a, b = _scenes()
+    frames = [a] * 8 + [b] * 8 + [a] * 8 + [b] * 3  # tail batch padded
+    j_out, jfr, t_out, tfr = _run_both(tmp_path, monkeypatch, frames)
+    assert len(j_out) == len(t_out) == len(frames)
+    label_map = _same_faces(j_out, t_out)
 
     assert jfr.gallery.count == tfr.gallery.count
     stem = "yunet_128_unencrypted/db/face_embeddings_yunet_128.db"
@@ -103,10 +122,38 @@ def test_process_frames_same_identities(tmp_path, monkeypatch):
                                    atol=1e-3)
 
 
+def test_batched_path_tracks_with_the_default_tracker_config(tmp_path, monkeypatch):
+    """JAX builds the batched step without the recognizer's
+    ``tracker_cfg`` (``recognizer.py:958``); the port does the same, so a
+    non-default ``TrackerConfig`` gives the same tracks in both."""
+    from fire_tpu.config import TrackerConfig as JT
+    from fire_tpu_torch.config import TrackerConfig
+    from fire_tpu_torch.pipeline import batch_engine as TB
+
+    seen = []
+    real_init = TB.BatchStreamEngine.__init__
+
+    def noting(self, *args, **kw):
+        real_init(self, *args, **kw)
+        seen.append(self.tcfg)
+
+    monkeypatch.setattr(TB.BatchStreamEngine, "__init__", noting)
+    a, b = _scenes(seed=33)
+    blank = np.zeros_like(a)
+    frames = [a] * 6 + [blank] * 2 + [a] * 6 + [b] * 6 + [blank, b, b, blank]
+    j_out, _, t_out, tfr = _run_both(tmp_path, monkeypatch, frames,
+                                     jkw={"tracker_cfg": JT(max_age=1)},
+                                     tkw={"tracker_cfg": TrackerConfig(max_age=1)})
+    assert tfr.tracker_cfg.max_age == 1 and seen == [TrackerConfig()]
+    _same_faces(j_out, t_out)
+
+
 def test_unported_options_raise(tmp_path):
-    """Only multi-stream and the importers still raise; encryption and
-    random-init engines run (their own tests are in
-    test_torch_encrypted_storage.py and test_torch_random_init.py)."""
+    """Nothing raises for being unported any more: encryption, random-init
+    engines, multi-stream and the importers run (their own tests are in
+    test_torch_encrypted_storage.py, test_torch_random_init.py,
+    test_torch_multistream_cli.py and test_torch_engine_weights_dir.py);
+    a weights file that is not ONNX raises what it raises in JAX."""
     _, teng = _engines()
     enc = FaceRecognition(**FR_KW, storage_root=str(tmp_path), engine=teng,
                           encryption_password="pw")
@@ -114,8 +161,7 @@ def test_unported_options_raise(tmp_path):
     enc.close()
     assert os.path.exists(tmp_path / "yunet_128_encrypted/db/face_embeddings_yunet_128.db.enc")
     fr = FaceRecognition(**FR_KW, storage_root=str(tmp_path), engine=teng)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fr.process_videos(["a.avi", "b.avi"])
+    fr.process_videos([str(tmp_path / "a.avi"), str(tmp_path / "b.avi")])  # logs, returns
     # ported since: annotate defaults to True and the per-frame loop runs
     frame = np.zeros((64, 64, 3), np.uint8)
     seen = []
@@ -134,6 +180,6 @@ def test_unported_options_raise(tmp_path):
     wdir = tmp_path / "weights"
     wdir.mkdir()
     (wdir / "face_detection_yunet_2023mar.onnx").write_bytes(b"\x08\x07" * 100)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no GraphProto"):
         DeviceEngine(RecognizerConfig(weights_dir=str(wdir)), device="cpu")
     fr.close()
