@@ -58,16 +58,44 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    does; a FaceNet of other depths runs through the ONNX executor and
    matches the module; ``python -m fire_tpu_torch.verify_onnx`` passes on
    each file.
-14. ``trace``: one more batch of the batched path and 16 frames of the
+14. ``native``: the port's host C++ library (``csrc/fire_native.cc``):
+   ``linear_sum_assignment`` against SciPy on 200 random cost matrices,
+   ties included (equal indices where the optimum is unique, equal cost
+   everywhere), and ``host_nms`` against its NumPy version with and
+   without ``plus_one`` / ``suppress_equal``.
+15. ``label_text``: a rendered 1080p frame annotated without OpenCV
+   (hidden where it is installed): label text appears above every box
+   and equals what the glyph atlas gives for the same strings.
+16. ``eval_detect``: ``python -m fire_tpu_torch.eval_detect``'s run in
+   process: the committed YuNet on 64 rendered 480×640 scenes; precision
+   at least 0.9.
+17. ``calibrate``: ``fire_tpu_torch.calibrate`` with the committed YuNet
+   and FaceNet-512, 24 identities × 10 views; genuine p50 above imposter
+   p98.
+18. ``eval_auc``: ``train.synth.generate`` (16 identities, 6 held-out
+   images each) into a temporary folder, its PNGs reread bitwise without
+   OpenCV, then ``encode_directory`` and ``identification_auc`` with the
+   committed FaceNet-512; cosine AUC above 0.9.
+19. ``eval_e2e``: the JAX README's end-to-end accuracy run (seed 0, 120
+   rendered 1080p frames, 4 identities, faces at 140 px; an XVID file
+   where OpenCV is installed, as JAX scores it, else the frames) through
+   the per-frame path and the batched path at B = 64, committed weights:
+   detection recall ≥ 0.85, precision ≥ 0.95 and identity consistency
+   ≥ 0.80 on both; K1's launches on each.
+20. ``trace``: one more batch of the batched path and 16 frames of the
    per-frame path under ``torch.profiler``, with YuNet and with
    RetinaFace, for the device's busy time and its idle share of the
    traced wall time (four ``trace`` lines).  It runs after every timed
    phase: the profiler leaves launches slower.
-15. ``cross_device``: one 8-frame batched step, a 2-stream step, the
+21. ``cross_device``: one 8-frame batched step, a 2-stream step, the
    per-frame engine calls (``detect_faces``, ``encode_boxes``,
    ``encode_landmarks``, ``extract_faces``, BlazeFace and RetinaFace
    ``detect``), the random-init FaceNet-128 and the ONNX executor on a
    YuNet graph, on the card and on the CPU in float32, compared.
+
+The recognizer logs an error and goes on where a frame, an image or an
+enrolment fails, as JAX's does; every phase therefore runs with a
+handler on its logger, and an ERROR record fails the phase.
 
 Any failed check raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or ``fire_tpu`` is
@@ -76,7 +104,9 @@ imported.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -87,7 +117,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main_path", "retina_path", "frame_path", "retina_frame",
           "image_mode", "default_command", "encrypted", "multistream", "sharded_gallery",
-          "importers", "trace", "cross_device")
+          "importers", "native", "label_text", "eval_detect", "calibrate", "eval_auc",
+          "eval_e2e", "trace", "cross_device")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 and dense bf16.
 HBM_BYTES_PER_S = 3.35e12
@@ -106,6 +137,32 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+class _ErrorRecords(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.messages = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def recognizer_errors_fail(phase: str):
+    """The recognizer logs a failed frame, image or enrolment and goes
+    on (as JAX's does): any ERROR record it logs inside the block fails
+    ``phase``."""
+    logger = logging.getLogger("fire_tpu_torch.pipeline.recognizer")
+    handler, level = _ErrorRecords(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(min(logger.getEffectiveLevel(), logging.ERROR))
+    try:
+        yield
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    check(not handler.messages, f"{phase}: the recognizer logged errors: {handler.messages[:5]}")
 
 
 def nvidia_smi_line() -> str:
@@ -206,6 +263,7 @@ def phase_build(ctx) -> None:
 
     from fire_tpu_torch.gallery import crypto
     from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.runtime import native
 
     def timed(build, path):
         if os.path.exists(path):
@@ -214,10 +272,12 @@ def phase_build(ctx) -> None:
         build()
         return time.time() - t0
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         k1_job = pool.submit(timed, k1.build, k1.library_path())
         aes_job = pool.submit(timed, crypto.build, crypto.library_path())
-        secs, aes_secs = k1_job.result(), aes_job.result()
+        native_job = pool.submit(timed, native.load_native, native.library_path())
+        secs, aes_secs, native_secs = k1_job.result(), aes_job.result(), native_job.result()
+    check(native.load_native() is not None, "build: the native library did not build")
     ptxas = [ln.strip() for ln in k1.build_log.splitlines() if "registers" in ln or "spill" in ln]
     clean = "0 bytes spill stores, 0 bytes spill loads"
     spills = [ln for ln in ptxas if "spill" in ln and clean not in ln]
@@ -228,7 +288,9 @@ def phase_build(ctx) -> None:
           "ptxas": ptxas, **ctx["k1_build"],
           "aes_library": {"source": "fire_tpu_torch/csrc/aes128_cbc.cpp",
                           "flags": list(crypto.CXX_FLAGS), "seconds": round(aes_secs, 3),
-                          "backend": crypto.backend()}})
+                          "backend": crypto.backend()},
+          "native_library": {"source": "fire_tpu_torch/csrc/fire_native.cc",
+                             "seconds": round(native_secs, 3)}})
     check(bool(ptxas) and not spills, f"K1 build: ptxas reports spills: {spills}")
 
 
@@ -897,8 +959,10 @@ def phase_encrypted(ctx) -> None:
     second = fr2.process_image(src, annotate=False, save_path=out)
     check([d["label"] for d in second] == [d["label"] for d in first],
           "encrypted: the reopened store did not recognise the face")
-    check(crypto.Encryptor(password).read_and_decrypt(out) == imageio.imencode(".bmp", scene),
-          "encrypted: the saved BMP does not decrypt to the plain BMP")
+    # JPEG bytes whatever the name, as JAX saves, where OpenCV can encode them
+    saved_as = ".jpg" if imageio.has_cv2() else ".bmp"
+    check(crypto.Encryptor(password).read_and_decrypt(out) == imageio.imencode(saved_as, scene),
+          f"encrypted: the saved image does not decrypt to the plain {saved_as} bytes")
     fr2.close()
     launches = k1.launches - 2  # the two comparison launches above do not count
 
@@ -1289,6 +1353,289 @@ def phase_importers(ctx) -> None:
     emit({"phase": "importers", **out})
 
 
+def phase_native(ctx) -> None:
+    """The host LAP and NMS of ``csrc/fire_native.cc`` against SciPy and
+    NumPy (a tie can have several optimal assignments: there the costs
+    must agree)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment as scipy_lap
+
+    from fire_tpu_torch.runtime import native
+
+    rng = np.random.default_rng(0)
+    same_idx = ties = 0
+    t_native = t_scipy = 0.0
+    for k in range(200):
+        n, m = (int(v) for v in rng.integers(1, 65, 2))
+        tie = k % 2 == 1
+        c = rng.integers(0, 4, (n, m)).astype(np.float64) if tie else rng.random((n, m))
+        t0 = time.perf_counter()
+        r, col = native.linear_sum_assignment(c)
+        t1 = time.perf_counter()
+        sr, sc = scipy_lap(c)
+        t_native, t_scipy = t_native + t1 - t0, t_scipy + time.perf_counter() - t1
+        check(len(r) == min(n, m) and len(set(col.tolist())) == len(col),
+              f"native: LAP {n}x{m} is not an assignment")
+        check(abs(c[r, col].sum() - c[sr, sc].sum()) <= 1e-9 * max(1.0, c.sum()),
+              f"native: LAP {n}x{m} cost {c[r, col].sum()} vs SciPy {c[sr, sc].sum()}")
+        same = np.array_equal(r, sr) and np.array_equal(col, sc)
+        check(same or tie, f"native: LAP {n}x{m} indices differ from SciPy without ties")
+        same_idx += same
+        ties += tie
+    nms_cases = 0
+    for seed in range(20):
+        g = np.random.default_rng(100 + seed)
+        n = int(g.integers(1, 300))
+        xy = g.uniform(0, 1000, (n, 2))
+        boxes = np.concatenate([xy, xy + g.uniform(10, 200, (n, 2))], axis=1).astype(np.float32)
+        boxes[n // 2 :] = boxes[: n - n // 2]
+        scores = g.random(n).astype(np.float32)
+        scores[1::4] = scores[0]
+        for plus_one in (False, True):
+            for suppress_equal in (False, True):
+                thr = float(g.choice([0.0, 0.3, 0.5, 1.0]))
+                got = native.host_nms(boxes, scores, thr, plus_one, suppress_equal)
+                ref = native.host_nms_numpy(boxes, scores, thr, plus_one, suppress_equal)
+                check(np.array_equal(got, ref), f"native: host_nms differs (seed {seed}, "
+                      f"plus_one={plus_one}, suppress_equal={suppress_equal}, thr={thr})")
+                nms_cases += 1
+    emit({"phase": "native", "lap_cases": 200, "lap_tie_cases": ties,
+          "lap_same_indices_as_scipy": same_idx, "lap_ms_native": t_native / 200 * 1e3,
+          "lap_ms_scipy": t_scipy / 200 * 1e3, "nms_cases": nms_cases})
+
+
+@contextlib.contextmanager
+def _without_cv2():
+    """``import cv2`` raises inside the block, as where OpenCV is not
+    installed."""
+    import builtins
+
+    real = builtins.__import__
+
+    def guarded(name, *args, **kw):
+        if name.split(".")[0] == "cv2":
+            raise ImportError("cv2 is hidden for this check")
+        return real(name, *args, **kw)
+
+    builtins.__import__ = guarded
+    try:
+        yield
+    finally:
+        builtins.__import__ = real
+
+
+def phase_label_text(ctx) -> None:
+    """``annotate_faces`` and ``visualize_detections`` on a rendered
+    1080p frame without OpenCV (hidden where it is installed): text above
+    every box, equal to the boxes plus the atlas's text for the same
+    strings.  Where OpenCV is installed, also how many pixels its own
+    ``putText`` (which the annotators then use) differs from the atlas,
+    which replays the OpenCV release the atlas was made with."""
+    import numpy as np
+
+    from fire_tpu_torch.pipeline import annotate, text_atlas
+    from fire_tpu_torch.train.scenes import compose_scene, make_identities
+    from fire_tpu_torch.utils import imageio
+
+    installed = None
+    if imageio.has_cv2():
+        import cv2
+
+        installed = cv2.__version__
+
+    frame, boxes, lms = compose_scene(np.random.default_rng(8), make_identities(8, seed=8),
+                                      hw=(1080, 1920), n_faces=(3, 3), face_px=(120, 300))
+    faces = [{"label": f"Unknown_{i:08x}", "confidence": 0.5 + i / 10,
+              "bbox": [int(v) for v in b], "landmarks": lm.astype(np.int32)}
+             for i, (b, lm) in enumerate(zip(boxes, lms))]
+    with _without_cv2():
+        t0 = time.perf_counter()
+        out = annotate.annotate_faces(frame, faces, with_confidence=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        vis = annotate.visualize_detections(frame, faces)
+    installed_differs = None
+    if installed is not None:
+        installed_differs = int((annotate.annotate_faces(frame, faces, with_confidence=True)
+                                 != out).any(-1).sum())
+    boxed, want, want_vis = frame.copy(), frame.copy(), frame.copy()
+    for f in faces:
+        x, y, w, h = f["bbox"]
+        annotate.draw_rectangle(boxed, (x, y), (x + w, y + h), annotate.GREEN)
+        annotate.draw_rectangle(want, (x, y), (x + w, y + h), annotate.GREEN)
+        text_atlas.put_text(want, f"{f['label']} ({f['confidence']:.2f})", (x, y - 10),
+                            annotate.GREEN, 2)
+        annotate.draw_rectangle(want_vis, (x, y), (x + w, y + h), annotate.GREEN)
+        for p in f["landmarks"]:
+            annotate.draw_dot(want_vis, (int(p[0]), int(p[1])), annotate.RED)
+        text_atlas.put_text(want_vis, f"{f['confidence']:.4f}", (x, y - 10), annotate.RED, 1)
+    text_px = []
+    for f in faces:
+        x, y, w, h = f["bbox"]
+        above = np.s_[max(y - 25, 0) : max(y - 3, 0), x : x + 150]
+        text_px.append(int((out[above] != boxed[above]).any(axis=-1).sum()))
+    emit({"phase": "label_text", "opencv_installed": installed, "faces": len(faces),
+          "text_pixels_above_boxes": text_px, "annotate_ms_1080p": ms,
+          "atlas_opencv": str(text_atlas.load_atlas()["opencv"]),
+          "installed_opencv_pixels_differing_from_atlas": installed_differs,
+          "pixels_differing_from_atlas": {"annotate_faces": int((out != want).any(-1).sum()),
+                                          "visualize_detections": int((vis != want_vis).any(-1)
+                                                                      .sum())}})
+    check(min(text_px) > 100, f"label_text: text pixels above the boxes {text_px}")
+    check(np.array_equal(out, want), "label_text: annotate_faces differs from the atlas")
+    check(np.array_equal(vis, want_vis), "label_text: visualize_detections differs from the atlas")
+
+
+def _yunet_facenet_engine():
+    from fire_tpu_torch.config import RecognizerConfig
+    from fire_tpu_torch.pipeline.engine import DeviceEngine
+
+    eng = DeviceEngine(RecognizerConfig(detector_type="yunet", encoder_model_type="512",
+                                        weights_dir=None).with_embedding_dim(), device="cuda")
+    eng.load_trained_detector(_trained("yunet_synth.msgpack"))
+    eng.load_trained_encoder(_trained("facenet512_synth.msgpack"))
+    return eng
+
+
+def phase_eval_detect(ctx) -> None:
+    """``python -m fire_tpu_torch.eval_detect --trained_detector
+    weights_trained/yunet_synth.msgpack`` in process (64 scenes of
+    480×640, faces of 24–192 px)."""
+    import torch
+
+    from fire_tpu_torch import eval_detect
+
+    args = eval_detect.build_parser().parse_args(
+        ["--trained_detector", _trained("yunet_synth.msgpack")])
+    t0 = time.perf_counter()
+    rec = eval_detect.evaluate(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(json.dumps(rec), flush=True)  # the entry point's own line
+    emit({"phase": "eval_detect", **rec, "seconds": secs,
+          "jax_v5e_recorded": {"scenes": 48, "precision": 1.0, "recall": 0.882,
+                               "mean_iou": 0.864, "source": "README.md:140-145"}})
+    check(rec["precision"] >= 0.9, f"eval_detect: precision {rec['precision']:.3f} < 0.9")
+
+
+def phase_calibrate(ctx) -> None:
+    """``fire_tpu_torch.calibrate`` with the committed YuNet and
+    FaceNet-512: 24 identities × 10 views of seed 777."""
+    import torch
+
+    from fire_tpu_torch import calibrate
+
+    eng = _yunet_facenet_engine()
+    t0 = time.perf_counter()
+    rec = calibrate.calibrate(eng, n_identities=24, views=10, seed=777)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    gen, imp = rec["genuine"]["p50"], rec["imposter"]["p98"]
+    emit({"phase": "calibrate", "genuine_p50": gen, "imposter_p98": imp,
+          "youden_threshold": rec["youden_threshold"],
+          "suggested_threshold": rec["suggested_threshold"], "n_genuine": rec["n_genuine"],
+          "n_imposter": rec["n_imposter"], "sweep": rec["sweep"], "seconds": secs,
+          "jax_v5e_recorded": {"genuine_p50": 0.913, "imposter_p98": 0.671,
+                               "youden_threshold": 0.674, "source": "README.md:265-268"}})
+    check(gen > imp, f"calibrate: genuine p50 {gen} is not above imposter p98 {imp}")
+
+
+def phase_eval_auc(ctx) -> None:
+    """``generate`` (16 identities × 6 held-out PNGs), reread without
+    OpenCV and compared with the rendered images, then
+    ``encode_directory`` + ``identification_auc`` with the committed
+    FaceNet-512."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.eval import encode_directory, identification_auc
+    from fire_tpu_torch.train import synth
+    from fire_tpu_torch.utils import imageio
+
+    out = os.path.join(ctx["tmp"], "eval_auc")
+    n_ids, n_train, n_test, size, seed = 16, 0, 6, 160, 0
+    t0 = time.perf_counter()
+    _, test_root = synth.generate(out, n_ids, n_train, n_test, size, seed)
+    t_gen = time.perf_counter() - t0
+    # the same draws again: every held-out PNG must read back as rendered
+    id_rng = np.random.default_rng(seed)
+    for i in range(n_ids):
+        p = synth._identity_params(id_rng)
+        aug = np.random.default_rng(seed * 77_003 + i)
+        for _ in range(n_train):
+            synth.render_identity(p, aug, size)
+        for k in range(n_test):
+            img = imageio.imread(os.path.join(test_root, f"id{i:04d}", f"test_{k:03d}.png"))
+            check(np.array_equal(img, synth.render_identity(p, aug, size)[..., ::-1]),
+                  f"eval_auc: id{i:04d}/test_{k:03d}.png does not read back as rendered")
+    eng = _yunet_facenet_engine()
+    t0 = time.perf_counter()
+    embs, labels = encode_directory(eng, test_root)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    auc = identification_auc(embs, labels)
+    emit({"phase": "eval_auc", "identities": n_ids, "images": len(labels), "auc": auc,
+          "opencv_installed": imageio.has_cv2(), "seconds": {"generate": t_gen, "encode": t_enc},
+          "jax_v5e_recorded": {"identities": 64, "images": 384, "cosine_auc": 0.9986,
+                               "source": "README.md:99-104"}})
+    check(len(labels) == n_ids * n_test, f"eval_auc: {len(labels)} images encoded")
+    check(auc["cosine"] > 0.9, f"eval_auc: cosine AUC {auc['cosine']:.4f} <= 0.9")
+
+
+JAX_E2E_V5E = {"det_recall": 0.917, "det_precision": 1.0, "id_consistency": 0.884,
+               "id_separation": 0.75, "source": "README.md:248-250 (XVID-decoded frames; "
+               "per-frame and batched B=24 alike)"}
+
+
+def phase_eval_e2e(ctx) -> None:
+    """The JAX README's end-to-end accuracy run through both paths of the
+    port: seed 0, 120 rendered 1080p frames of 4 identities with faces at
+    140 px, committed YuNet and FaceNet-512, similarity 0.7, trigger 1.
+    Where OpenCV is installed the video goes through an XVID file, as JAX
+    scores it; without, the rendered frames are scored."""
+    import torch
+
+    from fire_tpu_torch import eval_e2e
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+    from fire_tpu_torch.train.scenes import make_identities
+
+    work = os.path.join(ctx["tmp"], "eval_e2e")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    video, gt = eval_e2e.render_video(work, "gt.avi", make_identities(4, seed=50), (1080, 1920),
+                                      120, 140, 0)
+    t_render = time.perf_counter() - t0
+    runs, secs = {}, {"render": t_render}
+    for name, batch in (("per-frame", 0), ("batched B=64", BATCH)):
+        fr = FaceRecognition(
+            detector_type="yunet", encoder_model_type="512", similarity_threshold=0.7,
+            unknown_trigger_count=1, detection_interval=1, enable_logging=False,
+            storage_root=os.path.join(work, f"storage_{batch}"), weights_dir=None,
+            trained_detector=_trained("yunet_synth.msgpack"),
+            trained_encoder=_trained("facenet512_synth.msgpack"), device="cuda")
+        k1.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eval_e2e.score_video(fr, video, gt, batch_size=batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m["k1_launches"] = k1.launches
+        fr.close()
+        m["frames_per_s"] = m["frames"] / wall
+        secs[name] = wall
+        runs[name] = m
+        ctx[f"k1_launches_eval_e2e_{'batched' if batch else 'frame'}"] = m["k1_launches"]
+    emit({"phase": "eval_e2e", "frames": 120, "hw": [1080, 1920], "identities": 4,
+          "face_px": 140, "scored": "video file" if isinstance(video, str) else "rendered frames",
+          "runs": runs, "seconds": secs, "jax_v5e_recorded": JAX_E2E_V5E})
+    for name, m in runs.items():
+        check(m["frames"] == 120, f"eval_e2e {name}: {m['frames']} frames scored")
+        check(m["k1_launches"] >= 1, f"eval_e2e {name}: K1 was never launched")
+        for key, floor in (("det_recall", 0.85), ("det_precision", 0.95),
+                           ("id_consistency", 0.80)):
+            check(m[key] >= floor, f"eval_e2e {name}: {key} {m[key]:.3f} < {floor}")
+
+
 def _one_face_scene(seed: int):
     """A rendered short-range 1080p scene with one face (420–700 px)."""
     import numpy as np
@@ -1506,8 +1853,9 @@ def kernel_summary(ctx) -> dict:
     """The contract line: K1 at the main path's shape (M = one query per
     frame of a 64-frame batch, the smallest compaction rung), with its
     launch counts on every path: batched (YuNet, RetinaFace), per-frame
-    (YuNet, RetinaFace), image mode, the default command, encrypted, and
-    the multi-stream runs (S = 1, 2, 4 together)."""
+    (YuNet, RetinaFace), image mode, the default command, encrypted, the
+    multi-stream runs (S = 1, 2, 4 together) and the end-to-end accuracy
+    run (per-frame and batched)."""
     from fire_tpu_torch.ops import cosine_top1 as k1
 
     main = next(r for r in ctx["k1"] if r.get("case") == f"M={BATCH}")
@@ -1522,6 +1870,8 @@ def kernel_summary(ctx) -> dict:
         "launches_default_command": ctx["k1_launches_default_command"],
         "launches_encrypted": ctx["k1_launches_encrypted"],
         "launches_multistream": ctx["k1_launches_multistream"],
+        "launches_eval_e2e_frame": ctx["k1_launches_eval_e2e_frame"],
+        "launches_eval_e2e_batched": ctx["k1_launches_eval_e2e_batched"],
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "device_ms": main["kernel_device_ms"],
@@ -1545,7 +1895,8 @@ def main() -> int:
     ctx = {"tmp": tempfile.mkdtemp(prefix="fire_chip_smoke_")}
     try:
         for name in PHASES:
-            globals()[f"phase_{name}"](ctx)
+            with recognizer_errors_fail(name):
+                globals()[f"phase_{name}"](ctx)
     finally:
         for key in ("fr", "fr_retina"):  # a phase failed before the trace phase closed it
             if key in ctx:

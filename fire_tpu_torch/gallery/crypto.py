@@ -33,12 +33,11 @@ import hashlib
 import hmac
 import logging
 import os
-import platform
-import shutil
 import struct
-import subprocess
 import time
 from typing import Optional, Sequence
+
+from fire_tpu_torch.runtime import build as hostbuild
 
 log = logging.getLogger(__name__)
 
@@ -46,10 +45,8 @@ PBKDF2_ITERATIONS = 610_000
 KEY_LENGTH = 32
 SALT_BYTES = 16
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "aes128_cbc.cpp")
-BUILD_DIR = os.path.join(_PKG, "_build")
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-march=native")
+SOURCE = os.path.join(hostbuild.CSRC, "aes128_cbc.cpp")
+CXX_FLAGS = hostbuild.CXX_FLAGS
 
 _VERSION = 0x80
 _HEADER = 1 + 8 + 16  # version, timestamp, IV
@@ -63,59 +60,17 @@ class InvalidToken(Exception):
     truncated bytes."""
 
 
-def _cxx() -> str:
-    for name in (os.environ.get("CXX"), "c++", "g++", "clang++"):
-        path = shutil.which(name) if name else None
-        if path:
-            return path
-    raise RuntimeError("no C++ compiler found (c++, g++ or clang++): "
-                       "the AES-128-CBC library is built from csrc/aes128_cbc.cpp")
-
-
-def _cpu_identity() -> bytes:
-    """What ``-march=native`` compiles for: the CPU's model and feature
-    flags, so that a library built on one host is never loaded on
-    another."""
-    lines = [platform.machine()]
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                key = line.split(":", 1)[0].strip()
-                if key in ("model name", "flags", "Features") and line not in lines:
-                    lines.append(line)
-                if not line.strip() and len(lines) > 1:
-                    break  # the first processor tells
-    except OSError:
-        pass
-    return "".join(lines).encode()
-
-
 def library_path(extra_flags: Sequence[str] = ()) -> str:
     """The library's path, named by the hash of the source, the flags and
     the host CPU."""
-    h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join((*CXX_FLAGS, *extra_flags)).encode())
-    h.update(_cpu_identity())
-    return os.path.join(BUILD_DIR, f"libaes128_cbc_{h.hexdigest()[:12]}.so")
+    return hostbuild.library_path(SOURCE, "libaes128_cbc", (*CXX_FLAGS, *extra_flags))
 
 
 def build(extra_flags: Sequence[str] = ()) -> str:
     """Compile the library unless this source and these flags have one.
     ``extra_flags`` (``-DFIRE_AES_TTABLE``) select the portable T-table
     implementation where the CPU has AES-NI.  Returns the path."""
-    out = library_path(extra_flags)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_cxx(), *CXX_FLAGS, *extra_flags, "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"C++ build failed for {SOURCE}:\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    return out
+    return hostbuild.build(SOURCE, "libaes128_cbc", (*CXX_FLAGS, *extra_flags))
 
 
 def library(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:

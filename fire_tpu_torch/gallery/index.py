@@ -109,6 +109,9 @@ class DeviceGallery:
     def count(self) -> int:
         return len(self.labels)
 
+    def get_current_count(self) -> int:  # hnswlib API parity
+        return self.count
+
     @property
     def gal_matmul(self) -> torch.Tensor:
         """The matching operand of the batched step: the bf16 shadow, or

@@ -5,23 +5,20 @@
 Rectangles and landmark dots are drawn with numpy, pixel for pixel what
 ``cv2.rectangle(..., thickness=2)`` and ``cv2.circle(..., 2, color, 2)``
 draw, so frames can be annotated where OpenCV is not installed.  The
-label text is OpenCV's Hershey font: ``cv2.putText`` is used when OpenCV
-can be imported, and the text is left off (one logged warning) when it
-cannot.
+label text is ``cv2.putText`` when OpenCV can be imported, and otherwise
+its pixels replayed from the committed glyph atlas
+(:mod:`fire_tpu_torch.pipeline.text_atlas`, made with OpenCV 5).
 """
 
 from __future__ import annotations
 
-import functools
-import logging
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fire_tpu_torch.ops.image import resize_area
-
-log = logging.getLogger(__name__)
+from fire_tpu_torch.pipeline import text_atlas
 
 GREEN = (0, 255, 0)
 RED = (0, 0, 255)
@@ -62,21 +59,13 @@ def draw_dot(img: np.ndarray, centre: Tuple[int, int], color) -> None:
     img[ys[ok], xs[ok]] = color
 
 
-@functools.lru_cache(maxsize=None)
-def _cv2_for_text():
-    """OpenCV, or ``None`` with one warning where it is not installed."""
+def _put_text(img: np.ndarray, text: str, org: Tuple[int, int], color, thickness: int) -> None:
     try:
         import cv2
     except ImportError:
-        log.warning("OpenCV (cv2) is not installed: boxes are drawn, label text is left off.")
-        return None
-    return cv2
-
-
-def _put_text(img: np.ndarray, text: str, org: Tuple[int, int], color, thickness: int) -> None:
-    cv2 = _cv2_for_text()
-    if cv2 is not None:
-        cv2.putText(img, text, org, cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, thickness)
+        text_atlas.put_text(img, text, org, color, thickness)
+        return
+    cv2.putText(img, text, org, cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, thickness)
 
 
 def annotate_faces(frame: np.ndarray, faces: List[dict],

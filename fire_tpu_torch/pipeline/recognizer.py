@@ -11,13 +11,20 @@ Differences from the JAX class, all deliberate:
 * files and windows go through :mod:`fire_tpu_torch.utils.imageio`, so
   BMP / PPM images need no OpenCV and anything else imports it at the
   call;
-* an error inside ``process_image``, ``add_face`` or a stream loop
-  propagates instead of being logged and dropped: a failing device call
-  must not look like an empty frame;
-* ``_enroll_now`` counts ``unknown_enrolled`` itself, on every path;
 * the timer also records ``tracker`` and ``match`` stages;
-* an encrypted image save encodes the format its path names (JAX
-  encodes JPEG whatever the name), so BMP and PPM need no OpenCV.
+* an encrypted image save encodes JPEG whatever the path's name, as JAX
+  does, when OpenCV is installed; without it a ``.bmp`` or ``.ppm`` path
+  is encoded in its own format (one logged warning) and any other name
+  raises.
+
+As in JAX, errors are logged and the work goes on: a frame whose
+``recognize_faces`` raises gives no faces and the per-frame loop moves to
+the next frame, an error that ends the loop is logged, ``process_image``
+logs its error and ``add_face`` returns ``False``.  The batched loops
+propagate, as JAX's do.  ``unknown_enrolled`` counts the per-frame
+path's tracks that ``_handle_unknown_embedding`` gave a label (the
+"too similar" label included), as JAX counts it; the batched paths do
+not count.
 
 With ``encryption_password`` the storage directory is
 ``<detector>_<encoder>_encrypted``, the SQLite database, the gallery
@@ -36,6 +43,7 @@ of the gallery (:class:`fire_tpu_torch.gallery.index.ShardedGalleryView`).
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import tempfile
@@ -64,6 +72,12 @@ from fire_tpu_torch.utils import imageio
 log = logging.getLogger(__name__)
 
 OnFrame = Optional[Callable[[np.ndarray, List[dict]], None]]
+
+
+@functools.lru_cache(maxsize=None)
+def _warn_not_jpeg(ext: str) -> None:
+    log.warning("OpenCV (cv2) is not installed: encrypted image saves hold %s bytes, not the "
+                "JPEG bytes the JAX package writes.", ext.lstrip(".").upper())
 
 
 def _ensure_parent_dir(path: str) -> None:
@@ -317,7 +331,15 @@ class FaceRecognition:
     def add_face(self, image: np.ndarray, label: str) -> bool:
         """Buffered enrollment with dedup: every face of ``image`` that is
         not within the threshold of a gallery row is queued under
-        ``label``; the queue is flushed at ``max_new`` and at close."""
+        ``label``; the queue is flushed at ``max_new`` and at close.  An
+        error is logged and gives ``False``."""
+        try:
+            return self._add_face(image, label)
+        except Exception as e:
+            log.error("Error in add_face: %s", e)
+            return False
+
+    def _add_face(self, image: np.ndarray, label: str) -> bool:
         faces = self.extract_faces(image, align=self.align)
         if not faces:
             log.warning("No faces detected to add.")
@@ -421,7 +443,6 @@ class FaceRecognition:
                 n = np.linalg.norm(vec)
                 self._recent_enrollments.append((vec / n if n > 0 else vec, self.gallery.count - 1))
                 del self._recent_enrollments[:-64]
-                self.counters["unknown_enrolled"] += 1
         else:
             log.warning("Gallery has reached its maximum capacity. Cannot add more embeddings.")
 
@@ -599,6 +620,8 @@ class FaceRecognition:
                 if label == "Unknown":
                     label = self._handle_unknown_embedding(tid, emb, rename_label)
                     confidence = 1.0
+                    if label != "Unknown":
+                        self.counters["unknown_enrolled"] += 1
                 self.track_id_to_label[tid] = label
                 self._add_to_recent(emb, label)
             else:
@@ -619,7 +642,16 @@ class FaceRecognition:
         """One still image, no tracker: detect, encode every face in one
         pass, then either relabel the matched gallery rows (``label``) or
         recognise and enroll.  Returns the recognised
-        ``[{'label', 'bbox'}]`` list (empty on the relabel path)."""
+        ``[{'label', 'bbox'}]`` list (empty on the relabel path, and when
+        an error was logged)."""
+        try:
+            return self._process_image(image_path, annotate, save_path, label)
+        except Exception as e:
+            log.error("Error in process_image: %s", e)
+            return []
+
+    def _process_image(self, image_path: str, annotate: bool, save_path: Optional[str],
+                       label: Optional[str]) -> List[dict]:
         timer = StageTimer()
         t0 = time.perf_counter()
         image = imageio.imread(image_path)
@@ -715,12 +747,20 @@ class FaceRecognition:
         return recognized
 
     def _save_image(self, image: np.ndarray, save_path: Optional[str]) -> None:
-        """Save, encrypted when a password was given."""
+        """Save, encrypted when a password was given: JPEG bytes whatever
+        the path's name, as JAX writes.  Without OpenCV, which encodes
+        the JPEG, a ``.bmp`` or ``.ppm`` path is encoded in its own format
+        (one logged warning); any other name raises."""
         if not save_path:
             return
         _ensure_parent_dir(save_path)
         if self.encryptor:
-            ext = os.path.splitext(save_path)[1] or ".jpg"
+            ext = ".jpg"
+            if not imageio.has_cv2():
+                ext = os.path.splitext(save_path)[1].lower()
+                if ext not in (".bmp", ".ppm"):
+                    imageio.require_cv2(f"an encrypted JPEG save ({save_path})")
+                _warn_not_jpeg(ext)
             self.encryptor.encrypt_and_write(save_path, imageio.imencode(ext, image))
         else:
             imageio.imwrite(save_path, image)
@@ -741,12 +781,19 @@ class FaceRecognition:
                                self.timer, self.encryptor)
             reader = PrefetchReader(cap)
             for frame in reader.frames():
-                faces = self.recognize_faces(frame, rename_label=name)
+                # one bad frame never ends the stream
+                try:
+                    faces = self.recognize_faces(frame, rename_label=name)
+                except Exception as e:
+                    log.error("Error recognizing frame %d: %s", self.frame_index, e)
+                    faces = []
                 if not sink.emit(frame, faces):
                     break
                 if duration > 0 and (time.time() - self.timer.start_time) >= duration:
                     log.info("Duration of %d seconds reached. Stopping.", duration)
                     break
+        except Exception as e:
+            log.error("Error in _process_stream: %s", e)
         finally:
             if reader is not None:
                 reader.close()

@@ -2,7 +2,8 @@
 ``fire_tpu.track.assignment``: ``cost_matrix``, ``lap_assign`` with
 ``_solve_with_fast_path`` and the float32 Jonker-Volgenant
 ``_lap_solve``, ``greedy_assign``, and ``hungarian_assign``, the same
-optimum solved on the host by SciPy).
+optimum solved on the host by the native Jonker-Volgenant LAP of
+:mod:`fire_tpu_torch.runtime.native`, SciPy where it cannot be built).
 
 JAX's ``lax.while_loop`` / ``lax.cond`` become Python control flow over
 device tensors: the fast-path conflict test costs one host read per
@@ -39,7 +40,7 @@ def hungarian_assign(cost: np.ndarray, det_mask: np.ndarray, trk_mask: np.ndarra
     index matched to each track, or −1.  Invalid rows and columns are
     masked with a large cost before solving and filtered after, so
     padding never changes the optimum over real pairs."""
-    from scipy.optimize import linear_sum_assignment
+    from fire_tpu_torch.runtime.native import linear_sum_assignment
 
     match = np.full((cost.shape[1],), -1, np.int32)
     if det_mask.sum() == 0 or trk_mask.sum() == 0:

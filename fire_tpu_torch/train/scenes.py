@@ -1,6 +1,6 @@
 """Synthetic detection scenes with exact ground truth (numpy-only copy
-of ``fire_tpu.train.scenes``: ``render_face_patch``, ``compose_scene``
-and ``make_identities``).
+of ``fire_tpu.train.scenes``: ``render_face_patch``, ``compose_scene``,
+``make_identities`` and ``render_scene_video``).
 
 The JAX package composes scenes with OpenCV (``cv2.resize`` with
 ``INTER_AREA`` and ``cv2.GaussianBlur``); the machine with the card has
@@ -9,23 +9,29 @@ semantics: area averaging when shrinking, OpenCV's area-mode linear
 weights when enlarging, and the fixed 3- and 5-tap Gaussian kernels
 with reflect-101 borders.  Random draws happen in the same order, so a
 seed gives the same scene as the JAX package up to float rounding.
+
+A ground-truth video's frames come from :func:`scene_video` without
+OpenCV; :func:`render_scene_video` writes them to an XVID file, which
+needs OpenCV, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from fire_tpu_torch.train.synth import _identity_params
 
 
-def _area_weights(src: int, dst: int) -> np.ndarray:
+def _area_weights(src: int, dst: int, linear: bool) -> np.ndarray:
     """(dst, src) weights of ``cv2.resize(..., INTER_AREA)`` along one
-    axis (float images)."""
+    axis (float images): the area average, or with ``linear`` (OpenCV's
+    choice for both axes when either one is enlarged) its area-mode
+    linear coefficients."""
     w = np.zeros((dst, src), np.float64)
     scale = src / dst
-    if scale >= 1.0:  # shrink: area average (computeResizeAreaTab)
+    if not linear:  # shrink: area average (computeResizeAreaTab)
         for dx in range(dst):
             fsx1 = dx * scale
             fsx2 = fsx1 + scale
@@ -40,7 +46,7 @@ def _area_weights(src: int, dst: int) -> np.ndarray:
             if fsx2 - sx2 > 1e-3:
                 w[dx, sx2] += min(min(fsx2 - sx2, 1.0), cell) / cell
         return w
-    inv = dst / src  # enlarge: OpenCV's area-mode linear coefficients
+    inv = dst / src  # OpenCV's area-mode linear coefficients
     for dx in range(dst):
         sx = int(np.floor(dx * scale))
         fx = np.float32((dx + 1) - (sx + 1) * inv)
@@ -52,14 +58,24 @@ def _area_weights(src: int, dst: int) -> np.ndarray:
     return w
 
 
-def resize_area(img: np.ndarray, size: int) -> np.ndarray:
-    """Square ``cv2.resize(img, (size, size), interpolation=INTER_AREA)``
-    of a float (H, W[, C]) image."""
-    wy = _area_weights(img.shape[0], size).astype(np.float32)
-    wx = _area_weights(img.shape[1], size).astype(np.float32)
+def resize_area(img: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=INTER_AREA)`` of a float
+    (H, W[, C]) image; ``size`` is ``(h, w)``, or one int for a square."""
+    oh, ow = (size, size) if isinstance(size, int) else size
+    linear = img.shape[0] < oh or img.shape[1] < ow
+    wy = _area_weights(img.shape[0], oh, linear).astype(np.float32)
+    wx = _area_weights(img.shape[1], ow, linear).astype(np.float32)
     out = np.tensordot(wy, img.astype(np.float32), axes=(1, 0))
     out = np.tensordot(wx, out, axes=(1, 1))  # (size_x, size_y, ...)
     return np.swapaxes(out, 0, 1).astype(np.float32)
+
+
+def resize_area_u8(img: np.ndarray, size) -> np.ndarray:
+    """:func:`resize_area` of a uint8 image, rounded back to uint8 as
+    OpenCV returns it (half up; OpenCV's fixed-point enlarging can land
+    one level away)."""
+    return np.clip(np.floor(resize_area(img.astype(np.float32), size) + 0.5),
+                   0, 255).astype(np.uint8)
 
 
 _SMALL_GAUSS = {3: (0.25, 0.5, 0.25), 5: (0.0625, 0.25, 0.375, 0.25, 0.0625)}
@@ -241,3 +257,74 @@ def compose_scene(
 def make_identities(n: int, seed: int = 0) -> List[dict]:
     rng = np.random.default_rng(seed)
     return [_identity_params(rng) for _ in range(n)]
+
+
+def scene_video(identities: List[dict], hw: Tuple[int, int] = (1080, 1920),
+                n_frames: int = 120, face_px: int = 140, seed: int = 0,
+                labels: Optional[List[str]] = None) -> Iterator[tuple]:
+    """The frames of :func:`render_scene_video`: one moving actor per
+    identity on a linear trajectory that bounces off the frame's edges.
+    Yields ``(frame_bgr_u8 (H, W, 3), boxes (N, 4), ident_keys)`` per
+    frame."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    n_id = len(identities)
+    pos = np.stack([
+        rng.uniform([0, 0], [w - face_px - 1, h - face_px - 1]) for _ in range(n_id)
+    ])
+    vel = rng.uniform(-4, 4, (n_id, 2))
+    bg = np.empty((h, w, 3), np.float32)
+    bg[:] = rng.uniform(60, 200, 3)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    bg += 35 * ((xx / w - 0.5) + 0.3 * (yy / h - 0.5))[..., None]
+    for _ in range(6):
+        bx, by = rng.integers(0, w), rng.integers(0, h)
+        bw, bh = rng.integers(w // 10, w // 3), rng.integers(h // 10, h // 3)
+        bg[by : by + bh, bx : bx + bw] = rng.uniform(30, 225, 3)
+    # each actor's patch is drawn from a generator seeded per identity, so
+    # it is the same in every frame: rendered once
+    actors = []
+    for i in range(n_id):
+        img, mask, bbox, _lm = render_face_patch(
+            identities[i], np.random.default_rng(seed * 997 + i),
+            face_px if face_px <= 160 else 160, max_rot=0.12)
+        s = face_px / img.shape[0]
+        ph = int(round(img.shape[0] * s))
+        small = resize_area(img, ph)
+        msk = np.clip(resize_area(mask.astype(np.float32), ph), 0, 1)[..., None]
+        actors.append((small[:, :, ::-1], msk, bbox, s, ph))
+    for _f in range(n_frames):
+        canvas = bg.copy()
+        frame_boxes, frame_ids = [], []
+        for i, (small_bgr, msk, bbox, s, ph) in enumerate(actors):
+            pos[i] += vel[i]
+            for d, limit in ((0, w - face_px - 1), (1, h - face_px - 1)):
+                if pos[i, d] < 0 or pos[i, d] > limit:
+                    vel[i, d] = -vel[i, d]
+                    pos[i, d] = np.clip(pos[i, d], 0, limit)
+            x0, y0 = int(pos[i, 0]), int(pos[i, 1])
+            region = canvas[y0 : y0 + ph, x0 : x0 + ph]
+            canvas[y0 : y0 + ph, x0 : x0 + ph] = region * (1 - msk) + small_bgr * msk
+            frame_boxes.append(
+                np.array([x0 + bbox[0] * s, y0 + bbox[1] * s, bbox[2] * s, bbox[3] * s]))
+            frame_ids.append(labels[i] if labels else i)
+        noisy = np.clip(canvas + rng.normal(0, 3, canvas.shape), 0, 255).astype(np.uint8)
+        yield noisy, np.stack(frame_boxes), frame_ids
+
+
+def render_scene_video(path: str, identities: List[dict], hw: Tuple[int, int] = (1080, 1920),
+                       n_frames: int = 120, fps: int = 30, face_px: int = 140, seed: int = 0,
+                       labels: Optional[List[str]] = None):
+    """Write :func:`scene_video`'s frames to ``path`` as XVID (needs
+    OpenCV) and return the per-frame GT ``[(boxes (N, 4), ident_keys)]``."""
+    from fire_tpu_torch.utils import imageio
+
+    writer = imageio.open_video_writer(path, fps, (hw[1], hw[0]))
+    gt = []
+    try:
+        for frame, boxes, ids in scene_video(identities, hw, n_frames, face_px, seed, labels):
+            writer.write(frame)
+            gt.append((boxes, ids))
+    finally:
+        writer.release()
+    return gt

@@ -208,7 +208,7 @@ def test_main_runs_what_is_now_ported(scene, argv):
         assert os.path.exists("storage/mediapipe_512_encrypted/db/face_embeddings_mediapipe_512.db.enc")
         assert not os.path.exists("storage/mediapipe_512_unencrypted")
         plain = Encryptor("pw").read_and_decrypt("out.bmp")
-        assert plain[:2] == b"BM" and len(seen["faces"]) == 1
+        assert plain[:2] == b"\xff\xd8" and len(seen["faces"]) == 1  # JPEG, as JAX saves
     elif "retinaface" in argv:
         # no size given and no reference file: the committed 512² weights
         assert cfg.engine.retinaface_size == (512, 512)
@@ -253,15 +253,19 @@ def test_main_without_encoder_512_names_the_missing_weights(scene):
     assert [f["label"] for f in again["faces"]] == enrolled
 
 
-def test_main_names_a_format_that_needs_opencv(scene, monkeypatch):
+def test_main_names_a_format_that_needs_opencv(scene, monkeypatch, caplog):
+    """Image mode logs the error and goes on, as JAX's ``process_image``
+    does; the message names the format and OpenCV."""
     import builtins
 
     real = builtins.__import__
     monkeypatch.setattr(builtins, "__import__", lambda name, *a, **k: (_ for _ in ()).throw(
         ImportError(name)) if name == "cv2" else real(name, *a, **k))
-    with pytest.raises(SystemExit) as e:
+    with caplog.at_level("ERROR"):
         cli.main(BASE + ["--detector", "yunet", "--save", "out.jpg", "--no-annotate"])
-    assert ".jpg" in str(e.value.code) and "OpenCV" in str(e.value.code)
+    errors = [r.getMessage() for r in caplog.records if r.levelname == "ERROR"]
+    assert len(errors) == 1 and ".jpg" in errors[0] and "OpenCV" in errors[0]
+    assert not os.path.exists("out.jpg")
 
 
 def test_main_defaults_to_cuda_and_does_not_fall_back(scene):

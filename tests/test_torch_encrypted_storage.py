@@ -9,6 +9,7 @@ crash.  PBKDF2 runs at 1,000 iterations in both packages here.
 import os
 import shutil
 
+import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,11 +166,10 @@ def test_recognizers_share_encrypted_storage(tmp_path):
     faces = tfr.process_image(src, annotate=False, save_path=str(tmp_path / "out.bmp"))
     assert [f["label"] for f in faces] == jfr.gallery.labels  # recognised, not enrolled
     tfr.close()
-    # the encrypted save decrypts to the plain BMP of the (unannotated) image
-    plain = str(tmp_path / "plain.bmp")
-    imageio.imwrite(plain, img)
-    with open(plain, "rb") as f:
-        assert TC.Encryptor("pw").read_and_decrypt(str(tmp_path / "out.bmp")) == f.read()
+    # the encrypted save decrypts to the JPEG of the (unannotated) image,
+    # whatever the path's name, as JAX writes it
+    jpeg = cv2.imencode(".jpg", img)[1].tobytes()
+    assert TC.Encryptor("pw").read_and_decrypt(str(tmp_path / "out.bmp")) == jpeg
 
     again = JFR(**FR_KW, storage_root=root, engine=jeng, weights_dir=None,
                 encryption_password="pw")
@@ -223,12 +223,11 @@ def test_cli_password_retinaface_default_encoder(tmp_path, monkeypatch):
     labels = [r[1] for r in store.load_all()]
     store.save()
     assert len(labels) == 1 and labels[0].startswith("Unknown_")
-    assert TC.Encryptor("pw").read_and_decrypt("out.bmp")[:2] == b"BM"
+    assert TC.Encryptor("pw").read_and_decrypt("out.bmp")[:2] == b"\xff\xd8"  # JPEG, as JAX
     cli.main(argv + ["--no-annotate"])
     store = FaceStore(None, f"{base}/db/face_embeddings_retinaface_128.db.enc",
                       TC.Encryptor("pw"), 128)
     assert [r[1] for r in store.load_all()] == labels  # recognised, nothing enrolled
-    with open("scene.bmp", "rb") as f:
-        assert TC.Encryptor("pw").read_and_decrypt("out.bmp") == f.read()
+    assert TC.Encryptor("pw").read_and_decrypt("out.bmp") == cv2.imencode(".jpg", img)[1].tobytes()
     # nothing unencrypted was left beside it
     assert not any(name.endswith(".db") for _, _, files in os.walk("storage") for name in files)

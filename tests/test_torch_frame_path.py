@@ -228,7 +228,9 @@ def test_process_video_reads_and_writes_through_opencv(tmp_path, batch_size):
 def test_mixed_paths_share_the_recent_enrollment_window(tmp_path):
     """A face enrolled by the per-frame path is not enrolled again by the
     batched path of the same recognizer (``_enroll_now`` feeds the window
-    on every path, and counts once)."""
+    on every path).  ``unknown_enrolled`` counts as JAX counts: the
+    per-frame path's labelled unknown tracks only, so the batched run
+    leaves it as it was."""
     _, tfr = _pair(tmp_path)
     (a,) = _scenes(41, 1)
     for _ in range(6):
@@ -238,6 +240,7 @@ def test_mixed_paths_share_the_recent_enrollment_window(tmp_path):
     out = []
     tfr.process_frames([a] * 8, batch_size=8, on_frame=lambda f, faces: out.append(faces))
     assert tfr.gallery.count == n and any(out)
+    assert tfr.counters["unknown_enrolled"] == n
     tfr.close()
 
 
