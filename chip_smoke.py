@@ -82,16 +82,30 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    the per-frame path and the batched path at B = 64, committed weights:
    detection recall ≥ 0.85, precision ≥ 0.95 and identity consistency
    ≥ 0.80 on both; K1's launches on each.
-20. ``trace``: one more batch of the batched path and 16 frames of the
+20. ``train_encoder``: ``python -m fire_tpu_torch.train``'s ``main`` for
+   two epochs of a rendered identity dataset (32 × 8 PNGs) at full width
+   (FaceNet-512, B = 64, 160², bf16), its file loaded into a
+   ``DeviceEngine`` that embeds; then the step alone memorises one batch
+   (the loss falls below half in 30 steps): ms a step, images/s, peak
+   memory, share of the bf16 peak.
+21. ``train_detectors``: YuNet-64 (320², B = 32), BlazeFace (192² from
+   480×640, B = 64) and RetinaFace (512² from 480×640, B = 8): each
+   pool step memorises one batch as above, then the trainer's ``main``
+   runs a few dozen steps on a small pool; BlazeFace and RetinaFace
+   fine-tune the committed weights, and their held-out P/R stays within
+   0.15 of the starting weights'.
+22. ``trace``: one more batch of the batched path and 16 frames of the
    per-frame path under ``torch.profiler``, with YuNet and with
-   RetinaFace, for the device's busy time and its idle share of the
-   traced wall time (four ``trace`` lines).  It runs after every timed
-   phase: the profiler leaves launches slower.
-21. ``cross_device``: one 8-frame batched step, a 2-stream step, the
+   RetinaFace, then one full-width ArcFace step, for the device's busy
+   time and its idle share of the traced wall time (five ``trace``
+   lines).  It runs after every timed phase: the profiler leaves
+   launches slower.
+23. ``cross_device``: one 8-frame batched step, a 2-stream step, the
    per-frame engine calls (``detect_faces``, ``encode_boxes``,
    ``encode_landmarks``, ``extract_faces``, BlazeFace and RetinaFace
-   ``detect``), the random-init FaceNet-128 and the ONNX executor on a
-   YuNet graph, on the card and on the CPU in float32, compared.
+   ``detect``), the random-init FaceNet-128, the ONNX executor on a
+   YuNet graph, and one ArcFace and one YuNet training step (loss and
+   gradients), on the card and on the CPU in float32, compared.
 
 The recognizer logs an error and goes on where a frame, an image or an
 enrolment fails, as JAX's does; every phase therefore runs with a
@@ -107,6 +121,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import math
 import os
 import shutil
 import subprocess
@@ -118,7 +133,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main_path", "retina_path", "frame_path", "retina_frame",
           "image_mode", "default_command", "encrypted", "multistream", "sharded_gallery",
           "importers", "native", "label_text", "eval_detect", "calibrate", "eval_auc",
-          "eval_e2e", "trace", "cross_device")
+          "eval_e2e", "train_encoder", "train_detectors", "trace", "cross_device")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 and dense bf16.
 HBM_BYTES_PER_S = 3.35e12
@@ -520,8 +535,12 @@ def phase_retina_path(ctx) -> None:
 def phase_trace(ctx) -> None:
     """One more batch of the batched path, then 16 frames of the
     per-frame path, under ``torch.profiler``, with YuNet and with
-    RetinaFace.  The profiler leaves launches slower for the rest of the
-    process, so this phase comes after every phase that reports a time."""
+    RetinaFace; then one full-width ArcFace step.  The profiler leaves
+    launches slower for the rest of the process, so this phase comes
+    after every phase that reports a time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     for key, detector in (("fr", "yunet-640"), ("fr_retina", "retinaface-512")):
         fr = ctx.pop(key)
         try:
@@ -533,16 +552,22 @@ def phase_trace(ctx) -> None:
                                  batch_size=0), "detector": detector})
         finally:
             fr.close()
+    step, state, images, labels = ctx.pop("arcface")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step(state, images, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "trace", "path": "arcface train step", "model": "facenet-512",
+          "batch": int(images.shape[0]), **device_summary(prof, wall_ms)})
+    check(bool(torch.isfinite(loss)), "trace: the traced ArcFace step's loss is not finite")
 
 
 def trace_frames(fr, frames, batch_size: int = BATCH) -> dict:
-    """A few more frames of a path under ``torch.profiler``: the
-    device's busy time (the union of its kernel and copy intervals), its
-    idle share of the traced wall time, and the kernels that take the
-    most device time.  A trace that holds no device activity is reported
-    as not measured."""
+    """A few more frames of a path under ``torch.profiler``, summed up by
+    :func:`device_summary`."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -551,6 +576,18 @@ def trace_frames(fr, frames, batch_size: int = BATCH) -> dict:
         fr.process_frames(frames, annotate=False, batch_size=batch_size)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"phase": "trace", "path": "batched" if batch_size else "per-frame",
+            "frames": len(frames), **device_summary(prof, wall_ms)}
+
+
+def device_summary(prof, wall_ms: float) -> dict:
+    """From a finished ``torch.profiler`` run over ``wall_ms`` of host
+    time: the device's busy time (the union of its kernel and copy
+    intervals), its idle share, and the kernels that take the most device
+    time.  A trace that holds no device activity is reported as not
+    measured (None)."""
+    from torch.autograd import DeviceType
+
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy_us, end = 0.0, float("-inf")
@@ -564,9 +601,7 @@ def trace_frames(fr, frames, batch_size: int = BATCH) -> dict:
         by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     busy_ms = busy_us / 1e3 if dev else None
-    return {"phase": "trace", "path": "batched" if batch_size else "per-frame",
-            "frames": len(frames), "traced_wall_ms": wall_ms,
-            "device_events": len(dev), "device_busy_ms": busy_ms,
+    return {"traced_wall_ms": wall_ms, "device_events": len(dev), "device_busy_ms": busy_ms,
             "idle_share_traced": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
             "top_device_ms": {k: v / 1e3 for k, v in top}}
 
@@ -1636,6 +1671,251 @@ def phase_eval_e2e(ctx) -> None:
             check(m[key] >= floor, f"eval_e2e {name}: {key} {m[key]:.3f} < {floor}")
 
 
+# ---------------------------------------------------------------- training --
+
+MEMO_STEPS = 30  # steps of each fixed-batch memorisation
+MEMO_WARMUP = 5  # of them, untimed (first-use allocations, cuDNN's choices)
+
+
+def forward_macs(model, *args, **kwargs) -> int:
+    """Multiply-accumulates of one forward, counted from the shapes: each
+    convolution's output elements × (input channels / groups) × kernel
+    area, each Linear's outputs × input features."""
+    import torch
+
+    total = [0]
+
+    def conv(mod, inp, out):
+        total[0] += out.numel() * (mod.in_channels // mod.groups) * (
+            mod.kernel_size[0] * mod.kernel_size[1])
+
+    def dense(mod, inp, out):
+        total[0] += out.numel() * mod.in_features
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d) else dense)
+             for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(*args, **kwargs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def memorise(step, state, args, batch: int, macs: int, base_bytes: int) -> tuple:
+    """``MEMO_STEPS`` steps of ``step(state, *args)`` on one fixed batch:
+    the losses, ms per step and images/s over the steps after
+    ``MEMO_WARMUP`` (host clock around synchronised work), the peak device
+    memory above ``base_bytes`` (what was allocated before the model was
+    built: earlier phases' tensors), and the bf16 share: forward MACs × 2
+    × 3 (forward and backward) FLOP a step over the dense bf16 peak."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(MEMO_STEPS):
+        if i == MEMO_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, loss, *_ = step(state, *args)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (MEMO_STEPS - MEMO_WARMUP)
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"memorise: non-finite losses {losses}")
+    return state, {
+        "steps": MEMO_STEPS, "batch": batch, "loss_first": losses[0], "loss_last": losses[-1],
+        "ms_per_step": ms, "images_per_s": batch / (ms / 1e3),
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() - base_bytes) / 1e9,
+        "forward_gmac": macs / 1e9,
+        "bf16_peak_share": macs * 2 * 3 / (ms / 1e3) / BF16_FLOP_PER_S}
+
+
+def phase_train_encoder(ctx) -> None:
+    """``python -m fire_tpu_torch.train``'s ``main`` for two epochs of a
+    ``train.synth`` dataset (32 identities × 8 PNGs) at full width:
+    FaceNet-512, B = 64, 160², bf16; its file loads into a
+    ``DeviceEngine`` that embeds.  Then the step alone memorises one
+    fixed batch: the loss falls below half in ``MEMO_STEPS`` steps; ms
+    a step, images/s, peak memory, share of the bf16 peak."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.config import RecognizerConfig
+    from fire_tpu_torch.models.facenet import facenet_512
+    from fire_tpu_torch.pipeline.engine import DeviceEngine
+    from fire_tpu_torch.train import __main__ as arcface_cli
+    from fire_tpu_torch.train import optim, synth
+    from fire_tpu_torch.train.data import IdentityFolderDataset, batches
+    from fire_tpu_torch.train.trainer import JAX_INIT_SEED, init_state, make_train_step
+
+    work = os.path.join(ctx["tmp"], "train_encoder")
+    t0 = time.perf_counter()
+    train_root, _ = synth.generate(work, 32, 8, 0, 160, seed=1)
+    t_render = time.perf_counter() - t0
+    out = os.path.join(work, "facenet512.msgpack")
+    t0 = time.perf_counter()
+    arcface_cli.main(["--data", train_root, "--encoder", "512", "--epochs", "2", "--batch",
+                      str(BATCH), "--out", out, "--log_every", "4", "--device", "cuda"])
+    t_cli = time.perf_counter() - t0
+
+    ds = IdentityFolderDataset(train_root)
+    images_u8, labels = next(batches(ds, BATCH, (160, 160), seed=0))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = facenet_512().cuda()
+    opt = optim.adamw(1e-3)
+    state = init_state(model, JAX_INIT_SEED, ds.num_classes, opt)
+    step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+    images = torch.from_numpy(images_u8).cuda().float() / 255.0
+    labels_t = torch.from_numpy(labels).cuda()
+    macs = forward_macs(model, images)
+    state, memo = memorise(step, state, (images, labels_t), BATCH, macs, base)
+    ctx["arcface"] = (step, state, images, labels_t)  # traced by the trace phase
+
+    eng = DeviceEngine(RecognizerConfig(detector_type="yunet", encoder_model_type="512",
+                                        weights_dir=None).with_embedding_dim(), device="cuda")
+    eng.load_trained_encoder(out)
+    emb = eng.encode_faces(images_u8[:8].astype(np.float32) / 255.0)
+    emit({"phase": "train_encoder", "model": "facenet-512 (5/10/5, stem 32)", "hw": [160, 160],
+          "compute": "bf16, float32 masters", "classes": ds.num_classes,
+          "cli": {"epochs": 2, "images": len(ds), "steps": 2 * (len(ds) // BATCH),
+                  "seconds": t_cli, "out_mb": os.path.getsize(out) / 1e6},
+          "memorise": memo, "render_seconds": t_render, "embed_shape": list(emb.shape)})
+    check(emb.shape == (8, 512) and bool(np.isfinite(emb).all()),
+          f"train_encoder: the trained encoder embeds {emb.shape}")
+    check(eng.weight_source["encoder"] == f"trained:{out}", "train_encoder: the file did not load")
+    check(memo["loss_last"] < 0.5 * memo["loss_first"],
+          f"train_encoder: the loss went {memo['loss_first']:.3f} → {memo['loss_last']:.3f}")
+
+
+def _scene_pool(hw, n: int, max_faces: int, face_px, seed: int):
+    """``n`` rendered scenes as the trainers' device pool (uint8 frames,
+    padded GT) on the card."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.train.detect import pad_gt
+    from fire_tpu_torch.train.scenes import compose_scene, make_identities
+
+    idents = make_identities(16, seed=seed)
+    rng = np.random.default_rng(seed)
+    scenes = [compose_scene(rng, idents, hw=hw, n_faces=(1, max_faces), face_px=face_px)
+              for _ in range(n)]
+    padded = [pad_gt(b, l, max_faces) for _, b, l in scenes]
+    return [torch.from_numpy(np.stack([s[0].astype(np.uint8) for s in scenes])).cuda()] + [
+        torch.from_numpy(np.stack([p[i] for p in padded])).cuda() for i in range(3)]
+
+
+def _detector_run(name: str, model, make_step, hw, scene_hw, batch: int, max_faces: int,
+                  face_px, lr: float, default_steps: int, with_stats: bool) -> dict:
+    """Fixed-batch memorisation of one detector trainer's pool step at its
+    default batch and size, with the trainer's own optimiser."""
+    import torch
+
+    from fire_tpu_torch.train import optim
+    from fire_tpu_torch.train.trainer import model_batch_stats
+    from fire_tpu_torch.weights import flax_shapes, load_flax, materialize
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = model.cuda()
+    load_flax(model, materialize(flax_shapes(model), seed=0))
+    opt = optim.chain(optim.clip_by_global_norm(5.0),
+                      optim.adamw(optim.cosine_decay_schedule(lr, default_steps, 0.05)))
+    params = list(model.parameters())
+    state = ((params, model_batch_stats(model), opt.init(params)) if with_stats
+             else (params, opt.init(params)))
+    step = make_step(model, opt)
+    pool = _scene_pool(scene_hw, batch, max_faces, face_px, seed=11)
+    idx = torch.arange(batch, device="cuda")
+    x = torch.zeros((1, *hw, 3), device="cuda")
+    macs = forward_macs(model, x) * batch
+    _, memo = memorise(step, state, (*pool, idx), batch, macs, base)
+    check(memo["loss_last"] < 0.5 * memo["loss_first"],
+          f"train_detectors {name}: the loss went {memo['loss_first']:.3f} → "
+          f"{memo['loss_last']:.3f}")
+    return memo
+
+
+def phase_train_detectors(ctx) -> None:
+    """Each detector trainer at full width, its default batch and size:
+    YuNet-64 at 320², B = 32; BlazeFace at 192² letterboxed from 480×640,
+    B = 64; RetinaFace (ResNet-50) at 512² letterboxed from 480×640,
+    B = 8.  For each, a fixed-batch memorisation of the pool step (the
+    loss falls below half; ms a step, images/s, peak memory), then the
+    trainer's ``main`` for a few dozen steps on a 64-scene pool.  BlazeFace
+    and RetinaFace fine-tune the committed weights (``--init_from``) at lr
+    1e-5, and their held-out P/R through ``detect_faces`` (the trainer's
+    ``--eval_scenes``) stays within 0.15 of the starting weights' P/R,
+    measured here on the same scenes."""
+    import torch
+
+    from fire_tpu_torch.config import RecognizerConfig
+    from fire_tpu_torch.models.blazeface import BlazeFace
+    from fire_tpu_torch.models.retinaface import RetinaFace
+    from fire_tpu_torch.models.yunet import YuNet
+    from fire_tpu_torch.pipeline.engine import DeviceEngine
+    from fire_tpu_torch.train import detect, detect_blaze, detect_retina
+    from fire_tpu_torch.train.scenes import make_identities
+
+    bf16 = torch.bfloat16
+    work = os.path.join(ctx["tmp"], "train_detectors")
+    os.makedirs(work)
+    pool_args = ["--pool", "64", "--device_pool", "64", "--gen_threads", "2", "--log_every",
+                 "8", "--device", "cuda"]
+    rec = {}
+
+    t0 = time.perf_counter()
+    memo = _detector_run(
+        "yunet", YuNet(), lambda m, o: detect.make_pool_train_step(m, o, (320, 320),
+                                                                   compute_dtype=bf16),
+        (320, 320), (320, 320), 32, 3, (24, 192), 2e-3, 3000, True)
+    out = os.path.join(work, "yunet.msgpack")
+    detect.main(["--steps", "24", "--out", out, "--eval_scenes", "0", *pool_args])
+    eng = DeviceEngine(RecognizerConfig(weights_dir=None).with_embedding_dim(), device="cuda")
+    eng.load_trained_detector(out)
+    found = eng.detect_faces(_frames(seed=12, n_scenes=1, per_scene=1)[0])
+    rec["yunet"] = {"width": 64, "hw": [320, 320], "memorise": memo,
+                    "main": {"steps": 24, "faces_found_by_24_step_weights": len(found)},
+                    "seconds": time.perf_counter() - t0}
+
+    fine_tunes = (
+        ("blazeface", BlazeFace, detect_blaze, "blazeface192_synth.msgpack", 64, 2, (140, 480),
+         2e-3, 4000, False, (192, 192), detect_blaze.engine_config(192), 32,
+         lambda m, o: detect_blaze.make_blaze_pool_train_step(m, o, input_px=192,
+                                                              compute_dtype=bf16),
+         ["--input_px", "192"]),
+        ("retinaface", RetinaFace, detect_retina, "retinaface_synth.msgpack", 8, 3, (40, 360),
+         1e-3, 3000, True, (512, 512), detect_retina.engine_config((512, 512)), 24,
+         lambda m, o: detect_retina.make_retina_pool_train_step(m, o, (512, 512),
+                                                                compute_dtype=bf16),
+         ["--save_every", "0"]),
+    )
+    for (name, model, module, committed, batch, max_faces, face_px, lr, default_steps,
+         with_stats, hw, cfg, n_eval, make_step, extra) in fine_tunes:
+        t0 = time.perf_counter()
+        memo = _detector_run(name, model(), make_step, hw, (480, 640), batch, max_faces, face_px,
+                             lr, default_steps, with_stats)
+        torch.cuda.empty_cache()
+        scenes = detect.eval_scenes(make_identities(200, seed=0), n_eval, 0, (480, 640),
+                                    max_faces, face_px)
+        start = detect.held_out_pr(cfg, _trained(committed), scenes, "cuda")
+        out = os.path.join(work, f"{name}.msgpack")
+        tuned = module.main(["--steps", "16", "--init_from", _trained(committed), "--lr", "1e-5",
+                             "--out", out, "--eval_scenes", str(n_eval), *extra, *pool_args])
+        rec[name] = {"hw": list(hw), "scene_hw": [480, 640], "memorise": memo,
+                     "fine_tune": {"steps": 16, "lr": 1e-5, "eval_scenes": n_eval,
+                                   "start": start, "tuned": tuned},
+                     "seconds": time.perf_counter() - t0}
+        for k in ("precision", "recall"):
+            check(abs(tuned[k] - start[k]) <= 0.15,
+                  f"train_detectors {name}: held-out {k} {start[k]:.3f} → {tuned[k]:.3f}")
+    emit({"phase": "train_detectors", "compute": "bf16, float32 masters", **rec})
+
+
 def _one_face_scene(seed: int):
     """A rendered short-range 1080p scene with one face (420–700 px)."""
     import numpy as np
@@ -1696,10 +1976,83 @@ def phase_cross_device(ctx) -> None:
     per_frame = _cross_device_per_frame({d: bse.engine for d, (bse, _) in sides.items()}, cfg)
     multi = _cross_device_multistream(sides, cfg)
     executor = _cross_device_executor()
+    training = _cross_device_training()
     emit({"phase": "cross_device", "frames": len(frames), "dtype": "float32", "tf32": False,
           "box_err_px": max(be1, be2), "sim_err": max(se1, se2),
           "matched_gid": N_GALLERY, "per_frame": per_frame, "multistream": multi,
-          "executor": executor})
+          "executor": executor, "training": training})
+
+
+def _cross_device_training() -> dict:
+    """One ArcFace step (FaceNet-512, B = 8, 160²) and one YuNet pool
+    step (YuNet-64, B = 4, 320²) from one state on the card and on the
+    CPU, float32 with TF32 off: the losses at rtol 1e-4, and each
+    gradient tensor within 5e-2 of the CPU's in relative L2 norm.  Tensors
+    whose largest gradient is under 1e-4 of the model's are left out: a
+    bias just before a BatchNorm has a gradient of zero but for rounding
+    (3.9e-6 of the largest at most on the CPU in this step, every other
+    tensor's 1.7e-3 at least).  The gradients of this step are
+    ill-conditioned in float32: BatchNorm's fast variance ``E[x²] −
+    E[x]²`` cancels where activations have a large mean, so the CPU's own
+    float32 gradients of this ArcFace step are up to 1.5e-2 (relative L2)
+    from JAX's in float64, and single elements up to 0.12 of the tensor's
+    largest gradient (``tools/torch_train_precision.py``); the card sums
+    in another order and lands as far on the other side.  The largest
+    element error is reported too."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.models.facenet import facenet_512
+    from fire_tpu_torch.models.yunet import YuNet
+    from fire_tpu_torch.train.detect import build_targets_device, detection_loss, pad_gt
+    from fire_tpu_torch.train.scenes import compose_scene, make_identities
+    from fire_tpu_torch.train.trainer import arcface_loss
+    from fire_tpu_torch.weights import flax_shapes, load_flax, materialize
+
+    rng = np.random.default_rng(21)
+    faces = rng.random((8, 160, 160, 3)).astype(np.float32)
+    labels = np.arange(8) % 4
+    classifier = (rng.standard_normal((512, 4)) * 0.01).astype(np.float32)
+    idents = make_identities(4, seed=22)
+    scenes = [compose_scene(np.random.default_rng(s), idents, hw=(320, 320), n_faces=(1, 3),
+                            face_px=(24, 192)) for s in range(4)]
+    frames = np.stack([sc[0] for sc in scenes]).astype(np.float32) / 255.0
+    gt = [np.stack([pad_gt(b, l, 3)[i] for _, b, l in scenes]) for i in range(3)]
+    variables = {"facenet": materialize(flax_shapes(facenet_512()), seed=23),
+                 "yunet": materialize(flax_shapes(YuNet()), seed=24)}
+
+    def grads(dev):
+        out = {}
+        model = facenet_512()
+        load_flax(model, variables["facenet"])
+        model.to(dev)
+        cls = torch.tensor(classifier, device=dev, requires_grad=True)
+        loss = arcface_loss(model, cls, torch.tensor(faces, device=dev),
+                            torch.tensor(labels, device=dev))
+        g = torch.autograd.grad(loss, list(model.parameters()) + [cls])
+        out["arcface"] = (loss.item(), [t.double().cpu().numpy() for t in g])
+        model = YuNet()
+        load_flax(model, variables["yunet"])
+        model.to(dev)
+        targets = build_targets_device(*(torch.tensor(a, device=dev) for a in gt), (320, 320))
+        loss, _ = detection_loss(model(torch.tensor(frames, device=dev), train=True), targets)
+        g = torch.autograd.grad(loss, list(model.parameters()))
+        out["yunet"] = (loss.item(), [t.double().cpu().numpy() for t in g])
+        return out
+
+    card, cpu = grads("cuda"), grads("cpu")
+    rec = {}
+    for name in card:
+        (la, ga), (lb, gb) = card[name], cpu[name]
+        scale = max(float(np.abs(b).max()) for b in gb)
+        live = [(a, b) for a, b in zip(ga, gb) if np.abs(b).max() > 1e-4 * scale]
+        rel_l2 = max(float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in live)
+        worst = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in live)
+        rec[name] = {"loss_card": la, "loss_cpu": lb, "tensors": len(live),
+                     "worst_rel_l2": rel_l2, "worst_element_of_max": worst}
+        check(abs(la - lb) <= 1e-4 * abs(lb), f"cross_device: {name} loss {la} vs {lb}")
+        check(rel_l2 <= 5e-2, f"cross_device: {name} gradients differ by {rel_l2} (relative L2)")
+    return rec
 
 
 def _cross_device_multistream(sides: dict, cfg) -> dict:

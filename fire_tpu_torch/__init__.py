@@ -5,7 +5,9 @@ with every detector slot (YuNet, RetinaFace, BlazeFace), at-rest
 encryption, several streams over a mesh of devices and the row-sharded
 gallery (:mod:`fire_tpu_torch.parallel`), and the ONNX / TFLite
 importers, exporter and executor behind ``--weights_dir``
-(``python -m fire_tpu_torch.verify_onnx`` checks a file).
+(``python -m fire_tpu_torch.verify_onnx`` checks a file), and the
+training plane (:mod:`fire_tpu_torch.train`: ArcFace for FaceNet and the
+YuNet, BlazeFace and RetinaFace trainers, on one card).
 
 The package mirrors ``fire_tpu``'s module names so each counterpart is
 easy to find.  It imports ``torch`` and never JAX, Flax or anything of

@@ -8,32 +8,63 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1, computed in float32 and cast back
-    to the input dtype — what ``flax.linen.BatchNorm(dtype=bf16)``
-    does (its normalisation promotes to the f32 statistics).  All four
-    tensors are buffers: the port runs inference only.  ``use_scale=
-    False`` (FaceNet) keeps ``weight`` at 1."""
+    """BatchNorm over dim 1 as ``flax.linen.BatchNorm(dtype=bf16)`` does
+    it: normalised in float32 and cast back to the input dtype.
 
-    def __init__(self, features: int, eps: float):
+    ``forward(x, train=False)`` takes the mode as an argument, as Flax's
+    ``__call__(x, train=False)`` does, and never reads
+    ``nn.Module.training``: a module built and called without
+    ``.eval()`` serves with its running statistics.  ``train=True``
+    normalises with the batch's statistics over (N, H, W): the mean and
+    Flax's fast variance ``max(E[x²] − E[x]², 0)``, biased, in float32.
+    It then updates the running statistics in place as Flax does,
+    ``ra = m·ra + (1 − m)·batch`` with ``momentum`` m (the weight of the
+    old value; ``torch.nn.BatchNorm2d``'s momentum is ``1 − m``), and
+    stores that same biased variance.
+
+    ``weight`` and ``bias`` are the trainable ``scale`` and ``bias``;
+    with ``use_scale=False`` (FaceNet) ``weight`` is a buffer fixed at
+    1.  ``running_mean`` / ``running_var`` are buffers.  All four stay
+    float32 when the module is cast to bf16."""
+
+    def __init__(self, features: int, eps: float, momentum: float = 0.99,
+                 use_scale: bool = True):
         super().__init__()
-        self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.eps, self.momentum, self.use_scale = eps, momentum, use_scale
+        if use_scale:
+            self.weight = nn.Parameter(torch.ones(features))
+        else:
+            self.register_buffer("weight", torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def _apply(self, fn, recurse=True):
-        # statistics stay float32 when the module is cast to bf16
         super()._apply(fn, recurse)
         for name in ("weight", "bias", "running_mean", "running_var"):
-            setattr(self, name, getattr(self, name).float())
+            t = getattr(self, name)
+            if isinstance(t, nn.Parameter):
+                t.data = t.data.float()
+            else:
+                setattr(self, name, t.float())
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight,
-            self.bias, False, 0.0, self.eps,
-        )
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if not train:
+            y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight,
+                             self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        dims = [0] + list(range(2, x.dim()))
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
         return y.to(x.dtype)
 
 

@@ -63,11 +63,11 @@ class Bottleneck(nn.Module):
         self.c3 = nn.Conv2d(f, f * 4, 1, bias=False)
         self.bn3 = BatchNorm(f * 4, _BN_EPS)
 
-    def forward(self, x):
-        sc = x if self.proj is None else self.proj_bn(self.proj(x))
-        y = torch.relu(self.bn1(self.c1(x)))
-        y = torch.relu(self.bn2(self.c2(same_pad(y, 3, self.strides))))
-        y = self.bn3(self.c3(y))
+    def forward(self, x, train: bool = False):
+        sc = x if self.proj is None else self.proj_bn(self.proj(x), train)
+        y = torch.relu(self.bn1(self.c1(x), train))
+        y = torch.relu(self.bn2(self.c2(same_pad(y, 3, self.strides)), train))
+        y = self.bn3(self.c3(y), train)
         return torch.relu(y + sc)
 
 
@@ -82,16 +82,16 @@ class SSH(nn.Module):
             setattr(self, name, nn.Conv2d(a, b, 3, padding=1, bias=False))
             setattr(self, name + "_bn", BatchNorm(b, _BN_EPS))
 
-    def _conv_bn(self, x, name: str, relu: bool):
-        y = getattr(self, name + "_bn")(getattr(self, name)(x))
+    def _conv_bn(self, x, name: str, relu: bool, train: bool):
+        y = getattr(self, name + "_bn")(getattr(self, name)(x), train)
         return torch.relu(y) if relu else y
 
-    def forward(self, x):
-        b3 = self._conv_bn(x, "b3", relu=False)
-        m = self._conv_bn(x, "m", relu=True)
-        b5 = self._conv_bn(m, "b5", relu=False)
-        m2 = self._conv_bn(m, "m2", relu=True)
-        b7 = self._conv_bn(m2, "b7", relu=False)
+    def forward(self, x, train: bool = False):
+        b3 = self._conv_bn(x, "b3", False, train)
+        m = self._conv_bn(x, "m", True, train)
+        b5 = self._conv_bn(m, "b5", False, train)
+        m2 = self._conv_bn(m, "m2", True, train)
+        b7 = self._conv_bn(m2, "b7", False, train)
         return torch.relu(torch.cat([b3, b5, b7], dim=1))
 
 
@@ -133,17 +133,19 @@ class RetinaFace(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.stem.weight.dtype
 
-    def forward(self, x_nhwc: torch.Tensor) -> Heads:
+    def forward(self, x_nhwc: torch.Tensor, train: bool = False) -> Heads:
         """x: (B, H, W, 3) raw-pixel RGB, H and W divisible by 32.
         Returns ``{stride: (face_prob (B,h,w,A), bbox (B,h,w,4A),
-        lmk (B,h,w,10A))}`` float32, NHWC, for strides 8 / 16 / 32."""
+        lmk (B,h,w,10A))}`` float32, NHWC, for strides 8 / 16 / 32.
+        ``train=True`` normalises with the batch's statistics and
+        updates the running ones (Flax's momentum 0.99)."""
         x = x_nhwc.to(self.dtype).permute(0, 3, 1, 2)
-        x = torch.relu(self.stem_bn(self.stem(same_pad(x, 7, 2))))
+        x = torch.relu(self.stem_bn(self.stem(same_pad(x, 7, 2)), train))
         x = max_pool_same(x, 3, 2)
         feats = {}
         for i, n_blocks in enumerate(self.stage_sizes):
             for j in range(n_blocks):
-                x = getattr(self, f"stage{i}_block{j}")(x)
+                x = getattr(self, f"stage{i}_block{j}")(x, train)
             if i >= 1:
                 feats[2 ** (i + 2)] = x  # strides 8, 16, 32
 
@@ -154,7 +156,7 @@ class RetinaFace(nn.Module):
         a = self.num_anchors
         out = {}
         for stride, feat in ((8, p3), (16, p4), (32, p5)):
-            ctx = getattr(self, f"ssh_s{stride}")(feat)
+            ctx = getattr(self, f"ssh_s{stride}")(feat, train)
 
             def head(name):  # NCHW → NHWC float32
                 return getattr(self, f"{name}_s{stride}")(ctx).float().permute(0, 2, 3, 1)

@@ -9,7 +9,10 @@ channels-last memory (a permuted NHWC tensor), the layout cuDNN prefers.
 Details kept from the JAX model: the stem conv pads (1, 1), not SAME
 (``yunet.py:82-85``); ``_up2`` is a nearest ×2 upsample (``:126``); the
 input is multiplied by 255 and cast to the compute dtype (``:150``);
-the heads apply sigmoid in float32 (``:118-123``).  BatchNorm eps 1e-5.
+the heads apply sigmoid in float32 (``:118-123``).  BatchNorm eps 1e-5,
+Flax's default momentum 0.99.  ``forward(x, train=False)`` serves with
+the running statistics; ``train=True`` (the trainer's) normalises with
+the batch's and updates them.
 """
 
 from __future__ import annotations
@@ -36,10 +39,10 @@ class ConvDPUnit(nn.Module):
         self.conv2 = nn.Conv2d(features, features, 3, padding=1, groups=features, bias=True)
         self.bn = BatchNorm(features, _BN_EPS) if with_bn_relu else None
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = self.conv2(self.conv1(x))
         if self.bn is not None:
-            x = torch.relu(self.bn(x))
+            x = torch.relu(self.bn(x, train))
         return x
 
 
@@ -52,8 +55,8 @@ class ConvHead(nn.Module):
         self.bn1 = BatchNorm(mid, _BN_EPS)
         self.conv2 = ConvDPUnit(mid, features)
 
-    def forward(self, x):
-        return self.conv2(torch.relu(self.bn1(self.conv1(x))))
+    def forward(self, x, train: bool = False):
+        return self.conv2(torch.relu(self.bn1(self.conv1(x), train)), train)
 
 
 class Conv4LayerBlock(nn.Module):
@@ -64,8 +67,8 @@ class Conv4LayerBlock(nn.Module):
         self.conv1 = ConvDPUnit(cin, cin)
         self.conv2 = ConvDPUnit(cin, features)
 
-    def forward(self, x):
-        return self.conv2(self.conv1(x))
+    def forward(self, x, train: bool = False):
+        return self.conv2(self.conv1(x, train), train)
 
 
 class YuNetHead(nn.Module):
@@ -79,8 +82,8 @@ class YuNetHead(nn.Module):
         self.box = ConvDPUnit(width, 4, with_bn_relu=False)
         self.kps = ConvDPUnit(width, 10, with_bn_relu=False)
 
-    def forward(self, x):
-        f = self.feat(x)
+    def forward(self, x, train: bool = False):
+        f = self.feat(x, train)
         return (
             torch.sigmoid(self.cls(f).float()),
             torch.sigmoid(self.obj(f).float()),
@@ -121,24 +124,25 @@ class YuNet(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.model0.conv1.weight.dtype
 
-    def forward(self, x01_nhwc: torch.Tensor) -> Dict[int, Tuple[torch.Tensor, ...]]:
+    def forward(self, x01_nhwc: torch.Tensor, train: bool = False
+                ) -> Dict[int, Tuple[torch.Tensor, ...]]:
         """x: (B, H, W, 3) float in [0, 1]; H, W divisible by 32.
         Returns ``{8: (cls, obj, box, kps), 16: ..., 32: ...}`` NHWC f32."""
         x = (x01_nhwc * 255.0).to(self.dtype).permute(0, 3, 1, 2)
-        x = self.model0(x)
+        x = self.model0(x, train)
         x = max_pool_valid(x, 2, 2)
-        x = self.model2(self.model1(x))
+        x = self.model2(self.model1(x, train), train)
         x = max_pool_valid(x, 2, 2)
-        c3 = self.model3(x)
-        c4 = self.model4(max_pool_valid(c3, 2, 2))
-        c5 = self.model5(max_pool_valid(c4, 2, 2))
-        p5 = self.neck2(c5)
-        p4 = self.neck1(c4 + _up2(p5))
-        p3 = self.neck0(c3 + _up2(p4))
+        c3 = self.model3(x, train)
+        c4 = self.model4(max_pool_valid(c3, 2, 2), train)
+        c5 = self.model5(max_pool_valid(c4, 2, 2), train)
+        p5 = self.neck2(c5, train)
+        p4 = self.neck1(c4 + _up2(p5), train)
+        p3 = self.neck0(c3 + _up2(p4), train)
         out = {}
         for stride, feat, head in ((8, p3, self.head_s8), (16, p4, self.head_s16),
                                    (32, p5, self.head_s32)):
-            out[stride] = tuple(t.permute(0, 2, 3, 1) for t in head(feat))
+            out[stride] = tuple(t.permute(0, 2, 3, 1) for t in head(feat, train))
         return out
 
 

@@ -26,6 +26,14 @@ def bgr_to_rgb(x: torch.Tensor) -> torch.Tensor:
     return x.flip(-1)
 
 
+rgb_to_bgr = bgr_to_rgb  # involution
+
+
+def normalize_01(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 [0, 255] → ``dtype`` [0, 1], divided in ``dtype``."""
+    return x.to(dtype) / torch.tensor(255.0, dtype=dtype, device=x.device)
+
+
 def resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Half-pixel-centre bilinear resize of (..., H, W, C), no antialias."""
     *lead, h, w, c = image.shape

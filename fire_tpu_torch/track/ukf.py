@@ -1,7 +1,8 @@
 """Kalman filters of the tracker (counterpart of ``fire_tpu.track.ukf``):
 the general sigma-point :class:`MerweUKF`, and the linear KF that is its
 exact specialisation for the tracker's linear models (``kf_predict``,
-``kf_update_tracker``, ``_inv4_spd`` and the F / H matrices).
+``kf_update``, ``kf_update_tracker``, ``_inv4_spd`` and the F / H
+matrices).
 
 The process and measurement models are linear, so the UKF equals the
 linear KF; the JAX package runs this specialisation on its hot path in
@@ -97,6 +98,19 @@ def kf_predict(x, p, f, q):
     xp = x @ f.T
     pp = f @ p @ f.T + q
     return xp, pp
+
+
+def kf_update(x, p, z, h, r):
+    """Linear KF update for a general measurement matrix ``h`` (4, 10):
+    K = P Hᵀ S⁻¹ with S = H P Hᵀ + R, batched over a leading axis like
+    :func:`kf_predict` (x (T, 10), p (T, 10, 10), z (T, 4))."""
+    zp = x @ h.T
+    s = h @ p @ h.T + r
+    pxz = p @ h.T
+    k = torch.linalg.solve(s.transpose(-1, -2), pxz.transpose(-1, -2)).transpose(-1, -2)
+    xn = x + (k @ (z - zp)[..., None])[..., 0]
+    pn = p - (k @ s) @ k.transpose(-1, -2)
+    return xn, pn
 
 
 def _inv2(m):

@@ -1,0 +1,96 @@
+"""Training CLI: ``python -m fire_tpu_torch.train --data <root> ...``
+(counterpart of ``python -m fire_tpu.train``).
+
+Trains the FaceNet encoder with ArcFace on an identity-folder dataset
+(``root/<identity>/*.png``) on one device and writes the encoder's
+variables as a Flax msgpack (``{"params", "batch_stats"}``, float32)
+that ``DeviceEngine.load_trained_encoder`` of either package loads.
+
+The backbone starts from JAX's own numpy init for ``PRNGKey(0)``
+(:data:`~fire_tpu_torch.train.trainer.JAX_INIT_SEED`); the ArcFace
+classifier is drawn from a seeded torch generator.  The forward runs in
+bf16 with float32 master weights, as the JAX CLI's ``dtype=bf16``
+model.  ``--checkpoint_dir`` resumes from its newest ``step_<N>``
+checkpoint and saves one at every log step.  ``--device`` defaults to
+``cuda``; without a card pass ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description="FIRE ArcFace encoder training (PyTorch)")
+    p.add_argument("--data", required=True, help="dataset root: <root>/<identity>/*.png")
+    p.add_argument("--encoder", default="512", choices=["128", "512"])
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--margin", type=float, default=0.5)
+    p.add_argument("--scale", type=float, default=64.0)
+    p.add_argument("--image_size", type=int, default=160)
+    p.add_argument("--out", default="trained_encoder.msgpack",
+                   help="where to write the trained encoder variables")
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="checkpoint directory (resume + periodic saves)")
+    p.add_argument("--log_every", type=int, default=20)
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    args = p.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    log = logging.getLogger("fire_tpu_torch.train")
+
+    import os
+
+    import torch
+
+    from fire_tpu_torch.device import resolve_device
+    from fire_tpu_torch.models import facenet
+    from fire_tpu_torch.train import optim
+    from fire_tpu_torch.train.data import IdentityFolderDataset, batches
+    from fire_tpu_torch.train.trainer import (JAX_INIT_SEED, cli_compute_dtype, init_state,
+                                              latest_checkpoint, make_train_step,
+                                              restore_checkpoint, save_checkpoint)
+    from fire_tpu_torch.weights import msgpack_serialize, to_flax
+
+    device = resolve_device(args.device)
+    ds = IdentityFolderDataset(args.data)
+    log.info("dataset: %d images, %d identities", len(ds), ds.num_classes)
+
+    model = facenet.FaceNet(embed_dim=int(args.encoder), dropout_rate=0.0).to(device)
+    optimizer = optim.adamw(args.lr)
+    hw = (args.image_size, args.image_size)
+    state = init_state(model, JAX_INIT_SEED, ds.num_classes, optimizer)
+
+    if args.checkpoint_dir:
+        path = latest_checkpoint(args.checkpoint_dir)
+        if path:
+            state = restore_checkpoint(path, state)
+            log.info("resumed from %s (step %d)", os.path.abspath(path), state.step)
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        log.info("training on %s alone: the dp×mp-sharded step is not ported", device)
+    step_fn = make_train_step(model, optimizer, margin=args.margin, scale=args.scale,
+                              compute_dtype=cli_compute_dtype(device))
+
+    t0 = time.time()
+    for images_u8, labels in batches(ds, args.batch, hw, epochs=args.epochs):
+        images = torch.from_numpy(images_u8).to(device).float() / 255.0
+        state, loss = step_fn(state, images, torch.from_numpy(labels).to(device))
+        step = state.step
+        if step % args.log_every == 0:
+            log.info("step %d  loss %.4f  (%.1f img/s)", step, float(loss),
+                     step * args.batch / (time.time() - t0))
+            if args.checkpoint_dir:
+                save_checkpoint(os.path.join(args.checkpoint_dir, f"step_{step}"), state)
+
+    with open(args.out, "wb") as f:
+        f.write(msgpack_serialize(to_flax(model)))
+    log.info("trained encoder variables written to %s "
+             "(load with DeviceEngine.load_trained_encoder)", args.out)
+
+
+if __name__ == "__main__":
+    main()

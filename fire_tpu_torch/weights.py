@@ -23,13 +23,18 @@ machine with the card has neither ``flax``, ``msgpack`` nor
   weight is 1.  Any leaf the mapping does not consume raises, and
   :func:`load_into` loads strictly, so a missing or surplus tensor
   raises too.  :func:`from_flax_retinaface` does the same for RetinaFace.
-* :func:`flax_shapes` — the inverse direction for shapes: a module's
-  Flax variable tree, built from its own parameters, so that
+* :func:`flax_shapes` / :func:`to_flax` — the inverse direction: a
+  module's Flax variable tree, as shapes or as float32 arrays, so that
 * :func:`materialize` — the JAX engine's deterministic random init
   (``fire_tpu/pipeline/engine.py:54-85``), copied exactly — can fill it,
   and
 * :func:`msgpack_serialize` — the writer of ``flax.serialization.
-  to_bytes``'s format — can store it as the JAX engine's params cache.
+  to_bytes``'s format — can store it as the JAX engine's params cache or
+  as a trainer's output, which either package loads.
+* :func:`carry_state` — a JAX train state (params, batch stats and
+  optax's Adam moments, as numpy trees) carried into a module and the
+  port's optimizer state, so that tests start both packages from one
+  state.
 """
 
 from __future__ import annotations
@@ -327,44 +332,112 @@ def materialize(shape_tree: Dict[str, Any], seed: int) -> Dict[str, Any]:
     return out
 
 
-def flax_shapes(module: torch.nn.Module, unit_bn_scale: bool = False) -> Dict[str, Any]:
-    """The Flax variable tree of ``module`` as shapes, the inverse of the
-    converters below: a conv's OIHW weight is an HWIO ``kernel``, a
-    Linear's ``(out, in)`` a Dense ``(in, out)`` kernel, a BatchNorm's
-    weight and bias are ``params`` ``scale`` and ``bias`` (no scale for
-    FaceNet: ``unit_bn_scale``) and its running statistics
-    ``batch_stats`` ``mean`` and ``var``.  Every leaf is float32, the
-    Flax models' parameter dtype.  A module holding tensors of any other
-    kind raises."""
-    f32 = np.dtype(np.float32)
-    flat: Dict[Tuple[str, ...], ShapeDtype] = {}
-
-    def put(col, path, shape):
-        flat[(col,) + path] = ShapeDtype(tuple(int(d) for d in shape), f32)
-
+def _flax_layout(module: torch.nn.Module, unit_bn_scale: bool = False):
+    """``(collection, Flax path, tensor)`` for every tensor of ``module``
+    in the Flax layout, as views (no copy): a conv's OIHW weight is an
+    HWIO ``kernel``, a Linear's ``(out, in)`` a Dense ``(in, out)``
+    kernel, a BatchNorm's weight and bias are ``params`` ``scale`` (none
+    where it has no scale, as FaceNet's, or with ``unit_bn_scale``) and
+    ``bias`` and its running statistics ``batch_stats`` ``mean`` and
+    ``var``.  A module holding tensors of any other kind raises."""
     for name, mod in module.named_modules():
         path = tuple(name.split(".")) if name else ()
         own = dict(mod.named_parameters(recurse=False))
         own.update(mod.named_buffers(recurse=False))
         if isinstance(mod, torch.nn.Conv2d):
-            o, i, kh, kw = mod.weight.shape
-            put("params", path + ("kernel",), (kh, kw, i, o))
+            yield "params", path + ("kernel",), mod.weight.permute(2, 3, 1, 0)
         elif isinstance(mod, torch.nn.Linear):
-            put("params", path + ("kernel",), tuple(mod.weight.shape[::-1]))
+            yield "params", path + ("kernel",), mod.weight.t()
         elif isinstance(mod, BatchNorm):
-            n = mod.running_mean.shape
-            if not unit_bn_scale:
-                put("params", path + ("scale",), n)
-            put("params", path + ("bias",), n)
-            put("batch_stats", path + ("mean",), n)
-            put("batch_stats", path + ("var",), n)
+            if mod.use_scale and not unit_bn_scale:
+                yield "params", path + ("scale",), mod.weight
+            yield "params", path + ("bias",), mod.bias
+            yield "batch_stats", path + ("mean",), mod.running_mean
+            yield "batch_stats", path + ("var",), mod.running_var
             continue
         elif own:
-            raise ValueError(f"flax_shapes: no Flax counterpart for {type(mod).__name__} {name}")
+            raise ValueError(f"no Flax counterpart for {type(mod).__name__} {name}")
         if own.get("bias") is not None:
-            put("params", path + ("bias",), own["bias"].shape)
+            yield "params", path + ("bias",), own["bias"]
+
+
+def _by_collection(flat: Dict[Tuple[str, ...], Any]) -> Dict[str, Any]:
     tree = unflatten(flat)
     return {col: tree[col] for col in ("params", "batch_stats") if col in tree}
+
+
+def flax_shapes(module: torch.nn.Module, unit_bn_scale: bool = False) -> Dict[str, Any]:
+    """The Flax variable tree of ``module`` as shapes (the layout of
+    :func:`to_flax`).  Every leaf is float32, the Flax models'
+    parameter dtype."""
+    f32 = np.dtype(np.float32)
+    return _by_collection({(col,) + path: ShapeDtype(tuple(int(d) for d in t.shape), f32)
+                           for col, path, t in _flax_layout(module, unit_bn_scale)})
+
+
+def to_flax(module: torch.nn.Module) -> Dict[str, Any]:
+    """``module``'s variables as the Flax tree ``{"params",
+    "batch_stats"}`` of float32 numpy arrays, the inverse of the
+    converters below: what the JAX trainers write, so that
+    :func:`msgpack_serialize` of it loads in either package."""
+    return _by_collection({
+        (col,) + path: np.ascontiguousarray(t.detach().float().cpu().numpy())
+        for col, path, t in _flax_layout(module)})
+
+
+def _has_unit_bn_scale(module: torch.nn.Module) -> bool:
+    return any(isinstance(m, BatchNorm) and not m.use_scale for m in module.modules())
+
+
+def load_flax(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
+    """Load a Flax variable tree into ``module`` (strictly)."""
+    load_into(module, _convert(tree, _has_unit_bn_scale(module)))
+
+
+def params_list(module: torch.nn.Module, params_tree: Dict[str, Any]):
+    """A tree shaped as ``module``'s Flax ``params`` (a gradient, an
+    Adam moment) as tensors in the order of ``module.parameters()``, in
+    the torch layout, on the module's device."""
+    sd = _convert({"params": params_tree}, unit_bn_scale=False)
+    names = [n for n, _ in module.named_parameters()]
+    if sorted(sd) != sorted(names):
+        raise ValueError("params tree does not match the module: "
+                         f"{sorted(set(sd) ^ set(names))[:5]}")
+    return [sd[n].to(p.device) for n, p in zip(names, module.parameters())]
+
+
+def carry_state(module: torch.nn.Module, variables: Dict[str, Any], opt_state: Any = None):
+    """Carry a JAX train state, as numpy trees, across to the port: load
+    ``variables`` (``{"params"[, "batch_stats"]}``) into ``module`` and
+    return ``opt_state`` (optax's state, e.g. ``jax.tree.map(np.asarray,
+    state.opt_state)``) as :mod:`fire_tpu_torch.train.optim`'s.  Each
+    optax NamedTuple becomes the port's of the same name; its ``mu`` and
+    ``nu`` trees, shaped as the optimizer's target (the params tree, or
+    ``(params, classifier, …)``), become the port's tensor lists
+    (:func:`params_list`, then the extra arrays); counts become ints."""
+    from fire_tpu_torch.train import optim
+
+    dev = next(module.parameters()).device
+    load_flax(module, variables)
+
+    def target_list(tree):
+        if isinstance(tree, dict):
+            return params_list(module, tree)
+        head, *rest = tree
+        return params_list(module, head) + [torch.tensor(np.array(a, np.float32), device=dev)
+                                            for a in rest]
+
+    def carry(x):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            fields = {f: (target_list(v) if f in ("mu", "nu") else
+                          int(v) if f == "count" else carry(v))
+                      for f, v in zip(x._fields, x)}
+            return getattr(optim, type(x).__name__)(**fields)
+        if isinstance(x, tuple):
+            return tuple(carry(v) for v in x)
+        raise TypeError(f"carry_state: unexpected optimizer state leaf {type(x).__name__}")
+
+    return None if opt_state is None else carry(opt_state)
 
 
 # ------------------------------------------------------- flax → state_dict --
