@@ -88,19 +88,28 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    ``DeviceEngine`` that embeds; then the step alone memorises one batch
    (the loss falls below half in 30 steps): ms a step, images/s, peak
    memory, share of the bf16 peak.
-21. ``train_detectors``: YuNet-64 (320², B = 32), BlazeFace (192² from
+21. ``train_sharded``: the dp×mp-sharded ArcFace step on a (2, 2) mesh
+   (four distinct cards where there are four, else this card repeated):
+   FaceNet-512, B = 64, 160².  (a) One step's loss, gradients and
+   BatchNorm statistics against the one-device step from one state on
+   one batch, float32 with TF32 off.  (b) In bf16 with AdamW it memorises
+   one batch as ``train_encoder``'s step does, beside that step's
+   numbers.  (c) At C = 100,000 identities, the one-device and the
+   (2, 2) step: ms a step, the peak memory of each device, and each
+   ``mp`` block's columns and bytes on its own device.
+22. ``train_detectors``: YuNet-64 (320², B = 32), BlazeFace (192² from
    480×640, B = 64) and RetinaFace (512² from 480×640, B = 8): each
    pool step memorises one batch as above, then the trainer's ``main``
    runs a few dozen steps on a small pool; BlazeFace and RetinaFace
    fine-tune the committed weights, and their held-out P/R stays within
    0.15 of the starting weights'.
-22. ``trace``: one more batch of the batched path and 16 frames of the
+23. ``trace``: one more batch of the batched path and 16 frames of the
    per-frame path under ``torch.profiler``, with YuNet and with
-   RetinaFace, then one full-width ArcFace step, for the device's busy
-   time and its idle share of the traced wall time (five ``trace``
-   lines).  It runs after every timed phase: the profiler leaves
+   RetinaFace, then one full-width ArcFace step on one device and one on
+   the (2, 2) mesh, for the device's busy time and its idle share of the
+   traced wall time (six ``trace`` lines).  It runs after every timed phase: the profiler leaves
    launches slower.
-23. ``cross_device``: one 8-frame batched step, a 2-stream step, the
+24. ``cross_device``: one 8-frame batched step, a 2-stream step, the
    per-frame engine calls (``detect_faces``, ``encode_boxes``,
    ``encode_landmarks``, ``extract_faces``, BlazeFace and RetinaFace
    ``detect``), the random-init FaceNet-128, the ONNX executor on a
@@ -133,7 +142,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main_path", "retina_path", "frame_path", "retina_frame",
           "image_mode", "default_command", "encrypted", "multistream", "sharded_gallery",
           "importers", "native", "label_text", "eval_detect", "calibrate", "eval_auc",
-          "eval_e2e", "train_encoder", "train_detectors", "trace", "cross_device")
+          "eval_e2e", "train_encoder", "train_sharded", "train_detectors", "trace",
+          "cross_device")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 and dense bf16.
 HBM_BYTES_PER_S = 3.35e12
@@ -535,7 +545,8 @@ def phase_retina_path(ctx) -> None:
 def phase_trace(ctx) -> None:
     """One more batch of the batched path, then 16 frames of the
     per-frame path, under ``torch.profiler``, with YuNet and with
-    RetinaFace; then one full-width ArcFace step.  The profiler leaves
+    RetinaFace; then one full-width ArcFace step, on one device and on
+    the (2, 2) mesh of ``train_sharded``.  The profiler leaves
     launches slower for the rest of the process, so this phase comes
     after every phase that reports a time."""
     import torch
@@ -552,16 +563,18 @@ def phase_trace(ctx) -> None:
                                  batch_size=0), "detector": detector})
         finally:
             fr.close()
-    step, state, images, labels = ctx.pop("arcface")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, loss = step(state, images, labels)
+    for key, path in (("arcface", "arcface train step"),
+                      ("arcface_sharded", "arcface train step, (2, 2) mesh")):
+        step, state, images, labels = ctx.pop(key)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    emit({"phase": "trace", "path": "arcface train step", "model": "facenet-512",
-          "batch": int(images.shape[0]), **device_summary(prof, wall_ms)})
-    check(bool(torch.isfinite(loss)), "trace: the traced ArcFace step's loss is not finite")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, loss = step(state, images, labels)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "trace", "path": path, "model": "facenet-512",
+              "batch": int(images.shape[0]), **device_summary(prof, wall_ms)})
+        check(bool(torch.isfinite(loss)), f"trace: the traced {path}'s loss is not finite")
 
 
 def trace_frames(fr, frames, batch_size: int = BATCH) -> dict:
@@ -1774,6 +1787,7 @@ def phase_train_encoder(ctx) -> None:
     macs = forward_macs(model, images)
     state, memo = memorise(step, state, (images, labels_t), BATCH, macs, base)
     ctx["arcface"] = (step, state, images, labels_t)  # traced by the trace phase
+    ctx["arcface_memo"] = memo  # beside the sharded step's (train_sharded)
 
     eng = DeviceEngine(RecognizerConfig(detector_type="yunet", encoder_model_type="512",
                                         weights_dir=None).with_embedding_dim(), device="cuda")
@@ -1789,6 +1803,214 @@ def phase_train_encoder(ctx) -> None:
     check(eng.weight_source["encoder"] == f"trained:{out}", "train_encoder: the file did not load")
     check(memo["loss_last"] < 0.5 * memo["loss_first"],
           f"train_encoder: the loss went {memo['loss_first']:.3f} → {memo['loss_last']:.3f}")
+
+
+SHARDED_MESH = (2, 2)  # the JAX CLI's mesh for four devices
+BIG_CLASSES = 100_000  # identities the classifier's mp split exists for
+BIG_TIMED = 7  # timed steps at BIG_CLASSES, after 2 untimed
+
+
+def _sharded_mesh():
+    """A (2, 2) mesh over four distinct cards where there are four, else
+    over this card repeated."""
+    import torch
+
+    from fire_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(4)] if n >= 4 else ["cuda:0"] * 4
+    return make_mesh(SHARDED_MESH, devices=devices)
+
+
+def _reset_peaks(devices) -> dict:
+    """Synchronise ``devices``, reset their peak statistics and return
+    what each holds now."""
+    import torch
+
+    base = {}
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        base[str(d)] = torch.cuda.memory_allocated(d)
+    return base
+
+
+def _peaks_gb(base: dict) -> dict:
+    """Each device's peak allocation since :func:`_reset_peaks`, above
+    what it held then, in GB."""
+    import torch
+
+    return {d: (torch.cuda.max_memory_allocated(d) - b) / 1e9 for d, b in base.items()}
+
+
+def _sharded_parity(mesh) -> dict:
+    """(a): one step's loss, gradients and BatchNorm statistics of the
+    sharded step against the one-device step, FaceNet-512 at B = 64,
+    160², C = 32, from one state (a seeded numpy init) on one batch,
+    float32 with TF32 off.  The loss is gated at rtol 1e-4 and each
+    gradient tensor at 5e-2 relative L2, with ``_cross_device_training``'s
+    rule for tensors whose gradient is zero but for rounding."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.models.facenet import facenet_512
+    from fire_tpu_torch.parallel.mesh import column_devices, split_columns
+    from fire_tpu_torch.train.trainer import (arcface_loss, model_batch_stats,
+                                              sharded_arcface_loss)
+    from fire_tpu_torch.weights import flax_shapes, load_flax, materialize
+
+    rng = np.random.default_rng(31)
+    home = mesh.devices[0, 0]
+    images = torch.tensor(rng.random((BATCH, 160, 160, 3)).astype(np.float32), device=home)
+    labels = torch.tensor(np.arange(BATCH) % 32, device=home)
+    classifier = (rng.standard_normal((DIM, 32)) * 0.01).astype(np.float32)
+    variables = materialize(flax_shapes(facenet_512()), seed=32)
+
+    def one_step(sharded: bool):
+        model = facenet_512()
+        load_flax(model, variables)
+        model.to(home)
+        cls = torch.tensor(classifier, device=home, requires_grad=True)
+        if sharded:
+            blocks = split_columns(cls, column_devices(mesh))
+            loss = sharded_arcface_loss(model, blocks, images, labels, mesh)
+        else:
+            blocks = [cls]
+            loss = arcface_loss(model, cls, images, labels)
+        n = len(list(model.parameters()))
+        g = torch.autograd.grad(loss, list(model.parameters()) + blocks)
+        grads = [t.double().cpu().numpy() for t in g[:n]] + [
+            torch.cat([t.to(home) for t in g[n:]], dim=1).double().cpu().numpy()]
+        stats = [t.double().cpu().numpy() for t in model_batch_stats(model)]
+        return loss.item(), grads, stats
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (l1, g1, s1), (l2, g2, s2) = one_step(False), one_step(True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    scale = max(float(np.abs(b).max()) for b in g1)
+    live = [(a, b) for a, b in zip(g2, g1) if np.abs(b).max() > 1e-4 * scale]
+    rel_l2 = max(float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in live)
+    worst = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in live)
+    rec = {"loss_one_device": l1, "loss_sharded": l2, "tensors": len(live),
+           "worst_rel_l2": rel_l2, "worst_element_of_max": worst,
+           "batch_stats_max_abs_diff": max(float(np.abs(a - b).max()) for a, b in zip(s2, s1))}
+    check(abs(l2 - l1) <= 1e-4 * abs(l1), f"train_sharded: loss {l2} vs one device {l1}")
+    check(rel_l2 <= 5e-2, f"train_sharded: gradients differ by {rel_l2} (relative L2)")
+    return rec
+
+
+def _big_classifier_steps(mesh, images, labels) -> dict:
+    """(c): the one-device and the sharded step at ``BIG_CLASSES``
+    identities, bf16 with AdamW: ms a step (median of ``BIG_TIMED``
+    after two untimed), each device's peak memory above what it held
+    before, and each ``mp`` block of the sharded state: its columns, its
+    bytes and its moments' bytes, on its own device."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.models.facenet import facenet_512
+    from fire_tpu_torch.parallel.mesh import column_devices
+    from fire_tpu_torch.train import optim
+    from fire_tpu_torch.train.trainer import JAX_INIT_SEED, init_state, make_train_step
+
+    out = {}
+    devices = mesh.distinct_devices()
+    for name, m in (("one_device", None), ("sharded", mesh)):
+        base = _reset_peaks(devices)
+        model = facenet_512().to(mesh.devices[0, 0])
+        opt = optim.adamw(1e-3)
+        state = init_state(model, JAX_INIT_SEED, BIG_CLASSES, opt, mesh=m)
+        step = make_train_step(model, opt, mesh=m, compute_dtype=torch.bfloat16)
+        times, losses = [], []
+        for i in range(2 + BIG_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, images, labels)
+            for d in devices:
+                torch.cuda.synchronize(d)
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        check(all(math.isfinite(v) for v in losses), f"train_sharded: {name} losses {losses}")
+        rec = {"ms_per_step": median(times), "ms_steps": times, "loss_first": losses[0],
+               "loss_last": losses[-1], "peak_mem_gb": _peaks_gb(base)}
+        if m is not None:
+            n = len(state.params)
+            adam = state.opt_state[0]
+            blocks = []
+            for j, dev in enumerate(column_devices(m)):
+                b, mu, nu = state.classifier[j], adam.mu[n + j], adam.nu[n + j]
+                check(b.device == mu.device == nu.device == dev,
+                      f"train_sharded: block {j} on {b.device}, moments on {mu.device} / "
+                      f"{nu.device}, mesh column on {dev}")
+                blocks.append({"device": str(dev), "columns": b.shape[1],
+                               "bytes": b.numel() * b.element_size(),
+                               "moment_bytes": mu.numel() * 4 + nu.numel() * 4})
+            check(sum(r["columns"] for r in blocks) == BIG_CLASSES,
+                  f"train_sharded: the blocks hold {[r['columns'] for r in blocks]} columns")
+            rec["blocks"] = blocks
+        out[name] = rec
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_sharded(ctx) -> None:
+    """The dp×mp-sharded ArcFace step at full width (FaceNet-512, B = 64,
+    160²) on a (2, 2) mesh: (a) parity with the one-device step, (b) a
+    bf16 AdamW memorisation beside ``train_encoder``'s, (c) C = 100,000
+    identities.  K1's launches over the phase (training has no gallery)."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.models.facenet import facenet_512
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.train import optim
+    from fire_tpu_torch.train.trainer import JAX_INIT_SEED, init_state, make_train_step
+
+    k1.reset_launches()
+    mesh = _sharded_mesh()
+    devices = mesh.distinct_devices()
+    t0 = time.perf_counter()
+    parity = _sharded_parity(mesh)
+    t_parity = time.perf_counter() - t0
+
+    _, _, images, labels = ctx["arcface"]
+    classes = int(labels.max().item()) + 1
+    base = _reset_peaks(devices)
+    model = facenet_512().to(mesh.devices[0, 0])
+    opt = optim.adamw(1e-3)
+    state = init_state(model, JAX_INIT_SEED, classes, opt, mesh=mesh)
+    step = make_train_step(model, opt, mesh=mesh, compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    state, memo = memorise(step, state, (images, labels), BATCH, forward_macs(model, images),
+                           base[str(mesh.devices[0, 0])])
+    memo["peak_mem_gb_by_device"] = _peaks_gb(base)
+    t_memo = time.perf_counter() - t0
+    ctx["arcface_sharded"] = (step, state, images, labels)  # traced by the trace phase
+    del model, state, step
+
+    big_labels = torch.tensor(np.random.default_rng(33).integers(0, BIG_CLASSES, BATCH),
+                              device=images.device)
+    t0 = time.perf_counter()
+    big = _big_classifier_steps(mesh, images, big_labels)
+    t_big = time.perf_counter() - t0
+    ctx["k1_launches_train_sharded"] = k1.launches
+    one = ctx["arcface_memo"]
+    emit({"phase": "train_sharded", "card": ctx["smi"], "mesh": mesh.shape,
+          "devices": [str(d) for d in mesh.devices.reshape(-1)],
+          "model": "facenet-512 (5/10/5, stem 32)", "hw": [160, 160], "batch": BATCH,
+          "parity": parity,
+          "memorise": {"sharded": memo, "one_device": one, "classes": classes,
+                       "compute": "bf16, float32 masters, adamw(1e-3)",
+                       "ms_ratio": memo["ms_per_step"] / one["ms_per_step"]},
+          "classes_100k": big, "k1_launches": k1.launches,
+          "seconds": {"parity": t_parity, "memorise": t_memo, "classes_100k": t_big}})
+    check(memo["loss_last"] < 0.5 * memo["loss_first"],
+          f"train_sharded: the loss went {memo['loss_first']:.3f} → {memo['loss_last']:.3f}")
 
 
 def _scene_pool(hw, n: int, max_faces: int, face_px, seed: int):
@@ -2207,8 +2429,8 @@ def kernel_summary(ctx) -> dict:
     frame of a 64-frame batch, the smallest compaction rung), with its
     launch counts on every path: batched (YuNet, RetinaFace), per-frame
     (YuNet, RetinaFace), image mode, the default command, encrypted, the
-    multi-stream runs (S = 1, 2, 4 together) and the end-to-end accuracy
-    run (per-frame and batched)."""
+    multi-stream runs (S = 1, 2, 4 together), the end-to-end accuracy
+    run (per-frame and batched) and the sharded training step."""
     from fire_tpu_torch.ops import cosine_top1 as k1
 
     main = next(r for r in ctx["k1"] if r.get("case") == f"M={BATCH}")
@@ -2225,6 +2447,7 @@ def kernel_summary(ctx) -> dict:
         "launches_multistream": ctx["k1_launches_multistream"],
         "launches_eval_e2e_frame": ctx["k1_launches_eval_e2e_frame"],
         "launches_eval_e2e_batched": ctx["k1_launches_eval_e2e_batched"],
+        "launches_train_sharded": ctx["k1_launches_train_sharded"],
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "device_ms": main["kernel_device_ms"],

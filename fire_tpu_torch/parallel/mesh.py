@@ -78,3 +78,46 @@ def make_mesh(
     grid = np.empty(n, dtype=object)
     grid[:] = devices
     return Mesh(grid.reshape(shape), axis_names)
+
+
+# ------------------------------------------------------------- collectives --
+# One process drives every device of a mesh, so a collective is a few
+# copies: ``Tensor.to`` is differentiable (its gradient goes back to the
+# source device) and a no-op where the tensor already lives, so the same
+# code runs on a mesh that repeats one device.
+
+
+def sum_to(tensors: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """The sum of ``tensors`` (one per shard, on any devices) on
+    ``device``, added in list order; the gradient of the sum reaches
+    every term on its own device."""
+    total = tensors[0].to(device)
+    for t in tensors[1:]:
+        total = total + t.to(device)
+    return total
+
+
+def broadcast(tensor: torch.Tensor, devices: Sequence) -> list:
+    """``tensor`` on each of ``devices`` (the tensor itself where it
+    already lives); the gradients of the copies sum into it, which is
+    the all-reduce of a replicated tensor's gradient."""
+    return [tensor.to(d) for d in devices]
+
+
+def column_devices(mesh: Mesh) -> list:
+    """The device of each ``mp`` column block: the first row of the
+    mesh (``dp`` index 0), as ``PartitionSpec(None, "mp")`` puts column
+    block j on ``devices[:, j]`` and its master copy lives on the first."""
+    return list(mesh.devices[0, :])
+
+
+def split_columns(tensor: torch.Tensor, devices: Sequence) -> list:
+    """``tensor`` (…, C) as column blocks of ``ceil(C / len(devices))``
+    columns, block j a contiguous copy on ``devices[j]``; the last block
+    holds fewer where ``len(devices)`` does not divide C (XLA pads), and
+    fewer blocks than devices are made where C is that small.  Blocks of
+    a tensor that requires grad are leaves that require grad."""
+    width = -(-tensor.shape[-1] // len(devices))
+    blocks = torch.split(tensor.detach(), width, dim=-1)
+    return [b.to(device=d, memory_format=torch.contiguous_format, copy=True)
+            .requires_grad_(tensor.requires_grad) for b, d in zip(blocks, devices)]

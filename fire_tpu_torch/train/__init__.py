@@ -1,6 +1,7 @@
-"""Training: the FaceNet encoder (ArcFace) and the three detector
-slots, on one device (counterpart of ``fire_tpu.train``), plus the
-numpy-only synthetic identities and scenes they train on.
+"""Training: the FaceNet encoder (ArcFace, on one device or sharded
+over a dp×mp mesh) and the three detector slots, on one device
+(counterpart of ``fire_tpu.train``), plus the numpy-only synthetic
+identities and scenes they train on.
 
 Entry points (``--device`` defaults to ``cuda``; ``--device cpu``
 without a card):
@@ -15,4 +16,5 @@ Each trainer writes Flax msgpack variables that
 """
 
 from fire_tpu_torch.train.losses import arcface_logits  # noqa: F401
-from fire_tpu_torch.train.trainer import TrainState, make_train_step  # noqa: F401
+from fire_tpu_torch.train.trainer import (TrainState, make_train_step,  # noqa: F401
+                                          state_shardings)

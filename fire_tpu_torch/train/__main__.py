@@ -2,9 +2,15 @@
 (counterpart of ``python -m fire_tpu.train``).
 
 Trains the FaceNet encoder with ArcFace on an identity-folder dataset
-(``root/<identity>/*.png``) on one device and writes the encoder's
-variables as a Flax msgpack (``{"params", "batch_stats"}``, float32)
-that ``DeviceEngine.load_trained_encoder`` of either package loads.
+(``root/<identity>/*.png``) and writes the encoder's variables as a
+Flax msgpack (``{"params", "batch_stats"}``, float32) that
+``DeviceEngine.load_trained_encoder`` of either package loads.
+
+Several cards: with ``--device cuda`` (the default) and more than one
+CUDA device, a (dp, mp) mesh over every card is built by itself, as the
+JAX CLI builds one (:func:`mesh_shape`), and the step is the
+dp×mp-sharded one (batch over ``dp``, classifier columns over ``mp``).
+``--device cuda:k`` or ``--device cpu`` trains on that one device.
 
 The backbone starts from JAX's own numpy init for ``PRNGKey(0)``
 (:data:`~fire_tpu_torch.train.trainer.JAX_INIT_SEED`); the ArcFace
@@ -20,6 +26,14 @@ from __future__ import annotations
 import argparse
 import logging
 import time
+from typing import Tuple
+
+
+def mesh_shape(n_devices: int) -> Tuple[int, int]:
+    """The JAX CLI's mesh for ``n_devices``: ``mp = 2`` when the count is
+    even, else 1, and ``(n / mp, mp)``."""
+    mp = 2 if n_devices % 2 == 0 else 1
+    return n_devices // mp, mp
 
 
 def main(argv=None) -> None:
@@ -49,6 +63,7 @@ def main(argv=None) -> None:
 
     from fire_tpu_torch.device import resolve_device
     from fire_tpu_torch.models import facenet
+    from fire_tpu_torch.parallel.mesh import make_mesh
     from fire_tpu_torch.train import optim
     from fire_tpu_torch.train.data import IdentityFolderDataset, batches
     from fire_tpu_torch.train.trainer import (JAX_INIT_SEED, cli_compute_dtype, init_state,
@@ -60,20 +75,23 @@ def main(argv=None) -> None:
     ds = IdentityFolderDataset(args.data)
     log.info("dataset: %d images, %d identities", len(ds), ds.num_classes)
 
+    mesh = None
+    if device.type == "cuda" and device.index is None and torch.cuda.device_count() > 1:
+        mesh = make_mesh(mesh_shape(torch.cuda.device_count()))
+        log.info("mesh: %s", mesh.shape)
+        device = mesh.devices[0, 0]
     model = facenet.FaceNet(embed_dim=int(args.encoder), dropout_rate=0.0).to(device)
     optimizer = optim.adamw(args.lr)
     hw = (args.image_size, args.image_size)
-    state = init_state(model, JAX_INIT_SEED, ds.num_classes, optimizer)
+    state = init_state(model, JAX_INIT_SEED, ds.num_classes, optimizer, mesh=mesh)
 
     if args.checkpoint_dir:
         path = latest_checkpoint(args.checkpoint_dir)
         if path:
             state = restore_checkpoint(path, state)
             log.info("resumed from %s (step %d)", os.path.abspath(path), state.step)
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        log.info("training on %s alone: the dp×mp-sharded step is not ported", device)
-    step_fn = make_train_step(model, optimizer, margin=args.margin, scale=args.scale,
-                              compute_dtype=cli_compute_dtype(device))
+    step_fn = make_train_step(model, optimizer, mesh=mesh, margin=args.margin,
+                              scale=args.scale, compute_dtype=cli_compute_dtype(device))
 
     t0 = time.time()
     for images_u8, labels in batches(ds, args.batch, hw, epochs=args.epochs):

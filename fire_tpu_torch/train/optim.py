@@ -11,7 +11,12 @@ ArcFace classifier).  States are NamedTuples named and shaped as
 optax's (``ScaleByAdamState(count, mu, nu)``, ``EmptyState()``,
 ``ScaleByScheduleState(count)``, a tuple for a chain), so a JAX train
 state carries across (:func:`fire_tpu_torch.weights.carry_state`).
-Counts are Python ints; the moment tensors are updated in place.
+Counts are Python ints; the moment tensors are updated in place.  The
+tensors of one list may live on several devices (the classifier's
+column blocks of a sharded ArcFace state, each with its moments on its
+own device): ``torch._foreach_*`` then takes its per-tensor route, and
+the one reduction across tensors, ``clip_by_global_norm``'s, gathers
+the norms on one device.
 
 Where optax differs from ``torch.optim``, this follows optax:
 
@@ -51,6 +56,14 @@ class ScaleByScheduleState(NamedTuple):
 class GradientTransformation(NamedTuple):
     init: Callable[[Tensors], Any]
     update: Callable[[Tensors, Any, Tensors], Any]
+
+
+def _by_device(tensors: Tensors) -> dict:
+    """The indices of ``tensors`` grouped by device, in order."""
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.device, []).append(i)
+    return groups
 
 
 def _empty_init(params: Tensors) -> EmptyState:
@@ -123,12 +136,21 @@ def scale_by_learning_rate(learning_rate: Union[float, Schedule]) -> GradientTra
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """Scale every update by ``max_norm / ‖g‖`` when the global norm
-    ``‖g‖`` (over all tensors) is at least ``max_norm``; else pass."""
+    ``‖g‖`` (over all tensors) is at least ``max_norm``; else pass.  The
+    tensors may live on several devices (a sharded train state): the
+    norms are reduced on the first tensor's device and the factor is
+    copied to each device."""
 
     def update(updates, state, params=None):
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(updates)))
+        home = updates[0].device
+        norms = [n.to(home) for n in torch._foreach_norm(updates)]
+        g_norm = torch.linalg.vector_norm(torch.stack(norms))
         factor = torch.where(g_norm < max_norm, 1.0, max_norm / g_norm)
-        return torch._foreach_mul(updates, factor), state
+        scaled = list(updates)
+        for dev, idx in _by_device(updates).items():
+            for i, u in zip(idx, torch._foreach_mul([updates[i] for i in idx], factor.to(dev))):
+                scaled[i] = u
+        return scaled, state
 
     return GradientTransformation(_empty_init, update)
 

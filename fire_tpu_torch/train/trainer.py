@@ -14,29 +14,52 @@ forward's convolutions and matmuls in bf16 under ``torch.autocast``
 (BatchNorm normalises in float32 and the ArcFace product is float32
 either way).  ``None`` computes in float32, as the parity tests do.
 
-JAX's step can shard over a dp×mp mesh (batch over ``dp``, classifier
-columns over ``mp``); that step is not ported (``ROADMAP.md`` §1, "the
-dp×mp-sharded ArcFace step"), and ``make_train_step`` refuses a mesh of
-more than one device rather than train on one.
+With a mesh of more than one device the step is JAX's dp×mp-sharded
+one (:func:`state_shardings`), driven by this one process as JAX's
+single controller drives its mesh:
+
+* the global batch splits over ``dp``; one forward of the model
+  carries every shard, each on its device
+  (:class:`~fire_tpu_torch.parallel.shards.ShardList`), reading the
+  master parameters (on the mesh's first device, in the model) through
+  differentiable copies, and its BatchNorms take the statistics of the
+  whole batch;
+* the classifier is a list of column blocks, block j (``ceil(C/mp)``
+  columns; the last may hold fewer) and its Adam moments on the first
+  row's device j; each ``(dp, mp)`` position forms its block of ArcFace
+  logits, and the softmax's normaliser is reduced over ``mp``
+  (:func:`~fire_tpu_torch.train.losses.column_sharded_cross_entropy`);
+* one backward from the summed loss carries every gradient home: the
+  copies' gradients add up on the master tensors, which is the
+  all-reduce over ``dp``; then one optimizer update, each block's on
+  its own device.
+
+It computes the one-device step's arithmetic, the order of the sums
+aside.
 
 Checkpoints are the port's own: ``<dir>/step_<N>/state.msgpack``, the
 whole state through :func:`fire_tpu_torch.weights.msgpack_serialize`,
-written to a temporary file and moved into place.  Orbax checkpoints of
-the JAX trainer are not read.
+written to a temporary file and moved into place.  A sharded state is
+written gathered (the whole classifier and moments, as orbax writes
+global arrays), so a checkpoint resumes on any mesh or on none.  Orbax
+checkpoints of the JAX trainer are not read.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, List, NamedTuple, Optional
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from fire_tpu_torch.models.layers import BatchNorm
-from fire_tpu_torch.train.losses import arcface_logits
+from fire_tpu_torch.parallel.mesh import (Mesh, broadcast, canonical_device, column_devices,
+                                          split_columns, sum_to)
+from fire_tpu_torch.parallel.shards import ShardList
+from fire_tpu_torch.train.losses import arcface_logits, column_sharded_cross_entropy
 from fire_tpu_torch.train.optim import GradientTransformation, apply_updates
 from fire_tpu_torch.weights import (flax_shapes, load_flax, materialize, msgpack_serialize,
                                     read_msgpack)
@@ -49,9 +72,23 @@ JAX_INIT_SEED = 447923887
 class TrainState(NamedTuple):
     params: List[torch.Tensor]
     batch_stats: List[torch.Tensor]
-    classifier: torch.Tensor  # (D, C)
+    classifier: Union[torch.Tensor, List[torch.Tensor]]  # (D, C), or its column blocks
     opt_state: Any
     step: int
+
+
+class Sharding(NamedTuple):
+    """Where a leaf of a train state lives: ``dim=None`` one copy on
+    ``devices[0]`` (replicated: every shard reads it there); ``dim=1``
+    column blocks, block j on ``devices[j]``
+    (:func:`~fire_tpu_torch.parallel.mesh.split_columns`)."""
+    devices: Tuple[torch.device, ...]
+    dim: Optional[int] = None
+
+    def place(self, t: torch.Tensor) -> List[torch.Tensor]:
+        if self.dim == 1:
+            return split_columns(t, self.devices)
+        return [t.to(self.devices[0])]
 
 
 def model_batch_stats(model: torch.nn.Module) -> List[torch.Tensor]:
@@ -75,13 +112,15 @@ def compute_context(device: torch.device, compute_dtype: Optional[torch.dtype]):
 
 
 def init_state(model: torch.nn.Module, seed: int, num_classes: int,
-               optimizer: GradientTransformation, classifier_seed: int = 0) -> TrainState:
+               optimizer: GradientTransformation, classifier_seed: int = 0,
+               mesh: Optional[Mesh] = None) -> TrainState:
     """Fill ``model`` (float32, on its device) with the JAX engine's
     numpy init (:func:`fire_tpu_torch.weights.materialize` at ``seed``;
     :data:`JAX_INIT_SEED` is the seed JAX's ``init_state(PRNGKey(0))``
     uses), and draw the classifier as ``N(0, 1)·0.01`` from a torch
     generator seeded with ``classifier_seed`` (JAX draws it from its own
-    key: the two classifiers differ)."""
+    key: the two classifiers differ).  With a ``mesh`` of more than one
+    device the state comes laid out on it (:func:`shard_state`)."""
     model.float()
     load_flax(model, materialize(flax_shapes(model), seed))
     dev = next(model.parameters()).device
@@ -89,8 +128,93 @@ def init_state(model: torch.nn.Module, seed: int, num_classes: int,
     classifier = (torch.randn(model.embed_dim, num_classes, generator=g) * 0.01).to(dev)
     classifier.requires_grad_(True)
     params = list(model.parameters())
-    return TrainState(params, model_batch_stats(model), classifier,
-                      optimizer.init(params + [classifier]), 0)
+    state = TrainState(params, model_batch_stats(model), classifier,
+                       optimizer.init(params + [classifier]), 0)
+    return shard_state(mesh, state) if _sharded_mesh(mesh) else state
+
+
+# ---------------------------------------------------------------- sharding --
+
+
+def _sharded_mesh(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.devices.size > 1
+
+
+def is_sharded(state: TrainState) -> bool:
+    """Whether ``state``'s classifier is split into column blocks."""
+    return isinstance(state.classifier, (list, tuple))
+
+
+def _map_lists(fn: Callable, tree: Any, *others: Any) -> Any:
+    """``fn`` on each tensor list of an optimizer state (its ``mu`` and
+    ``nu``: one tensor per trained tensor, params first, then the
+    classifier), zipped with the lists at the same place in ``others``;
+    the other leaves (counts) are ``tree``'s."""
+    if isinstance(tree, list):
+        return fn(tree, *others)
+    if isinstance(tree, tuple):
+        items = [_map_lists(fn, t, *(o[i] for o in others)) for i, t in enumerate(tree)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def state_shardings(mesh: Mesh, state: TrainState) -> TrainState:
+    """Where each leaf of an unsharded ``state`` lives on ``mesh``
+    (counterpart of ``fire_tpu.train.trainer.state_shardings``): the
+    model's parameters and statistics replicated (on the mesh's first
+    device, in the model), the classifier's columns over ``mp``, and so
+    the classifier's Adam moments; the step replicated.  The optimizer's
+    counts, host ints, are left as they are."""
+    first = canonical_device(mesh.devices.flat[0])
+    rep = Sharding((first,))
+    cols = Sharding(tuple(canonical_device(d) for d in column_devices(mesh)), 1)
+    n = len(state.params)
+    return TrainState(
+        params=[rep] * n, batch_stats=[rep] * len(state.batch_stats), classifier=cols,
+        opt_state=_map_lists(lambda lst: [rep] * n + [cols] * (len(lst) - n), state.opt_state),
+        step=rep)
+
+
+def shard_state(mesh: Mesh, state: TrainState) -> TrainState:
+    """``state`` laid out on ``mesh`` as :func:`state_shardings` says:
+    the classifier and its moments become lists of column blocks, each
+    on its device; the model's tensors must already be on the mesh's
+    first device."""
+    if is_sharded(state):
+        raise ValueError("shard_state: the state is sharded already")
+    sh = state_shardings(mesh, state)
+    home = sh.step.devices[0]
+    if state.params[0].device != home:
+        raise ValueError(f"shard_state: the model is on {state.params[0].device}, the mesh's "
+                         f"first device is {home}")
+
+    def lay_out(ts, shs):
+        return [b for t, s in zip(ts, shs) for b in s.place(t)]
+
+    return state._replace(classifier=sh.classifier.place(state.classifier),
+                          opt_state=_map_lists(lay_out, state.opt_state, sh.opt_state))
+
+
+def gather_state(state: TrainState) -> TrainState:
+    """The inverse of :func:`shard_state`: the classifier and its
+    moments whole again, on the first block's device."""
+    if not is_sharded(state):
+        return state
+    n, home = len(state.params), state.classifier[0].device
+
+    def cat(blocks):
+        return torch.cat([b.detach().to(home) for b in blocks], dim=1)
+
+    return state._replace(
+        classifier=cat(state.classifier).requires_grad_(True),
+        opt_state=_map_lists(lambda lst: lst[:n] + [cat(lst[n:])], state.opt_state))
+
+
+def _blocks_like(full: torch.Tensor, blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``full`` split into the column widths of ``blocks``, each on its block's device."""
+    parts = torch.split(full.detach(), [b.shape[1] for b in blocks], dim=1)
+    return [p.to(device=b.device, memory_format=torch.contiguous_format, copy=True)
+            .requires_grad_(b.requires_grad) for p, b in zip(parts, blocks)]
 
 
 def arcface_loss(model: torch.nn.Module, classifier: torch.Tensor, images: torch.Tensor,
@@ -104,21 +228,77 @@ def arcface_loss(model: torch.nn.Module, classifier: torch.Tensor, images: torch
     return F.cross_entropy(logits, labels.long())
 
 
-def make_train_step(model: torch.nn.Module, optimizer: GradientTransformation, mesh=None,
-                    margin: float = 0.5, scale: float = 64.0,
+def sharded_arcface_loss(model: torch.nn.Module, classifier: Sequence[torch.Tensor],
+                         images: torch.Tensor, labels: torch.Tensor, mesh: Mesh,
+                         margin: float = 0.5, scale: float = 64.0,
+                         compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`arcface_loss` over ``mesh``: the global batch split over
+    ``dp`` into a :class:`~fire_tpu_torch.parallel.shards.ShardList`, one
+    forward carrying every shard (BatchNorm statistics over the whole
+    batch, the running ones updated once), the classifier's column
+    blocks ``classifier`` (block j on ``column_devices(mesh)[j]``)
+    copied down each column of the mesh, one block of logits per mesh
+    position, the softmax normaliser reduced over ``mp``.  The loss is
+    the mean over the global batch, on the mesh's first device;
+    differentiate it by ``model.parameters()`` and ``classifier``."""
+    dp = mesh.shape["dp"]
+    batch = images.shape[0]
+    if batch % dp:
+        raise ValueError(f"a batch of {batch} does not split over dp = {dp} shards")
+    rows = batch // dp
+    dp_devices = [canonical_device(d) for d in mesh.axis_devices("dp")]
+    shards = ShardList([images[i * rows:(i + 1) * rows].to(d) for i, d in enumerate(dp_devices)])
+    with compute_context(dp_devices[0], compute_dtype):
+        embeddings = model(shards, train=True).shards
+    offsets = np.cumsum([0] + [b.shape[1] for b in classifier[:-1]]).tolist()
+    columns = [broadcast(block, mesh.devices[:, j]) for j, block in enumerate(classifier)]
+    shard_losses = []
+    for i, emb in enumerate(embeddings):
+        lab = labels[i * rows:(i + 1) * rows]
+        devs = mesh.devices[i, :len(classifier)]
+        logits = [arcface_logits(e, columns[j][i], lab.to(d), margin, scale, offsets[j])
+                  for j, (d, e) in enumerate(zip(devs, broadcast(emb, devs)))]
+        shard_losses.append(column_sharded_cross_entropy(logits, lab, offsets, batch))
+    return sum_to(shard_losses, dp_devices[0])
+
+
+def make_train_step(model: torch.nn.Module, optimizer: GradientTransformation,
+                    mesh: Optional[Mesh] = None, margin: float = 0.5, scale: float = 64.0,
                     compute_dtype: Optional[torch.dtype] = None):
     """``step(state, images (B,H,W,3) [0,1], labels (B,)) → (state,
-    loss)``: one ArcFace step on one device, the optimizer's target the
-    tuple (params, classifier) as in JAX."""
-    if mesh is not None and mesh.devices.size > 1:
-        raise NotImplementedError(
-            "the dp×mp-sharded ArcFace step is not ported yet (ROADMAP.md §1, "
-            "'the dp×mp-sharded ArcFace step'); pass mesh=None to train on one device")
+    loss)``: one ArcFace step, the optimizer's target the tuple (params,
+    classifier) as in JAX.  With a ``mesh`` of more than one device the
+    step is the dp×mp-sharded one (:func:`sharded_arcface_loss`; the
+    model on the mesh's first device, B divisible by ``dp``); it lays
+    out an unsharded state first (:func:`shard_state`)."""
+    if _sharded_mesh(mesh):
+        return _make_sharded_step(model, optimizer, mesh, margin, scale, compute_dtype)
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         loss = arcface_loss(model, state.classifier, images, labels, margin, scale,
                             compute_dtype)
         opt_state = optimizer_step(optimizer, state.params + [state.classifier],
+                                   state.opt_state, loss)
+        return state._replace(opt_state=opt_state, step=state.step + 1), loss.detach()
+
+    return step
+
+
+def _make_sharded_step(model, optimizer, mesh, margin, scale, compute_dtype):
+    home = canonical_device(mesh.devices.flat[0])
+    if next(model.parameters()).device != home:
+        raise ValueError(f"the model is on {next(model.parameters()).device}; the sharded "
+                         f"step keeps it on the mesh's first device, {home}")
+    blocks = [canonical_device(d) for d in column_devices(mesh)]
+
+    def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
+        if not is_sharded(state):
+            state = shard_state(mesh, state)
+        if [b.device for b in state.classifier] != blocks[:len(state.classifier)]:
+            raise ValueError("the state's classifier blocks are laid out for another mesh")
+        loss = sharded_arcface_loss(model, state.classifier, images, labels, mesh, margin,
+                                    scale, compute_dtype)
+        opt_state = optimizer_step(optimizer, state.params + list(state.classifier),
                                    state.opt_state, loss)
         return state._replace(opt_state=opt_state, step=state.step + 1), loss.detach()
 
@@ -173,7 +353,10 @@ def restore_tree(target: Any, tree: Any) -> Any:
 
 
 def save_checkpoint(path: str, state: Any) -> None:
-    """Write ``state`` to ``<path>/state.msgpack`` atomically."""
+    """Write ``state`` to ``<path>/state.msgpack`` atomically; a sharded
+    :class:`TrainState` is written gathered."""
+    if isinstance(state, TrainState):
+        state = gather_state(state)
     os.makedirs(path, exist_ok=True)
     out = os.path.join(path, "state.msgpack")
     with open(out + ".tmp", "wb") as f:
@@ -183,8 +366,17 @@ def save_checkpoint(path: str, state: Any) -> None:
 
 def restore_checkpoint(path: str, target: Any) -> Any:
     """Read ``<path>/state.msgpack`` into ``target`` (a state of the same
-    model and optimizer) and return the restored state."""
-    return restore_tree(target, read_msgpack(os.path.join(path, "state.msgpack")))
+    model and optimizer) and return the restored state, laid out as
+    ``target`` is (sharded or not, whatever the saved state was)."""
+    tree = read_msgpack(os.path.join(path, "state.msgpack"))
+    if not (isinstance(target, TrainState) and is_sharded(target)):
+        return restore_tree(target, tree)
+    full = restore_tree(gather_state(target), tree)
+    n = len(target.params)
+    return full._replace(
+        classifier=_blocks_like(full.classifier, target.classifier),
+        opt_state=_map_lists(lambda f, t: f[:n] + _blocks_like(f[n], t[n:]),
+                             full.opt_state, target.opt_state))
 
 
 def latest_checkpoint(directory: str) -> Optional[str]:

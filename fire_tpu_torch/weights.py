@@ -406,7 +406,8 @@ def params_list(module: torch.nn.Module, params_tree: Dict[str, Any]):
     return [sd[n].to(p.device) for n, p in zip(names, module.parameters())]
 
 
-def carry_state(module: torch.nn.Module, variables: Dict[str, Any], opt_state: Any = None):
+def carry_state(module: torch.nn.Module, variables: Dict[str, Any], opt_state: Any = None,
+                mesh=None):
     """Carry a JAX train state, as numpy trees, across to the port: load
     ``variables`` (``{"params"[, "batch_stats"]}``) into ``module`` and
     return ``opt_state`` (optax's state, e.g. ``jax.tree.map(np.asarray,
@@ -414,18 +415,28 @@ def carry_state(module: torch.nn.Module, variables: Dict[str, Any], opt_state: A
     optax NamedTuple becomes the port's of the same name; its ``mu`` and
     ``nu`` trees, shaped as the optimizer's target (the params tree, or
     ``(params, classifier, …)``), become the port's tensor lists
-    (:func:`params_list`, then the extra arrays); counts become ints."""
+    (:func:`params_list`, then the extra arrays); counts become ints.
+
+    With a ``mesh`` (of the sharded ArcFace step) the extra arrays, the
+    classifier's moments as global arrays, are split over ``mp`` into
+    column blocks on their devices, as ``shard_state`` splits the
+    classifier."""
+    from fire_tpu_torch.parallel.mesh import column_devices, split_columns
     from fire_tpu_torch.train import optim
 
     dev = next(module.parameters()).device
     load_flax(module, variables)
 
+    def extra(a):
+        t = torch.tensor(np.array(a, np.float32), device=dev)
+        return [t] if mesh is None or mesh.devices.size == 1 else split_columns(
+            t, column_devices(mesh))
+
     def target_list(tree):
         if isinstance(tree, dict):
             return params_list(module, tree)
         head, *rest = tree
-        return params_list(module, head) + [torch.tensor(np.array(a, np.float32), device=dev)
-                                            for a in rest]
+        return params_list(module, head) + [b for a in rest for b in extra(a)]
 
     def carry(x):
         if isinstance(x, tuple) and hasattr(x, "_fields"):

@@ -56,6 +56,7 @@ def test_lint_sees_the_whole_package():
                 "pipeline/annotate.py", "utils/affinity.py", "utils/imageio.py",
                 "models/retinaface.py", "gallery/crypto.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/sharded_gallery.py", "parallel/multistream.py",
+                "parallel/shards.py",
                 "models/onnx_import.py", "models/onnx_exec.py", "models/onnx_export.py",
                 "models/tflite_import.py", "verify_onnx.py", "train/optim.py",
                 "train/losses.py", "train/trainer.py", "train/data.py", "train/__main__.py",

@@ -225,7 +225,15 @@ def test_train_step_runs_and_learns():
 
 
 def test_mesh_of_several_devices_raises():
+    """A mesh of several devices gives the sharded step, which raises on
+    a batch that ``dp`` does not divide (the sharded step's own tests are
+    ``tests/test_torch_train_sharded.py``); a mesh of one device gives
+    the one-device step."""
     model = tiny_facenet(32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, optim.adam(1e-3), mesh=make_mesh(devices=["cpu"] * 2))
-    make_train_step(model, optim.adam(1e-3), mesh=make_mesh(devices=["cpu"]))
+    opt = optim.adam(1e-3)
+    mesh = make_mesh(devices=["cpu"] * 2)
+    state = init_state(model, JAX_INIT_SEED, 8, opt, mesh=mesh)
+    images = torch.zeros((3, *HW, 3))
+    with pytest.raises(ValueError, match="dp = 2"):
+        make_train_step(model, opt, mesh=mesh)(state, images, torch.arange(3))
+    make_train_step(model, opt, mesh=make_mesh(devices=["cpu"]))
