@@ -103,13 +103,19 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    runs a few dozen steps on a small pool; BlazeFace and RetinaFace
    fine-tune the committed weights, and their held-out P/R stays within
    0.15 of the starting weights'.
-23. ``trace``: one more batch of the batched path and 16 frames of the
+23. ``bench``: the measurement plane, ``fire_tpu_torch.bench``, through
+   its functions at cut trials: the gallery A/B with K1 held to its plain
+   version on the bench's inputs, the headline's legs at B = 128 and 256
+   (1 warm-up, 2 trials of 2 steps), one trial each of full cost, frame
+   skip and in RAM, the tracker A/B and the crowd curve at 1 and 16 faces
+   a frame; K1's launches per bench.
+24. ``trace``: one more batch of the batched path and 16 frames of the
    per-frame path under ``torch.profiler``, with YuNet and with
    RetinaFace, then one full-width ArcFace step on one device and one on
    the (2, 2) mesh, for the device's busy time and its idle share of the
    traced wall time (six ``trace`` lines).  It runs after every timed phase: the profiler leaves
    launches slower.
-24. ``cross_device``: one 8-frame batched step, a 2-stream step, the
+25. ``cross_device``: one 8-frame batched step, a 2-stream step, the
    per-frame engine calls (``detect_faces``, ``encode_boxes``,
    ``encode_landmarks``, ``extract_faces``, BlazeFace and RetinaFace
    ``detect``), the random-init FaceNet-128, the ONNX executor on a
@@ -142,12 +148,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main_path", "retina_path", "frame_path", "retina_frame",
           "image_mode", "default_command", "encrypted", "multistream", "sharded_gallery",
           "importers", "native", "label_text", "eval_detect", "calibrate", "eval_auc",
-          "eval_e2e", "train_encoder", "train_sharded", "train_detectors", "trace",
+          "eval_e2e", "train_encoder", "train_sharded", "train_detectors", "bench", "trace",
           "cross_device")
-
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 and dense bf16.
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
 
 N_GALLERY = 99_900
 PADDED_ROWS = 100_352  # DeviceGallery pads 100,000 to 49 × 2048
@@ -188,13 +190,6 @@ def recognizer_errors_fail(phase: str):
         logger.removeHandler(handler)
         logger.setLevel(level)
     check(not handler.messages, f"{phase}: the recognizer logged errors: {handler.messages[:5]}")
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def event_ms(enqueue, calls: int) -> float:
@@ -255,6 +250,8 @@ def k1_bound_ms(m: int, count: int) -> tuple:
     """Least time on the card for this call's work: the live gallery
     rows and the bf16 queries read once, the outputs written once, and
     2·M·count·D FLOP at the dense bf16 rate."""
+    from fire_tpu_torch.bench.common import BF16_FLOP_PER_S, HBM_BYTES_PER_S
+
     nbytes = count * DIM * 2 + m * DIM * 2 + m * 8
     flops = 2.0 * m * count * DIM
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
@@ -274,6 +271,8 @@ def unit_rows(rng, n: int, d: int):
 
 def phase_env(ctx) -> None:
     import torch
+
+    from fire_tpu_torch.bench.common import nvidia_smi_line
 
     ctx["smi"] = nvidia_smi_line()
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -540,6 +539,105 @@ def phase_retina_path(ctx) -> None:
     ctx["fr_retina"] = fr  # traced too, then closed, by the trace phase
     ctx["k1_launches_retina_path"] = rec["k1_launches"]
     emit({"phase": "retina_path", "detector": "retinaface-512", **rec})
+
+
+def phase_bench(ctx) -> None:
+    """The measurement plane, ``fire_tpu_torch.bench``, through its own
+    functions at cut trials: the gallery A/B (K1's results there against
+    its plain version), the headline at B = 128 and 256 (1 warm-up, 2
+    trials of 2 steps, a 2-step chain), one trial each of the full-cost,
+    frame-skip and in-RAM legs, the tracker A/B (2 trials) and the crowd
+    curve at 1 and 16 faces a frame (2 trials).  K1's launches are counted
+    per bench, comparisons left out.  Gates: K1 equal to the plain version
+    (|Δsim| ≤ 1e-5, equal indices), every frames/s above 0, and the
+    detector's faces a frame at 1 face within 0.1 of 1.  (The crowd's own
+    ``detected_per_frame`` counts confirmed tracks, as the JAX tool's
+    does; its scenes change every frame, so that stays near 0.)"""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.bench import common, crowd, gallery, headline, tracker
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.train.scenes import make_identities
+    from fire_tpu_torch.utils import imageio
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+
+    inputs = gallery.make_inputs(dev)
+    k1.reset_launches()
+    rec = gallery.run(dev, inputs=inputs)
+    launches = k1.launches
+    for b, q in inputs["queries"].items():
+        sims, idx = k1.cosine_top1(q, inputs["gal16"], inputs["count"])
+        ps, pi = k1.plain_cosine_top1(q, inputs["gal16"], inputs["count"])
+        err = float((sims - ps).abs().max())
+        rec[f"k1_vs_plain_B{b}"] = {"max_abs_err": err, "index_equal": bool((idx == pi).all())}
+        check(err <= 1e-5, f"bench gallery: K1 differs from the plain version by {err} at M={b}")
+        check(rec[f"k1_vs_plain_B{b}"]["index_equal"],
+              f"bench gallery: K1's indices differ from the plain version's at M={b}")
+    ctx["k1_launches_bench"] = {"gallery": launches}
+    emit({"phase": "bench", "bench": "gallery", **rec, "k1_launches": launches})
+    del inputs
+
+    fr, frames = common.setup_headline(os.path.join(ctx["tmp"], "bench"), dev)
+    try:
+        k1.reset_launches()
+        legs = {}
+        for b in (128, 256):
+            got = headline.headline_leg(fr, common.stage(frames, b, dev), warmup=1, trials=2,
+                                        steps=2, chain=2, chain_reps=1)
+            legs[f"headline_B{b}"] = {**common.spread(got["trial_fps"]),
+                                      "device_ms_per_batch": got["chain_ms"],
+                                      "device_ms_per_batch_cuda_events": got["chain_event_ms"]}
+        legs["fullcost_fps"] = headline.engine_leg(fr, common.stage(frames, 128, dev), 1, 1, 2,
+                                                   encode_buckets=())
+        legs["frameskip_fps"] = headline.engine_leg(fr, common.stage(frames, 96, dev), 1, 1, 2,
+                                                    detection_interval=3)
+        save = os.path.join(ctx["tmp"], "bench", "out_inram.avi") if imageio.has_cv2() else None
+        inram, host_plane, projected = headline.inram_leg(
+            fr, frames, save, n_frames=128, batch_size=64,
+            device_ms_b128=legs["headline_B128"]["device_ms_per_batch"])
+        legs.update(e2e_inram_fps=inram, host_plane_ms_per_frame=host_plane,
+                    projected_colocated_e2e_fps=projected,
+                    inram_writer="XVID (cv2)" if save else "none (no cv2)")
+        launches = k1.launches
+    finally:
+        fr.close()
+    fps = [legs[f"headline_B{b}"]["min"] for b in (128, 256)]
+    fps += legs["fullcost_fps"] + legs["frameskip_fps"] + [inram]
+    ctx["k1_launches_bench"]["headline"] = launches
+    emit({"phase": "bench", "bench": "headline", **legs, "k1_launches": launches})
+    check(all(v > 0 for v in fps), f"bench headline: a frames/s is not above 0: {fps}")
+    check(launches > 0, "bench headline: K1 was not launched")
+
+    rec = tracker.run(dev, batch=128, trials=2)
+    emit({"phase": "bench", "bench": "tracker", **rec})
+    check(all(v > 0 for v in rec["variants"].values()), f"bench tracker: {rec}")
+
+    fr, bse, rng = crowd.setup_crowd(os.path.join(ctx["tmp"], "bench_crowd"), dev)
+    try:
+        idents = make_identities(32, seed=0)
+        k1.reset_launches()
+        curve = []
+        for n in (1, 16):
+            batch = common.stage([s[0].astype(np.uint8) for s in crowd.crowd_scenes(
+                rng, idents, n)], 32, dev)
+            ms, tracked = crowd.measure(bse, batch, trials=2)
+            with torch.inference_mode():
+                found = float(fr.engine._build_detect(tuple(batch.shape[1:3]))(batch).mask.sum())
+            curve.append({"faces_per_frame": n, "ms_per_frame": ms, "detected_per_frame": tracked,
+                          "detector_faces_per_frame": found / 32})
+        launches = k1.launches
+    finally:
+        fr.close()
+    ctx["k1_launches_bench"]["crowd"] = launches
+    emit({"phase": "bench", "bench": "crowd", "batch": 32, "curve": curve, "k1_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    check(abs(curve[0]["detector_faces_per_frame"] - 1.0) <= 0.1,
+          f"bench crowd: the detector found {curve[0]['detector_faces_per_frame']} faces a "
+          "frame in 1-face scenes")
+    check(all(c["ms_per_frame"] > 0 for c in curve) and launches > 0, f"bench crowd: {curve}")
 
 
 def phase_trace(ctx) -> None:
@@ -1690,32 +1788,6 @@ MEMO_STEPS = 30  # steps of each fixed-batch memorisation
 MEMO_WARMUP = 5  # of them, untimed (first-use allocations, cuDNN's choices)
 
 
-def forward_macs(model, *args, **kwargs) -> int:
-    """Multiply-accumulates of one forward, counted from the shapes: each
-    convolution's output elements × (input channels / groups) × kernel
-    area, each Linear's outputs × input features."""
-    import torch
-
-    total = [0]
-
-    def conv(mod, inp, out):
-        total[0] += out.numel() * (mod.in_channels // mod.groups) * (
-            mod.kernel_size[0] * mod.kernel_size[1])
-
-    def dense(mod, inp, out):
-        total[0] += out.numel() * mod.in_features
-
-    hooks = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d) else dense)
-             for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
-    try:
-        with torch.no_grad():
-            model(*args, **kwargs)
-    finally:
-        for h in hooks:
-            h.remove()
-    return total[0]
-
-
 def memorise(step, state, args, batch: int, macs: int, base_bytes: int) -> tuple:
     """``MEMO_STEPS`` steps of ``step(state, *args)`` on one fixed batch:
     the losses, ms per step and images/s over the steps after
@@ -1724,6 +1796,8 @@ def memorise(step, state, args, batch: int, macs: int, base_bytes: int) -> tuple
     built: earlier phases' tensors), and the bf16 share: forward MACs × 2
     × 3 (forward and backward) FLOP a step over the dense bf16 peak."""
     import torch
+
+    from fire_tpu_torch.bench.common import BF16_FLOP_PER_S
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1756,6 +1830,7 @@ def phase_train_encoder(ctx) -> None:
     import numpy as np
     import torch
 
+    from fire_tpu_torch.bench.common import forward_macs
     from fire_tpu_torch.config import RecognizerConfig
     from fire_tpu_torch.models.facenet import facenet_512
     from fire_tpu_torch.pipeline.engine import DeviceEngine
@@ -1966,6 +2041,7 @@ def phase_train_sharded(ctx) -> None:
     import numpy as np
     import torch
 
+    from fire_tpu_torch.bench.common import forward_macs
     from fire_tpu_torch.models.facenet import facenet_512
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.train import optim
@@ -2037,6 +2113,7 @@ def _detector_run(name: str, model, make_step, hw, scene_hw, batch: int, max_fac
     default batch and size, with the trainer's own optimiser."""
     import torch
 
+    from fire_tpu_torch.bench.common import forward_macs
     from fire_tpu_torch.train import optim
     from fire_tpu_torch.train.trainer import model_batch_stats
     from fire_tpu_torch.weights import flax_shapes, load_flax, materialize
@@ -2430,7 +2507,8 @@ def kernel_summary(ctx) -> dict:
     launch counts on every path: batched (YuNet, RetinaFace), per-frame
     (YuNet, RetinaFace), image mode, the default command, encrypted, the
     multi-stream runs (S = 1, 2, 4 together), the end-to-end accuracy
-    run (per-frame and batched) and the sharded training step."""
+    run (per-frame and batched), the sharded training step and the bench
+    phase (gallery, headline, crowd)."""
     from fire_tpu_torch.ops import cosine_top1 as k1
 
     main = next(r for r in ctx["k1"] if r.get("case") == f"M={BATCH}")
@@ -2448,6 +2526,7 @@ def kernel_summary(ctx) -> dict:
         "launches_eval_e2e_frame": ctx["k1_launches_eval_e2e_frame"],
         "launches_eval_e2e_batched": ctx["k1_launches_eval_e2e_batched"],
         "launches_train_sharded": ctx["k1_launches_train_sharded"],
+        "launches_bench": ctx["k1_launches_bench"],
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "device_ms": main["kernel_device_ms"],

@@ -31,6 +31,11 @@ machine with the card has neither ``flax``, ``msgpack`` nor
 * :func:`msgpack_serialize` — the writer of ``flax.serialization.
   to_bytes``'s format — can store it as the JAX engine's params cache or
   as a trainer's output, which either package loads.
+* :class:`BF16` / :func:`f32_to_bf16` — bfloat16 arrays kept as their
+  16-bit words, rounded from float32 to nearest even as
+  ``jnp.asarray(a, jnp.bfloat16)`` rounds, so that a file's bfloat16
+  leaves can be read and written as they are stored
+  (``msgpack_restore(keep_bf16=True)``, :mod:`fire_tpu_torch.export_bf16`).
 * :func:`carry_state` — a JAX train state (params, batch stats and
   optax's Adam moments, as numpy trees) carried into a module and the
   port's optimizer state, so that tests start both packages from one
@@ -59,11 +64,41 @@ def _bf16_to_f32(raw: bytes) -> np.ndarray:
     return (u16.astype(np.uint32) << 16).view(np.float32)
 
 
-def _ndarray(payload: bytes) -> np.ndarray:
+class BF16:
+    """A bfloat16 array held as its 16-bit words (numpy has no bfloat16)."""
+
+    __slots__ = ("bits",)
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = np.ascontiguousarray(bits, dtype=np.uint16)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.bits.shape
+
+    def to_f32(self) -> np.ndarray:
+        """The exact float32 values."""
+        return (self.bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def f32_to_bf16(a: np.ndarray) -> BF16:
+    """Round float32 to bfloat16, to nearest even; a NaN becomes the quiet
+    NaN of its sign."""
+    a = np.ascontiguousarray(a, np.float32)
+    u = a.view(np.uint32)
+    bits = ((u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) >> 16).astype(np.uint16)
+    nan = np.isnan(a)
+    bits[nan] = np.where(np.signbit(a[nan]), 0xFFC0, 0x7FC0).astype(np.uint16)
+    return BF16(bits)
+
+
+def _ndarray(payload: bytes, keep_bf16: bool = False):
     shape, dtype_name, buf = _Unpacker(payload).unpack_one()
     if isinstance(dtype_name, bytes):
         dtype_name = dtype_name.decode()
     if dtype_name == "bfloat16":
+        if keep_bf16:
+            return BF16(np.frombuffer(buf, np.uint16).reshape(tuple(shape)))
         arr = _bf16_to_f32(buf)
     else:
         arr = np.frombuffer(buf, np.dtype(dtype_name)).copy()
@@ -71,9 +106,10 @@ def _ndarray(payload: bytes) -> np.ndarray:
 
 
 class _Unpacker:
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, keep_bf16: bool = False):
         self.data = memoryview(data)
         self.off = 0
+        self.keep_bf16 = keep_bf16
 
     def _take(self, n: int) -> bytes:
         if self.off + n > len(self.data):
@@ -87,7 +123,7 @@ class _Unpacker:
 
     def _ext(self, code: int, payload: bytes):
         if code == _EXT_NDARRAY:
-            return _ndarray(payload)
+            return _ndarray(payload, self.keep_bf16)
         if code == _EXT_NPSCALAR:
             return _ndarray(payload)[()]
         raise ValueError(f"unsupported msgpack ext type {code}")
@@ -147,10 +183,11 @@ class _Unpacker:
         return out
 
 
-def msgpack_restore(data: bytes) -> Any:
+def msgpack_restore(data: bytes, keep_bf16: bool = False) -> Any:
     """Decode a ``flax.serialization.to_bytes`` blob to nested dicts of
-    numpy arrays (bf16 leaves come back as exact float32)."""
-    up = _Unpacker(data)
+    numpy arrays (bf16 leaves come back as exact float32, or as
+    :class:`BF16` with ``keep_bf16``)."""
+    up = _Unpacker(data, keep_bf16)
     out = up.unpack_one()
     if up.off != len(up.data):
         raise ValueError("trailing bytes after msgpack object")
@@ -244,6 +281,10 @@ class _Packer:
             self._head(len(x), 0x90, 15, (0xDC, 0xDD))
             for v in x:
                 self.pack(v)
+        elif isinstance(x, BF16):
+            inner = _Packer()
+            inner.pack(([int(d) for d in x.shape], "bfloat16", x.bits.tobytes("C")))
+            self._ext(_EXT_NDARRAY, inner.getvalue())
         elif isinstance(x, np.ndarray):
             if x.dtype.hasobject or x.dtype.isalignedstruct:
                 raise ValueError(f"cannot serialize arrays of {x.dtype}")
@@ -258,8 +299,8 @@ class _Packer:
 
 
 def msgpack_serialize(tree: Any) -> bytes:
-    """Encode nested dicts of numpy arrays as ``flax.serialization.
-    to_bytes`` does, so ``from_bytes`` and :func:`msgpack_restore` both
+    """Encode nested dicts of numpy arrays (and :class:`BF16` leaves, as
+    bfloat16) as ``flax.serialization.to_bytes`` does, so ``from_bytes`` and :func:`msgpack_restore` both
     read the result."""
     p = _Packer()
     p.pack(tree)

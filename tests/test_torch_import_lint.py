@@ -60,7 +60,10 @@ def test_lint_sees_the_whole_package():
                 "models/onnx_import.py", "models/onnx_exec.py", "models/onnx_export.py",
                 "models/tflite_import.py", "verify_onnx.py", "train/optim.py",
                 "train/losses.py", "train/trainer.py", "train/data.py", "train/__main__.py",
-                "train/detect.py", "train/detect_blaze.py", "train/detect_retina.py"):
+                "train/detect.py", "train/detect_blaze.py", "train/detect_retina.py",
+                "bench/__init__.py", "bench/__main__.py", "bench/common.py", "bench/headline.py",
+                "bench/gallery.py", "bench/tracker.py", "bench/crowd.py", "bench/profile.py",
+                "export_bf16.py"):
         assert f"fire_tpu_torch/{new}" in rel
-    assert len(rel) >= 48
+    assert len(rel) >= 57
     assert _imports(ast.parse("import jax\ndef f():\n    import cv2\n")) == [("jax", True), ("cv2", False)]
