@@ -6,20 +6,34 @@
 It takes no arguments.  Phases, in order, each printing one JSON line:
 
 1. ``env``: torch / CUDA versions, the card's name and power limit.
-2. ``build``: compiles kernel K1 (``fire_tpu_torch/csrc/cosine_top1.cu``)
-   with nvcc for sm_90a, and beside it the host AES-128-CBC library of
-   the at-rest encryption (``csrc/aes128_cbc.cpp``) with the host C++
-   compiler, both at once; fails if ptxas reports a spill.
+2. ``build``: compiles kernels K1 (``fire_tpu_torch/csrc/cosine_top1.cu``)
+   and K2 (``csrc/track_scan.cu``) with nvcc for sm_90a, and beside them
+   the host AES-128-CBC library of the at-rest encryption
+   (``csrc/aes128_cbc.cpp``) and the host LAP / NMS library with the host
+   C++ compiler, all at once; fails if ptxas reports a spill.
 3. ``kernels``: K1 against its plain PyTorch version on the card at the
    host query path's and the batched path's shapes (M = 1…2048 queries ×
    the 100,352-row padded gallery × 512), with its launch plan and its
    kernel (called one by one, and replayed from a CUDA graph), plain,
    library and bound times; then small and ragged counts,
    a gallery that ends inside a tile, an empty gallery and duplicated rows.
+   Then K2, the tracker scan, against its plain version (the ``sort_step``
+   loop) on seeded sequences: B = 256 / T = 64 / K = 8 Hungarian, a crowd
+   at B = 32 / T = 192 / K = 128 whose frames need the JV solve, B = 128 /
+   T = 32 / K = 8 greedy, B = 64 / T = 64 / K = 8 with the identity
+   bookkeeping and more enrolments than ``MAX_ENROLL``, and the per-frame
+   path's B = 1 / K = 32: integers equal on every frame, boxes within
+   1 px, the KF state to atol 1e-3, rtol 1e-5; ms a launch of each, by
+   CUDA events, called one by one and replayed from a CUDA graph, beside
+   the plain version's and the bound.
 4. ``main_path``: ``FaceRecognition.process_frames(batch_size=64)`` at full
    width (YuNet-64 at 640², FaceNet-512, 99,900-row gallery, committed
-   trained weights) over rendered 1-face 1080p scenes; K1's launch count
-   is set to 0 just before and read just after.
+   trained weights) over rendered 1-face 1080p scenes; K1's and K2's
+   launch counts are set to 0 just before and read just after (K2: one a
+   batch).  Then the synchronising operations of one warm ``submit``
+   (``torch.cuda.set_sync_debug_mode("warn")``, stage timer off): one
+   with the bucket ladder, none with ``encode_budget=64``; the batch's
+   ``submit`` and ``collect`` wall times.
 5. ``retina_path``: the same batched path and frames with the RetinaFace
    slot (ResNet-50 + FPN + SSH at 512², committed weights).
 6. ``frame_path``: ``process_frames(batch_size=0)``, the per-frame loop
@@ -27,7 +41,8 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    lifecycle), over 64 rendered 1080p frames with 1–3 faces against the
    same gallery; frames/s and ms per frame by stage.  A second, shorter
    run uses ``detection_interval=3`` and ``align_video=True`` (coasting
-   and landmark-aligned encoding).
+   and landmark-aligned encoding).  K2 launches once a frame (``Sort.update``
+   at B = 1).
 7. ``retina_frame``: the per-frame loop's first run with RetinaFace.
 8. ``image_mode``: ``fire_tpu_torch.cli.main`` in process on a rendered
    1080p BMP: enrol, recognise, relabel (``--label``), then the default
@@ -43,7 +58,7 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    mesh of this one card repeated S times, B = 64 1080p frames per
    stream, two measured batches after a warm-up; streams 0 and 1 show
    one identity, which must enrol once; aggregate and per-stream
-   frames/s and K1's launches per S.  Before that, at the engine level,
+   frames/s and K1's and K2's launches per S (K2: one a batch a stream).  Before that, at the engine level,
    every stream of a 4-stream step equals a single-stream engine on the
    same frames, and an ended stream runs on the cached zero batch.
 12. ``sharded_gallery``: ``ShardedGalleryView`` over 1…4 shards on this
@@ -108,7 +123,7 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    version on the bench's inputs, the headline's legs at B = 128 and 256
    (1 warm-up, 2 trials of 2 steps), one trial each of full cost, frame
    skip and in RAM, the tracker A/B and the crowd curve at 1 and 16 faces
-   a frame; K1's launches per bench.
+   a frame; K1's and K2's launches per bench (K2: one a batch).
 24. ``trace``: one more batch of the batched path and 16 frames of the
    per-frame path under ``torch.profiler``, with YuNet and with
    RetinaFace, then one full-width ArcFace step on one device and one on
@@ -288,6 +303,7 @@ def phase_build(ctx) -> None:
     from fire_tpu_torch.gallery import crypto
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.runtime import native
+    from fire_tpu_torch.track import scan as k2
 
     def timed(build, path):
         if os.path.exists(path):
@@ -296,26 +312,36 @@ def phase_build(ctx) -> None:
         build()
         return time.time() - t0
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         k1_job = pool.submit(timed, k1.build, k1.library_path())
+        k2_job = pool.submit(timed, k2.build, k2.library_path())
         aes_job = pool.submit(timed, crypto.build, crypto.library_path())
         native_job = pool.submit(timed, native.load_native, native.library_path())
         secs, aes_secs, native_secs = k1_job.result(), aes_job.result(), native_job.result()
+        k2_secs = k2_job.result()
     check(native.load_native() is not None, "build: the native library did not build")
-    ptxas = [ln.strip() for ln in k1.build_log.splitlines() if "registers" in ln or "spill" in ln]
-    clean = "0 bytes spill stores, 0 bytes spill loads"
-    spills = [ln for ln in ptxas if "spill" in ln and clean not in ln]
-    ctx["k1_build"] = {"seconds": round(secs, 3),
+
+    def report(kernel, seconds):
+        ptxas = [ln.strip() for ln in kernel.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        clean = "0 bytes spill stores, 0 bytes spill loads"
+        spills = [ln for ln in ptxas if "spill" in ln and clean not in ln]
+        check(bool(ptxas) and not spills, f"{kernel.NAME} build: ptxas reports spills: {spills}")
+        return ptxas, {"seconds": round(seconds, 3),
                        "registers": [int(ln.split("Used ")[1].split()[0]) for ln in ptxas
                                      if "Used " in ln]}
+
+    ptxas, ctx["k1_build"] = report(k1, secs)
+    k2_ptxas, ctx["k2_build"] = report(k2, k2_secs)
     emit({"phase": "build", "kernel": k1.NAME, "arch": "sm_90a", "nvcc_flags": list(k1.NVCC_FLAGS),
           "ptxas": ptxas, **ctx["k1_build"],
+          "k2": {"kernel": k2.NAME, "nvcc_flags": list(k2.NVCC_FLAGS), "ptxas": k2_ptxas,
+                 **ctx["k2_build"]},
           "aes_library": {"source": "fire_tpu_torch/csrc/aes128_cbc.cpp",
                           "flags": list(crypto.CXX_FLAGS), "seconds": round(aes_secs, 3),
                           "backend": crypto.backend()},
           "native_library": {"source": "fire_tpu_torch/csrc/fire_native.cc",
                              "seconds": round(native_secs, 3)}})
-    check(bool(ptxas) and not spills, f"K1 build: ptxas reports spills: {spills}")
 
 
 def phase_kernels(ctx) -> None:
@@ -403,6 +429,160 @@ def phase_kernels(ctx) -> None:
     results.append({"case": "ties", "idx": ties})
     emit({"phase": "kernels", "kernel": k1.NAME, "case": "ties", "idx": ties})
     ctx["k1"] = results
+    ctx["k2"] = [k2_case(dev, *case) for case in K2_CASES]
+    check(ctx["k2"][1]["stats"]["jv_frames"] > 0, "K2: no frame of the crowd took the JV solve")
+    check(ctx["k2"][3]["enrolments"] > 8, "K2: the identity case did not overflow MAX_ENROLL")
+
+
+# (case, assignment, T, K, B, objects, identity, frames tracked before, sequence keywords)
+K2_CASES = (
+    ("B=256 T=64 K=8", "hungarian", 64, 8, 256, 10, False, 0, {}),
+    ("B=32 T=192 K=128 crowd", "hungarian", 192, 128, 32, 160, False, 0,
+     dict(area=700.0, size=(50, 90), speed=4.0)),
+    ("B=128 T=32 K=8 greedy", "greedy", 32, 8, 128, 10, False, 0, {}),
+    ("B=64 T=64 K=8 identity", "hungarian", 64, 8, 64, 20, True, 0, {}),
+    ("B=1 T=64 K=32 per-frame", "hungarian", 64, 32, 1, 8, False, 30, {}),
+)
+# float operations of K2's arithmetic, counted from csrc/track_scan.cu: a
+# track's predict and box, one (detection, track) cost, a KF update with its
+# 4x4 inverse, one column of one Dijkstra step
+K2_FLOPS = {"predict": 294, "pair": 30, "update": 1550, "relax": 6}
+
+
+def k2_bound_ms(b: int, k: int, t: int, identity: bool, stats: dict) -> tuple:
+    """Least time on the card for one scan: the detections and the table
+    read once, the table and the per-frame outputs written once, against
+    the float operations this run's data needed (the kernel's own counts)
+    at the float32 rate."""
+    from fire_tpu_torch.bench.common import F32_FLOP_PER_S, HBM_BYTES_PER_S
+
+    table = t * (10 + 100) * 4 + t * 5 * 4 + t + 4
+    nbytes = b * k * 17 + 2 * table + b * t * 29
+    if identity:
+        nbytes += b * k * 9 + 2 * t * 13 + b * t * 13
+    flops = (stats["predicted"] * K2_FLOPS["predict"] + b * k * t * K2_FLOPS["pair"]
+             + stats["updated"] * K2_FLOPS["update"]
+             + stats["dijkstra_steps"] * max(k, t) * K2_FLOPS["relax"]
+             + (stats["greedy_rounds"] + b) * k * t)  # arg-mins over the cost
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_case(dev, case, assignment, t, k, b, n_obj, identity, warm, kw) -> dict:
+    """K2 against its plain version on one seeded sequence (the first
+    ``warm`` frames tracked by the plain version first), then both timed
+    by CUDA events, each launch from the same starting state."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.bench.tracker import random_sequence
+    from fire_tpu_torch.config import TrackerConfig
+    from fire_tpu_torch.pipeline.batch_engine import make_stream_state
+    from fire_tpu_torch.track import scan as k2
+
+    cfg = TrackerConfig(assignment=assignment, max_tracks=t)
+    boxes, mask = random_sequence(len(case), warm + b, k, n_obj, **kw)
+    boxes, mask = torch.from_numpy(boxes).to(dev), torch.from_numpy(mask).to(dev)
+    init = make_stream_state(cfg, 1, dev)
+    if warm:
+        init = init._replace(table=k2.sort_scan_plain(init.table, boxes[:warm], mask[:warm],
+                                                      cfg)[0])
+    boxes, mask = boxes[warm:].contiguous(), mask[warm:].contiguous()
+    rng = np.random.default_rng(len(case))
+    det = tuple(torch.from_numpy(x).to(dev) for x in (
+        rng.integers(0, N_GALLERY, (b, k)).astype(np.int32),
+        rng.uniform(0.3, 0.75, (b, k)).astype(np.float32),
+        mask.cpu().numpy() & (rng.random((b, k)) < 0.8)))
+
+    def fresh():
+        table = type(init.table)(*(x.clone() for x in init.table))
+        ident = k2.IdentityState(*(x.clone() for x in (init.gid, init.sim, init.unk,
+                                                        init.pending)))
+        return table, ident
+
+    def kernel(stats=None):
+        """(table, identity, outputs, identity outputs), the identity's None without it."""
+        table, ident = fresh()
+        if identity:
+            return k2.track_scan(table, ident, boxes, mask, *det, cfg, 0.7, 1, stats=stats)
+        table, out = k2.sort_scan(table, boxes, mask, cfg, stats=stats)
+        return table, None, out, None
+
+    def plain():
+        table, ident = fresh()
+        if identity:
+            return k2.track_scan_plain(table, ident, boxes, mask, *det, cfg, 0.7, 1)
+        table, out = k2.sort_scan_plain(table, boxes, mask, cfg)
+        return table, None, out, None
+
+    stats_t = torch.zeros(len(k2.STATS), dtype=torch.int32, device=dev)
+    launches0 = k2.launches
+    got = kernel(stats_t)
+    torch.cuda.synchronize()  # a fault of this case shows here, not later
+    check(k2.launches == launches0 + 1, f"K2 {case}: {k2.launches - launches0} launches")
+    wanted = []  # the plain version's one run, timed by CUDA events
+    plain_ms = event_ms(lambda: wanted.append(plain()), 1)
+    want = wanted[0]
+    stats = dict(zip(k2.STATS, stats_t.tolist()))
+    (table, ident, out, iout), (ptable, pident, pout, piout) = got, want
+    for name in ("tid", "mask", "src_det", "age"):
+        check(torch.equal(getattr(out, name), getattr(pout, name)),
+              f"K2 {case}: {name} differs from the plain version")
+    for name in ("tid", "age", "tsu", "hits", "streak", "active", "next_id"):
+        check(torch.equal(getattr(table, name), getattr(ptable, name)),
+              f"K2 {case}: the table's {name} differs from the plain version's")
+    box_err = int((out.boxes - pout.boxes).abs().max()) if b else 0
+    check(box_err <= 1, f"K2 {case}: boxes differ by {box_err} px")
+    act = ptable.active
+    err = {}
+    for name in ("x", "p"):
+        a, w = getattr(table, name)[act], getattr(ptable, name)[act]
+        err[name] = float((a - w).abs().max()) if a.numel() else 0.0
+        check(bool(torch.allclose(a, w, atol=1e-3, rtol=1e-5)),
+              f"K2 {case}: the active tracks' {name} differs from the plain version's by "
+              f"{err[name]}, beyond atol 1e-3, rtol 1e-5")
+    enrolments = 0
+    if identity:
+        for name, a, w in zip(iout._fields + ident._fields, (*iout, *ident), (*piout, *pident)):
+            check(torch.equal(a, w), f"K2 {case}: {name} differs from the plain version")
+        enrolments = int(iout.enroll.sum())
+
+    # each timed call starts from the same state, restored into one working copy
+    work = fresh()
+    start = (*init.table, init.gid, init.sim, init.unk, init.pending)
+
+    def restore():
+        for dst, src in zip((*work[0], *work[1]), start):
+            dst.copy_(src)
+
+    def launch():
+        if identity:
+            k2.track_scan(*work, boxes, mask, *det, cfg, 0.7, 1)
+        else:
+            k2.sort_scan(work[0], boxes, mask, cfg)
+
+    def timed(fn, reps):
+        times = []
+        for _ in range(reps):
+            restore()
+            torch.cuda.synchronize()
+            times.append(event_ms(fn, 1))
+        return median(times)
+
+    kernel_ms = timed(launch, 9)
+    # the card alone: replays of (restore, launch) less replays of the restore
+    device_ms = graph_ms(lambda: (restore(), launch()), 10) - graph_ms(restore, 10)
+    bound_ms, bound_by = k2_bound_ms(b, k, t, identity, stats)
+    rec = {"case": case, "assignment": assignment, "B": b, "T": t, "K": k, "identity": identity,
+           "frames_tracked_before": warm, "box_err_px": box_err, "x_err": err["x"],
+           "p_err": err["p"], "max_abs_err": max(err.values()), "stats": stats,
+           "enrolments": enrolments, "confirmed": int(out.mask.sum()), "ms": kernel_ms,
+           "device_ms": device_ms, "device_ms_per_frame": device_ms / b, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "device_ms_over_bound": device_ms / bound_ms,
+           "launch_plan": list(k2.launch_plan(t, k))}
+    emit({"phase": "kernels", "kernel": k2.NAME, **rec})
+    return rec
+
 
 
 def _frames(seed: int, n_scenes: int, per_scene: int, n_faces=(1, 1)):
@@ -458,6 +638,34 @@ class _K1Sizes:
         self._index.cosine_top1 = self._real
 
 
+class _Calls:
+    """Counts the calls of ``owner.name`` while active (the attribute is
+    swapped for a wrapper that counts and calls through)."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.n = owner, name, 0
+
+    def __enter__(self):
+        self._real = real = getattr(self.owner, self.name)
+
+        def counting(*args, **kw):
+            self.n += 1
+            return real(*args, **kw)
+
+        setattr(self.owner, self.name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self._real)
+
+
+def _batch_steps():
+    """Counts ``BatchStreamEngine.step``: the batches, one per stream."""
+    from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine
+
+    return _Calls(BatchStreamEngine, "step")
+
+
 YUNET = dict(detector_type="yunet", trained_detector=_trained("yunet_synth.msgpack"))
 
 
@@ -478,6 +686,7 @@ def _batched_run(ctx, storage: str, detector: dict):
     from fire_tpu_torch.config import TrackerConfig
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+    from fire_tpu_torch.track import scan as k2
 
     fr = FaceRecognition(
         encoder_model_type="512", similarity_threshold=0.7,
@@ -497,14 +706,16 @@ def _batched_run(ctx, storage: str, detector: dict):
     frames = _frames(seed=0, n_scenes=n_scenes, per_scene=per_scene)
     faces_per_frame = []
     torch.cuda.reset_peak_memory_stats()
-    k1.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fr.process_frames(frames, annotate=False, batch_size=BATCH,
-                      on_frame=lambda f, faces: faces_per_frame.append(len(faces)))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = k1.launches
+    with _batch_steps() as steps:
+        k1.reset_launches()
+        k2.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr.process_frames(frames, annotate=False, batch_size=BATCH,
+                          on_frame=lambda f, faces: faces_per_frame.append(len(faces)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, k2_launches = k1.launches, k2.launches
     n_batches = len(frames) // BATCH
     added = fr.db_manager.count() - sql_before
 
@@ -513,6 +724,8 @@ def _batched_run(ctx, storage: str, detector: dict):
     name = fr.cfg.detector_type
     check(len(faces_per_frame) == len(frames), f"{name}: every frame produced a result")
     check(launches >= n_batches, f"{name}: K1 launched {launches} times for {n_batches} batches")
+    check(k2_launches == steps.n == n_batches,
+          f"{name}: K2 launched {k2_launches} times for {steps.n} steps of {n_batches} batches")
     check(tracked >= 0.9, f"{name}: faces tracked in {tracked:.3f} of the frames after warm-up")
     # each scene's one face is enrolled at most once, and something is
     check(1 <= added <= n_scenes, f"{name}: {added} enrolments for {n_scenes} one-face scenes")
@@ -520,6 +733,7 @@ def _batched_run(ctx, storage: str, detector: dict):
     stages = {k: round(v / n_batches * 1e3, 3) for k, v in totals.items()}
     return fr, {"frames": len(frames), "batch": BATCH, "batches": n_batches,
                 "frames_per_s": len(frames) / wall, "wall_s": wall, "k1_launches": launches,
+                "k2_launches": k2_launches,
                 "tracked_fraction": tracked, "sqlite_rows_added": added,
                 "gallery_count": fr.gallery.count, "stage_ms_per_batch": stages,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -528,8 +742,60 @@ def _batched_run(ctx, storage: str, detector: dict):
 def phase_main_path(ctx) -> None:
     fr, rec = _batched_run(ctx, ctx["tmp"], YUNET)
     ctx["k1_launches"] = rec["k1_launches"]
+    ctx["k2_launches"] = rec["k2_launches"]
     ctx["fr"] = fr  # the trace phase runs it once more, then closes it
     emit({"phase": "main_path", **rec})
+    emit({"phase": "main_path", "check": "submit syncs", **submit_syncs(fr)})
+
+
+def submit_syncs(fr) -> dict:
+    """The synchronising operations of one warm ``BatchStreamEngine.submit``
+    of 64 host frames (numpy, 1080p) on the main path's engine and gallery,
+    stage timer off, counted by ``torch.cuda.set_sync_debug_mode("warn")``:
+    one with the bucket ladder (the read that picks the bucket), none with
+    ``encode_budget=64``.  With the wall times of that ``submit`` and of
+    the ``collect`` after it."""
+    import traceback
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine
+
+    frames = [np.stack(_frames(seed=8 + i, n_scenes=2, per_scene=BATCH // 2)) for i in range(2)]
+    out = {}
+    for name, budget, want in (("ladder", None, 1), ("encode_budget=64", 64, 0)):
+        bse = BatchStreamEngine(fr.engine, fr.gallery, fr.cfg, encode_budget=budget)
+        bse.collect(bse.submit(frames[0]))  # warm: allocations, the pinned buffers
+        torch.cuda.synchronize()
+        syncs = []
+
+        def note(message, category, filename, lineno, file=None, line=None):
+            # torch's own words; its one-time note that the mode is a prototype is not a sync
+            if "called a synchronizing cuda operation" in str(message).lower():
+                syncs.append(" < ".join(f"{os.path.relpath(fr.filename, REPO)}:{fr.lineno}"
+                                        for fr in traceback.extract_stack()[-5:-1][::-1]))
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                token = bse.submit(frames[1])
+                t_submit = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        t0 = time.perf_counter()
+        res = bse.collect(token)
+        t_collect = time.perf_counter() - t0
+        out[name] = {"syncs": len(syncs), "at": syncs, "submit_ms": t_submit * 1e3,
+                     "collect_ms": t_collect * 1e3, "confirmed": int(res.mask.sum())}
+        check(len(syncs) == want, f"submit syncs ({name}): {len(syncs)} where {want} was "
+              f"expected, at {syncs}")
+        check(out[name]["confirmed"] > 0, f"submit syncs ({name}): no track confirmed")
+    return {"batch": BATCH, **out}
 
 
 def phase_retina_path(ctx) -> None:
@@ -538,6 +804,7 @@ def phase_retina_path(ctx) -> None:
     fr, rec = _batched_run(ctx, os.path.join(ctx["tmp"], "retina_path"), _retina())
     ctx["fr_retina"] = fr  # traced too, then closed, by the trace phase
     ctx["k1_launches_retina_path"] = rec["k1_launches"]
+    ctx["k2_launches_retina_path"] = rec["k2_launches"]
     emit({"phase": "retina_path", "detector": "retinaface-512", **rec})
 
 
@@ -558,6 +825,7 @@ def phase_bench(ctx) -> None:
 
     from fire_tpu_torch.bench import common, crowd, gallery, headline, tracker
     from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.track import scan as k2
     from fire_tpu_torch.train.scenes import make_identities
     from fire_tpu_torch.utils import imageio
 
@@ -581,8 +849,9 @@ def phase_bench(ctx) -> None:
     del inputs
 
     fr, frames = common.setup_headline(os.path.join(ctx["tmp"], "bench"), dev)
-    try:
+    with contextlib.closing(fr), _batch_steps() as steps:
         k1.reset_launches()
+        k2.reset_launches()
         legs = {}
         for b in (128, 256):
             got = headline.headline_leg(fr, common.stage(frames, b, dev), warmup=1, trials=2,
@@ -601,24 +870,32 @@ def phase_bench(ctx) -> None:
         legs.update(e2e_inram_fps=inram, host_plane_ms_per_frame=host_plane,
                     projected_colocated_e2e_fps=projected,
                     inram_writer="XVID (cv2)" if save else "none (no cv2)")
-        launches = k1.launches
-    finally:
-        fr.close()
+        launches, k2_launches = k1.launches, k2.launches
     fps = [legs[f"headline_B{b}"]["min"] for b in (128, 256)]
     fps += legs["fullcost_fps"] + legs["frameskip_fps"] + [inram]
     ctx["k1_launches_bench"]["headline"] = launches
-    emit({"phase": "bench", "bench": "headline", **legs, "k1_launches": launches})
+    ctx["k2_launches_bench"] = {"headline": k2_launches}
+    emit({"phase": "bench", "bench": "headline", **legs, "k1_launches": launches,
+          "k2_launches": k2_launches, "batch_steps": steps.n})
     check(all(v > 0 for v in fps), f"bench headline: a frames/s is not above 0: {fps}")
     check(launches > 0, "bench headline: K1 was not launched")
+    check(k2_launches == steps.n > 0,
+          f"bench headline: K2 launched {k2_launches} times for {steps.n} batch steps")
 
+    k2.reset_launches()
     rec = tracker.run(dev, batch=128, trials=2)
-    emit({"phase": "bench", "bench": "tracker", **rec})
+    ctx["k2_launches_bench"]["tracker"] = k2.launches
+    emit({"phase": "bench", "bench": "tracker", **rec, "k2_launches": k2.launches})
     check(all(v > 0 for v in rec["variants"].values()), f"bench tracker: {rec}")
+    # one launch a scan: each variant's warm-up and its two trials
+    check(k2.launches == 3 * len(tracker.VARIANTS), f"bench tracker: K2 launched {k2.launches} "
+          f"times for {3 * len(tracker.VARIANTS)} scans")
 
     fr, bse, rng = crowd.setup_crowd(os.path.join(ctx["tmp"], "bench_crowd"), dev)
-    try:
+    with contextlib.closing(fr), _batch_steps() as steps:
         idents = make_identities(32, seed=0)
         k1.reset_launches()
+        k2.reset_launches()
         curve = []
         for n in (1, 16):
             batch = common.stage([s[0].astype(np.uint8) for s in crowd.crowd_scenes(
@@ -628,12 +905,14 @@ def phase_bench(ctx) -> None:
                 found = float(fr.engine._build_detect(tuple(batch.shape[1:3]))(batch).mask.sum())
             curve.append({"faces_per_frame": n, "ms_per_frame": ms, "detected_per_frame": tracked,
                           "detector_faces_per_frame": found / 32})
-        launches = k1.launches
-    finally:
-        fr.close()
+        launches, k2_launches = k1.launches, k2.launches
     ctx["k1_launches_bench"]["crowd"] = launches
+    ctx["k2_launches_bench"]["crowd"] = k2_launches
     emit({"phase": "bench", "bench": "crowd", "batch": 32, "curve": curve, "k1_launches": launches,
+          "k2_launches": k2_launches, "batch_steps": steps.n,
           "seconds": time.perf_counter() - t_phase})
+    check(k2_launches == steps.n > 0,
+          f"bench crowd: K2 launched {k2_launches} times for {steps.n} batch steps")
     check(abs(curve[0]["detector_faces_per_frame"] - 1.0) <= 0.1,
           f"bench crowd: the detector found {curve[0]['detector_faces_per_frame']} faces a "
           "frame in 1-face scenes")
@@ -725,6 +1004,8 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: 
 
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+    from fire_tpu_torch.track import scan as k2
+    from fire_tpu_torch.track.sort import Sort
 
     fr = FaceRecognition(
         encoder_model_type="512", similarity_threshold=0.7,
@@ -753,14 +1034,15 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: 
 
         faces_per_frame = []
         k1.reset_launches()
-        with _K1Sizes() as sizes:
+        k2.reset_launches()
+        with _K1Sizes() as sizes, _Calls(Sort, "update") as updates:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fr.process_frames(frames, annotate=False, batch_size=0,
                               on_frame=lambda f, faces: faces_per_frame.append(len(faces)))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = k1.launches
+        launches, k2_launches = k1.launches, k2.launches
         n = len(frames)
         stage_ms = {k: v / n * 1e3 for k, v in fr.timer.totals.items()}
         stage_ms["other (H2D copy, enrolment, host loop)"] = (wall / n * 1e3
@@ -768,6 +1050,7 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: 
         return {
             "frames": n, "frames_per_s": n / wall, "ms_per_frame": wall / n * 1e3,
             "stage_ms_per_frame": stage_ms, "k1_launches": launches,
+            "k2_launches": k2_launches, "tracker_updates": updates.n,
             "k1_query_sizes": sorted(set(sizes)), "k1_max_m": max(sizes, default=0),
             "encode_frames": len(encode_frames["boxes"] | encode_frames["landmarks"]),
             "encode_frames_aligned": len(encode_frames["landmarks"]),
@@ -785,6 +1068,9 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: 
 
 def _check_per_frame(rec: dict, name: str) -> None:
     check(rec["results"] == rec["frames"], f"{name}: every frame produced a result")
+    check(rec["k2_launches"] == rec["tracker_updates"] > 0,
+          f"{name}: K2 launched {rec['k2_launches']} times for {rec['tracker_updates']} "
+          "tracker updates")
     check(rec["tracked_fraction"] >= 0.9,
           f"{name}: faces tracked in {rec['tracked_fraction']:.3f} of the frames after warm-up")
     check(rec["sqlite_rows_added"] > 0, f"{name}: enrolments reached SQLite")
@@ -806,7 +1092,10 @@ def phase_frame_path(ctx) -> None:
                          per_scene, warmup, YUNET, detection_interval=1)
     emit({"phase": "frame_path", "run": "detect every frame, box crops", **rec})
     _check_per_frame(rec, "frame_path")
+    check(rec["tracker_updates"] == rec["frames"],
+          f"frame_path: {rec['tracker_updates']} tracker updates for {rec['frames']} frames")
     ctx["k1_launches_frame_path"] = rec["k1_launches"]
+    ctx["k2_launches_frame_path"] = rec["k2_launches"]
 
     per_scene = 36
     rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "frame_path_aligned"),
@@ -1221,6 +1510,7 @@ def phase_multistream(ctx) -> None:
     from fire_tpu_torch.parallel.mesh import make_mesh
     from fire_tpu_torch.pipeline.recognizer import FaceRecognition
     from fire_tpu_torch.pipeline.stream import FrameSequenceCapture
+    from fire_tpu_torch.track import scan as k2
 
     fr = FaceRecognition(
         encoder_model_type="512", similarity_threshold=0.7, unknown_trigger_count=1,
@@ -1251,15 +1541,17 @@ def phase_multistream(ctx) -> None:
         engine_check = _multistream_engine_check(fr)
         shared = {1: 0, 2: 1, 4: 2}  # the identity streams 0 and 1 share, by S
         others = {4: [3, 4]}
-        per_s, launches = {}, {}
+        per_s, launches, k2_launches = {}, {}, {}
         for n_streams in (1, 2, 4):
             idents = [shared[n_streams]] * min(n_streams, 2) + others.get(n_streams, [])
             streams = [_identity_frames(ident, 100 * n_streams + max(i - 1, 0), 1, 2 * BATCH)
                        for i, ident in enumerate(idents)]
             rows_before = fr.db_manager.count()
             k1.reset_launches()
-            wall, labels = run(streams, f"S={n_streams}")
-            launches[n_streams] = k1.launches
+            k2.reset_launches()
+            with _batch_steps() as steps:
+                wall, labels = run(streams, f"S={n_streams}")
+            launches[n_streams], k2_launches[n_streams] = k1.launches, k2.launches
             added = fr.db_manager.count() - rows_before
             n_frames = sum(len(f) for f in streams)
             check(all(labels), f"multistream S={n_streams}: a stream labelled no face {labels}")
@@ -1271,15 +1563,20 @@ def phase_multistream(ctx) -> None:
                   f"multistream S={n_streams}: {added} enrolments for {len(set(idents))} identities")
             check(launches[n_streams] >= 2 * n_streams,
                   f"multistream S={n_streams}: K1 launched {launches[n_streams]} times")
+            check(k2_launches[n_streams] == steps.n == 2 * n_streams,
+                  f"multistream S={n_streams}: K2 launched {k2_launches[n_streams]} times for "
+                  f"{steps.n} stream steps")
             per_s[n_streams] = {
                 "frames": n_frames, "wall_s": wall, "aggregate_frames_per_s": n_frames / wall,
                 "per_stream_frames_per_s": n_frames / n_streams / wall,
                 "sqlite_rows_added": added, "k1_launches": launches[n_streams],
+                "k2_launches": k2_launches[n_streams],
                 # the loop's "device step (S streams)" stage: the wait in
                 # collect, after submit has issued all S steps
                 "collect_ms_per_batch": fr.timer.totals.get("device step (S streams)", 0.0)
                 / 2 * 1e3}
         ctx["k1_launches_multistream"] = sum(launches.values())
+        ctx["k2_launches_multistream"] = sum(k2_launches.values())
         emit({"phase": "multistream", "detector": "yunet-640", "batch": BATCH,
               "engine_check": engine_check, "by_streams": per_s})
     finally:
@@ -2503,7 +2800,8 @@ def _cross_device_per_frame(yunet: dict, cfg) -> dict:
 
 def kernel_summary(ctx) -> dict:
     """The contract line: K1 at the main path's shape (M = one query per
-    frame of a 64-frame batch, the smallest compaction rung), with its
+    frame of a 64-frame batch, the smallest compaction rung), then K2
+    (:func:`k2_summary`).  K1 with its
     launch counts on every path: batched (YuNet, RetinaFace), per-frame
     (YuNet, RetinaFace), image mode, the default command, encrypted, the
     multi-stream runs (S = 1, 2, 4 together), the end-to-end accuracy
@@ -2530,7 +2828,30 @@ def kernel_summary(ctx) -> dict:
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "device_ms": main["kernel_device_ms"],
-        "plan": main["plan"], **ctx["k1_build"]}]}
+        "plan": main["plan"], **ctx["k1_build"]}, k2_summary(ctx)]}
+
+
+def k2_summary(ctx) -> dict:
+    """K2 at the main path's shape (B = 64, T = 64, K = 8, identity), with
+    its launch counts on every path and its time at every case's shape."""
+    from fire_tpu_torch.track import scan as k2
+
+    main = next(r for r in ctx["k2"] if r["identity"])
+    return {
+        "name": k2.NAME, "route": "cuda", "source": "fire_tpu_torch/csrc/track_scan.cu",
+        "replaces": "fire_tpu/pipeline/batch_engine.py:131 (lax.scan of sort_step; no Pallas "
+                    "kernel)",
+        "launches": ctx["k2_launches"],
+        "launches_retina_path": ctx["k2_launches_retina_path"],
+        "launches_frame_path": ctx["k2_launches_frame_path"],
+        "launches_multistream": ctx["k2_launches_multistream"],
+        "launches_bench": ctx["k2_launches_bench"],
+        "max_abs_err": max(r["max_abs_err"] for r in ctx["k2"]),
+        "box_err_px": max(r["box_err_px"] for r in ctx["k2"]),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None, "device_ms": main["device_ms"],
+        "ms_by_case": {r["case"]: r["ms"] for r in ctx["k2"]},
+        "device_ms_by_case": {r["case"]: r["device_ms"] for r in ctx["k2"]}, **ctx["k2_build"]}
 
 
 def main() -> int:

@@ -17,9 +17,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16 FLOP/s.
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16
+# FLOP/s, and float32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 WEIGHTS = os.path.join(REPO, "weights_trained")

@@ -26,8 +26,9 @@ What differs from ``bench.py``:
   legs take the frame counts those budgets give at any bandwidth above
   about 11 MB/s (128 and 256), and the pageable H2D rate of a 1080p frame
   is reported as ``h2d_pageable_mbps``.
-* The chain of ``device_ms_per_batch`` is not free of reads here: the
-  port's tracker scan reads the host once a frame.  Its host-clock time
+* The chain of ``device_ms_per_batch`` is not free of reads here: each
+  step reads the batch's detection count once, to pick the encoder
+  bucket (JAX's ``lax.switch``).  Its host-clock time
   keeps ``bench.py``'s key and method (16 submits, then a synchronise);
   ``device_ms_per_batch_cuda_events`` is the CUDA-event span of the same
   chain.
@@ -248,8 +249,8 @@ def run(device=None, storage=None, rows: int = 99_900, hw=(1080, 1920), face_px=
                          "1080p scenes, persistence on; batch staged on the card",
         "device_ms_per_batch": dev_ms,
         "device_ms_per_batch_cuda_events": dev_event_ms,
-        "device_chain_note": "16 submits then a synchronise; the port's chain includes the "
-                             "tracker scan's per-frame host reads (not readback-free)",
+        "device_chain_note": "16 submits then a synchronise; each step of the port's chain "
+                             "reads the bucket count once (not readback-free)",
         "fullcost_fps": round(max(full_fps), 2),
         "fullcost_median_fps": round(statistics.median(full_fps), 2),
         "fullcost_note": "compaction disabled: every detection slot encoded",

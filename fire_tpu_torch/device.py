@@ -23,3 +23,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "pass device='cpu' to run on the CPU explicitly."
         )
     return dev
+
+
+def raw_stream(index: int) -> int:
+    """The handle of the current CUDA stream on device ``index``, for a
+    kernel bound with ctypes."""
+    fast = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # no Stream object built
+    return fast(index) if fast else torch.cuda.current_stream(index).cuda_stream

@@ -23,20 +23,18 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
 from typing import NamedTuple, Tuple
 
 import torch
 
+from fire_tpu_torch.device import raw_stream
 from fire_tpu_torch.ops.gallery_match import cosine_topk
+from fire_tpu_torch.runtime.build import build_cuda, cuda_library_path
 
 NAME = "cosine_top1"
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "cosine_top1.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl")
 
@@ -62,36 +60,17 @@ _fn = None
 _sm_count = {}
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: K1 is built from csrc/ with the CUDA toolkit")
-
-
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{NAME}_{digest}.so")
+    return cuda_library_path(SOURCE, f"lib{NAME}", NVCC_FLAGS)
 
 
 def build() -> str:
     """Compile the kernel for sm_90a unless this source's library
     exists.  Returns the library's path."""
     global build_log
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE}:\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    path, log = build_cuda(SOURCE, f"lib{NAME}", NVCC_FLAGS)
+    build_log = log or build_log
+    return path
 
 
 def _kernel():
@@ -184,12 +163,6 @@ def _sms(index: int) -> int:
     return _sm_count[index]
 
 
-def _raw_stream(index: int) -> int:
-    """The current stream's handle on device ``index``."""
-    fast = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # no Stream object built
-    return fast(index) if fast else torch.cuda.current_stream(index).cuda_stream
-
-
 def _launch(q: torch.Tensor, g: torch.Tensor, count: int,
             plan: LaunchPlan) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel under ``plan`` on contiguous, 16-byte aligned
@@ -217,7 +190,7 @@ def _launch(q: torch.Tensor, g: torch.Tensor, count: int,
         err = fn(q.data_ptr(), q_is_f32, cast_in_block, q16, g.data_ptr(), m, n, d, count,
                  plan.qt, plan.chunk_rows, plan.stages, plan.shared_bytes, part_v,
                  part_v + 4 * plan.chunks * m, out_v.data_ptr(), out_i.data_ptr(),
-                 _raw_stream(dev.index))
+                 raw_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"cosine_top1 kernel launch failed: code {err} "
                            f"(a cudaError_t, or the kernel's own above 20000) with {plan}")

@@ -22,7 +22,6 @@ from __future__ import annotations
 import copy
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
 from fire_tpu_torch.config import RecognizerConfig, TrackerConfig
@@ -86,9 +85,7 @@ class MultiStreamEngine:
         dev = self.devices[i]
         s, b, h, w = frames.shape[:4]
         if live:
-            x = frames[i]
-            return (torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray)
-                    else x).to(dev)
+            return self.inner._upload(frames[i], dev, slot=i)
         key = (h, w, b, i)
         z = self._zero_batches.get(key)
         if z is None:

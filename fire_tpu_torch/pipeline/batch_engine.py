@@ -6,7 +6,8 @@
     encode:  the batch's detections compacted into the smallest encoder
              bucket that holds them all, cropped, FaceNet, L2-normalised
     match:   every embedding against the gallery in one K1 launch
-    track:   a Python loop of ``sort_step`` over the frames
+    track:   every frame of the batch in one K2 launch (``track_scan``),
+             identity bookkeeping included
 
 Semantics are the JAX step's: the same top-k pick (stable sorts, so
 ties keep the lower index as ``lax.top_k`` / ``argsort`` do), the same
@@ -14,12 +15,15 @@ exact bucketed compaction with ``encode_full`` as the top rung, the same
 identity bookkeeping and ``MAX_ENROLL`` starvation guard, and the same
 packed int32 result buffer.
 
-Where JAX compiles control flow, the port reads the device: one
-``.item()`` on the batch's real-detection count selects the bucket
-(``lax.switch``), and the tracker reads one flag per frame (the LAP fast
-path) plus more on conflicted frames.  The result buffer is copied to
-pinned host memory asynchronously; :meth:`BatchStreamEngine.collect`
-waits for it.
+Where JAX compiles control flow, the port reads the device once a
+batch: the batch's real-detection count selects the encoder bucket
+(``lax.switch`` in JAX).  With ``encode_budget`` or a single rung it
+reads nothing.  The tracker's branches (the LAP fast path, the JV solve)
+run inside K2, and the epilogue scatters over padded indices where a
+boolean index would read a count back.  On the card the frames go up
+from pinned host memory and the result buffer comes back to it, both
+asynchronously, so :meth:`BatchStreamEngine.submit` returns once the
+batch is queued and :meth:`BatchStreamEngine.collect` waits for it.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from fire_tpu_torch.ops.boxes import top_k_stable
 from fire_tpu_torch.ops.cosine_top1 import cosine_top1
 from fire_tpu_torch.ops.gallery_match import l2_normalize
 from fire_tpu_torch.ops.image import bgr_to_rgb, crop_and_resize_mm, crop_selected_rows
-from fire_tpu_torch.track.sort import TrackTable, make_table, sort_step
+from fire_tpu_torch.track.scan import IdentityState, gather_emb, track_scan
+from fire_tpu_torch.track.sort import TrackTable, make_table
 
 log = logging.getLogger(__name__)
 
@@ -100,62 +105,45 @@ def _track_scan(state: StreamState, det_boxes, det_mask, det_gid, det_sim, det_e
                 det_has_emb, tcfg: TrackerConfig, similarity_threshold: float,
                 unknown_trigger: int):
     """Serial tracking over the frame batch with identity bookkeeping
-    (``batch_engine.py:131``).  Returns the new state and the per-frame
-    device tensors ``(tid, boxes, gid, sim, mask, enroll, enroll_emb,
-    enroll_frame, enroll_slot)``."""
+    (``batch_engine.py:131``): one :func:`track_scan` (K2 on the card),
+    then the enrolment compaction.  The state's table and identity
+    tensors are updated in place.  Returns the new state and the
+    per-frame device tensors ``(tid, boxes, gid, sim, mask, enroll,
+    enroll_emb, enroll_frame, enroll_slot)``."""
     t_cap = state.table.x.shape[0]
-    k = det_boxes.shape[1]
-    minus1 = torch.full((t_cap,), -1, dtype=torch.int32, device=det_boxes.device)
-    outs = []
-    for f in range(det_boxes.shape[0]):
-        table, out = sort_step(state.table, det_boxes[f], det_mask[f], tcfg)
-        has_det = (out.src_det >= 0) & table.active
-        dft = torch.clamp(out.src_det, 0, k - 1).long()
-        has_emb = has_det & det_has_emb[f][dft]
-        tgid = torch.where(has_det, det_gid[f][dft], minus1)
-        tsim = torch.where(has_det, det_sim[f][dft], torch.zeros_like(state.sim))
-        temb = torch.where(has_emb[:, None], det_emb[f][dft], state.last_emb)
-
-        fresh = table.tid != state.table.tid
-        gid = torch.where(fresh, minus1, state.gid)
-        sim = torch.where(fresh, torch.zeros_like(state.sim), state.sim)
-        unk = torch.where(fresh, torch.zeros_like(state.unk), state.unk)
-        pending = state.pending & ~fresh
-
-        matched_now = has_det & (tsim > similarity_threshold)
-        take = matched_now & (gid < 0)
-        gid = torch.where(take, tgid, gid)
-        sim = torch.where(take, tsim, sim)
-        pending = pending & (gid < 0)
-
-        sighted = has_emb & (gid < 0) & out.mask
-        unk = torch.where(sighted, unk + 1, unk)
-        enroll = sighted & (unk >= unknown_trigger) & ~pending
-        pending = pending | enroll
-
-        state = StreamState(table=table, gid=gid, sim=sim, unk=unk, pending=pending,
-                            last_emb=temb)
-        outs.append((out.tid, out.boxes, gid, torch.where(gid >= 0, sim, torch.zeros_like(sim)),
-                     out.mask, enroll & out.mask, temb))
-
-    tid, boxes, gid, sim, mask, enroll, emb = (torch.stack(x) for x in zip(*outs))
+    ident = IdentityState(state.gid, state.sim, state.unk, state.pending)
+    table, ident, out, iout = track_scan(state.table, ident, det_boxes, det_mask, det_gid,
+                                         det_sim, det_has_emb, tcfg, similarity_threshold,
+                                         unknown_trigger)
+    enroll = iout.enroll
 
     # compact the (rare) enrollment candidates to a fixed-size buffer
-    b = tid.shape[0]
     flat_enroll = enroll.reshape(-1)
     _, top = top_k_stable(flat_enroll.to(torch.int32), MAX_ENROLL)
     valid = flat_enroll[top]
     e_frame = torch.where(valid, top // t_cap, torch.full_like(top, -1)).to(torch.int32)
     e_slot = (top % t_cap).to(torch.int32)
-    e_emb = emb.reshape(b * t_cap, -1)[top] * valid[:, None]
+    e_emb = gather_emb(iout.emb_src.reshape(-1)[top], det_emb, state.last_emb,
+                       slot=top % t_cap) * valid[:, None]
+    last_emb = gather_emb(iout.emb_src[-1], det_emb, state.last_emb)
 
     # starvation guard: a track that fired but was compacted out keeps
     # pending=False so enroll re-fires next batch
-    delivered = torch.zeros(t_cap, dtype=torch.bool, device=tid.device)
-    delivered[e_slot[valid].long()] = True
     fired = enroll.any(dim=0)
-    state = state._replace(pending=state.pending & ~(fired & ~delivered))
-    return state, (tid, boxes, gid, sim, mask, enroll, e_emb, e_frame, e_slot)
+    pending = ident.pending & ~(fired & ~delivered_slots(valid, e_slot, t_cap))
+    state = StreamState(table=table, gid=ident.gid, sim=ident.sim, unk=ident.unk,
+                        pending=pending, last_emb=last_emb)
+    return state, (out.tid, out.boxes, iout.gid, iout.sim, out.mask, enroll, e_emb, e_frame,
+                   e_slot)
+
+
+def delivered_slots(valid: torch.Tensor, e_slot: torch.Tensor, t_cap: int) -> torch.Tensor:
+    """(T,) bool: the slots whose enrolment made the compacted buffer.
+    A scatter over a padded index (undelivered entries go to a spare slot
+    past T), where a boolean index would read a count back."""
+    out = torch.zeros(t_cap + 1, dtype=torch.bool, device=valid.device)
+    out.index_fill_(0, torch.where(valid, e_slot, t_cap).long(), True)
+    return out[:t_cap]
 
 
 def pack_results(res) -> torch.Tensor:
@@ -214,6 +202,7 @@ class BatchStreamEngine:
         self.state = make_stream_state(self.tcfg, cfg.embedding_dim, self.device)
         self._detect_cache = {}
         self._pinned = {}  # rotating pinned readback buffers, by slot
+        self._staging = {}  # pinned upload buffers and their copies' events, by slot and shape
 
     def reset(self):
         self.state = make_stream_state(self.tcfg, self.cfg.embedding_dim, self.device)
@@ -347,14 +336,43 @@ class BatchStreamEngine:
         ring.append(buf)
         return buf
 
-    def submit(self, frames):
-        """Enqueue one batch; returns a token for :meth:`collect`.  The
-        result copy to pinned host memory is asynchronous."""
-        b = frames.shape[0]
+    def _upload(self, frames, device: torch.device, slot: int = 0) -> torch.Tensor:
+        """Frames (a host array or tensor) on ``device``.  To a card, host
+        frames go through one of two pinned buffers of ``slot`` (a
+        stream) and up asynchronously, so the call does not wait for the
+        work already queued on the card."""
+        device = torch.device(device)
         if isinstance(frames, np.ndarray):
-            frames = torch.from_numpy(frames)
+            frames = torch.from_numpy(np.ascontiguousarray(frames))
+        if device.type != "cuda" or frames.device.type != "cpu":
+            return frames.to(device)
+        key = (slot, tuple(frames.shape), frames.dtype)
+        ring = self._staging.get(key)
+        if ring is None:
+            ring = self._staging[key] = [
+                [torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True), None]
+                for _ in range(2)]
+        entry = ring.pop(0)
+        ring.append(entry)
+        buf, done = entry
+        if done is not None:
+            done.synchronize()  # the upload out of this buffer, two batches ago, has left it
+        buf.copy_(frames)
+        out = buf.to(device, non_blocking=True)
+        entry[1] = torch.cuda.Event()
+        entry[1].record(torch.cuda.current_stream(device))
+        return out
+
+    def submit(self, frames):
+        """Enqueue one batch; returns a token for :meth:`collect`.  On
+        the card nothing here waits for the device except the one read
+        that picks the encoder bucket (none with ``encode_budget`` or a
+        single rung): the upload goes through pinned memory, the step
+        queues, and the result copy to pinned host memory is
+        asynchronous."""
+        b = frames.shape[0]
         with self._stage("H2D"):
-            frames = frames.to(self.device)
+            frames = self._upload(frames, self.device)
         with torch.inference_mode():
             packed = self._step(frames)
         return self._readback(packed) + (b,)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -91,6 +91,11 @@ class PrefetchReader:
             if item is _SENTINEL:
                 return
             yield item
+
+    def read(self) -> Optional[np.ndarray]:
+        """The next frame, or None at the end of the stream."""
+        item = self.q.get()
+        return None if item is _SENTINEL else item
 
     def close(self) -> None:
         self._stop.set()

@@ -1,9 +1,11 @@
-"""Build a host C++ source into a shared library at first use.
+"""Build a host C++ or a CUDA source into a shared library at first use.
 
-The library goes to ``fire_tpu_torch/_build/<stem>_<hash>.so``, the hash
-covering the source, the flags and the host CPU (``-march=native``
+A host library goes to ``fire_tpu_torch/_build/<stem>_<hash>.so``, the
+hash covering the source, the flags and the host CPU (``-march=native``
 compiles for it), so a library built on one host is never loaded on
-another.  A failed build raises with the compiler's output.
+another.  A CUDA library (:func:`build_cuda`, ``nvcc`` for sm_90a) is
+named by the hash of its source and flags.  A failed build raises with
+the compiler's output.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import os
 import platform
 import shutil
 import subprocess
-from typing import Sequence
+from typing import Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -69,3 +71,37 @@ def build(source: str, stem: str, flags: Sequence[str] = CXX_FLAGS) -> str:
         raise RuntimeError(f"C++ build failed for {source}:\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's kernels are built from "
+                       "fire_tpu_torch/csrc/ with the CUDA toolkit")
+
+
+def cuda_library_path(source: str, stem: str, flags: Sequence[str]) -> str:
+    h = hashlib.sha256()
+    with open(source, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:12]}.so")
+
+
+def build_cuda(source: str, stem: str, flags: Sequence[str]) -> Tuple[str, str]:
+    """Compile ``source`` with ``nvcc`` unless this source and these flags
+    have a library already.  Returns the library's path and nvcc's output
+    (empty when nothing was built)."""
+    out = cuda_library_path(source, stem, flags)
+    if os.path.exists(out):
+        return out, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    res = subprocess.run([nvcc(), *flags, "-o", tmp, source], capture_output=True, text=True)
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{log}")
+    os.replace(tmp, out)
+    return out, log

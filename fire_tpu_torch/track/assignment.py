@@ -7,7 +7,9 @@ optimum solved on the host by the native Jonker-Volgenant LAP of
 
 JAX's ``lax.while_loop`` / ``lax.cond`` become Python control flow over
 device tensors: the fast-path conflict test costs one host read per
-frame, and a conflicted frame one read per Dijkstra step.  The
+frame, and a conflicted frame one read per Dijkstra step.  This is the
+plain version; on the card the tracker runs kernel K2
+(:mod:`fire_tpu_torch.track.scan`), which takes both branches inside.  The
 arithmetic is the JAX version's, in float32, with ``argmin`` / ``argmax``
 taking the first extremum as JAX does.
 """

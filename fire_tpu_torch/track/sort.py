@@ -207,9 +207,11 @@ class Sort:
     """Host API of the tracker: ``update(detections)`` takes a list of
     ``{'bbox': [x, y, w, h], ...}`` dicts and returns
     ``[{'id', 'bbox', 'age', 'src_det'}, ...]`` for the confirmed tracks.
-    The track table lives on ``device``; each frame costs one packed
-    int32 readback (plus one of cost ‖ active under
-    ``assignment="hungarian_host"``)."""
+    The track table lives on ``device``; a frame is one ``sort_scan``
+    (:mod:`fire_tpu_torch.track.scan`) at B = 1, one K2 launch on the
+    card, and one packed int32 readback (plus one of cost ‖ active under
+    ``assignment="hungarian_host"``, which solves the LAP on the host by
+    design)."""
 
     def __init__(self, cfg: Optional[TrackerConfig] = None, max_dets: int = 32,
                  device: DeviceLike = None):
@@ -247,7 +249,10 @@ class Sort:
             self.table, out = apply_assignment(
                 self.table, tb, tm, torch.from_numpy(match).to(self.device), cfg)
         else:
-            self.table, out = sort_step(self.table, tb, tm, cfg)
+            from fire_tpu_torch.track.scan import sort_scan  # scan imports this module
+
+            self.table, outs = sort_scan(self.table, tb[None], tm[None], cfg)
+            out = TrackOutputs(*(x[0] for x in outs))
 
         buf = _pack_outputs(out).cpu().numpy()
         t = buf.shape[0] // 8

@@ -7,8 +7,12 @@ matrices).
 The process and measurement models are linear, so the UKF equals the
 linear KF; the JAX package runs this specialisation on its hot path in
 float32 and so does the port.  Functions are batched over a leading
-track axis.  float32 matmuls stay full precision on the card (TF32 is
-off for matmuls by default).
+track axis.  The tracker's own products (``kf_predict``,
+``kf_update_tracker``, ``_inv4_spd``) go through :func:`ordered_matmul`:
+a sum over the inner axis in ascending order, each product and each sum
+rounded on its own, so that the float32 result is what the code says on
+every device, where a BLAS library picks its own order (and the card's
+order depends on the batch size); kernel K2 rounds the same way.
 """
 
 from __future__ import annotations
@@ -76,6 +80,15 @@ class MerweUKF:
         return xn, pn
 
 
+def ordered_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched, broadcast) as ``Σ_k a[..., :, k] b[..., k, :]``
+    summed for k ascending, every product and sum a separate rounding."""
+    out = a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k : k + 1] * b[..., k : k + 1, :]
+    return out
+
+
 def tracker_f_matrix(dt: float = 1.0, device=None) -> torch.Tensor:
     """Constant-acceleration transition over
     [cx, cy, log_s, log_r, vx, vy, v_log_s, ax, ay, a_log_s]."""
@@ -95,8 +108,8 @@ def tracker_h_matrix(device=None) -> torch.Tensor:
 
 def kf_predict(x, p, f, q):
     """x (T, 10), p (T, 10, 10) → predicted (x, p)."""
-    xp = x @ f.T
-    pp = f @ p @ f.T + q
+    xp = ordered_matmul(x[..., None, :], f.T)[..., 0, :]
+    pp = ordered_matmul(ordered_matmul(f, p), f.T) + q
     return xp, pp
 
 
@@ -126,13 +139,14 @@ def _inv4_spd(s: torch.Tensor) -> torch.Tensor:
     """Closed-form 4×4 SPD inverse by 2×2 blocks (Schur complement)."""
     a, b = s[..., :2, :2], s[..., :2, 2:]
     c, d = s[..., 2:, :2], s[..., 2:, 2:]
+    mm = ordered_matmul
     ai = _inv2(a)
-    sc = d - c @ (ai @ b)
+    sc = d - mm(c, mm(ai, b))
     sci = _inv2(sc)
-    aib = ai @ b
-    top_left = ai + aib @ (sci @ (c @ ai))
-    top_right = -(aib @ sci)
-    bot_left = -(sci @ (c @ ai))
+    aib = mm(ai, b)
+    top_left = ai + mm(aib, mm(sci, mm(c, ai)))
+    top_right = -mm(aib, sci)
+    bot_left = -mm(sci, mm(c, ai))
     return torch.cat([
         torch.cat([top_left, top_right], dim=-1),
         torch.cat([bot_left, sci], dim=-1),
@@ -145,7 +159,7 @@ def kf_update_tracker(x, p, z, r_diag: float):
     eye4 = torch.eye(4, dtype=p.dtype, device=p.device)
     s = p[..., :4, :4] + r_diag * eye4
     si = _inv4_spd(s)
-    k = p[..., :, :4] @ si
-    xn = x + (k @ (z - x[..., :4])[..., None])[..., 0]
-    pn = p - (k @ s) @ k.transpose(-1, -2)
+    k = ordered_matmul(p[..., :, :4], si)
+    xn = x + ordered_matmul(k, (z - x[..., :4])[..., None])[..., 0]
+    pn = p - ordered_matmul(ordered_matmul(k, s), k.transpose(-1, -2))
     return xn, pn
