@@ -27,7 +27,7 @@ import torch
 from fire_tpu_torch.config import RecognizerConfig, TrackerConfig
 from fire_tpu_torch.parallel.mesh import Mesh, canonical_device
 from fire_tpu_torch.pipeline.batch_engine import (BatchResults, BatchStreamEngine,
-                                                  make_stream_state, unpack_results)
+                                                  make_stream_state)
 
 
 def replicate_engine(engine, device: torch.device):
@@ -112,15 +112,10 @@ class MultiStreamEngine:
         return [self.inner._readback(p, slot=i) for i, p in enumerate(packed)], b
 
     def collect(self, token) -> List[BatchResults]:
-        """Wait for a submitted step; one BatchResults per stream."""
+        """Wait for a submitted step; one BatchResults per stream.  Each
+        stream's readback buffer goes back to the pool here."""
         reads, b = token
-        out = []
-        for host, done in reads:
-            if done is not None:
-                done.synchronize()
-            out.append(unpack_results(host.numpy().copy(), b, self.tcfg.max_tracks,
-                                      self.cfg.embedding_dim))
-        return out
+        return [self.inner._unpack(read, b) for read in reads]
 
     def process_batches(self, frames) -> List[BatchResults]:
         return self.collect(self.submit(frames))

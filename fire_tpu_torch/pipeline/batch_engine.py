@@ -31,7 +31,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import logging
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +73,37 @@ class BatchResults(NamedTuple):
     enroll_emb: np.ndarray    # (MAX_ENROLL, D) f32
     enroll_frame: np.ndarray  # (MAX_ENROLL,) int32 (-1 = empty slot)
     enroll_slot: np.ndarray   # (MAX_ENROLL,) int32
+
+
+class ReadbackPool:
+    """Host buffers for packed results, each owned by the token that holds
+    it: :meth:`take` hands out a free buffer of ``n`` int32 for ``slot``
+    (a stream), or makes one with ``alloc(n)`` when none is free, and a
+    buffer is free again only after :meth:`give`, which ``collect`` calls
+    once it has copied the results out.  So any number of tokens may be
+    outstanding, and a token never collected keeps its buffer.  On the
+    card ``alloc`` makes pinned memory; the tests pass ``torch.empty``."""
+
+    def __init__(self, alloc: Callable[[int], torch.Tensor]):
+        self._alloc = alloc
+        self._free: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+
+    def take(self, n: int, slot: int = 0) -> torch.Tensor:
+        free = self._free.get((slot, n))
+        return free.pop() if free else self._alloc(n)
+
+    def give(self, buf: torch.Tensor, slot: int = 0) -> None:
+        self._free.setdefault((slot, buf.numel()), []).append(buf)
+
+
+class Readback(NamedTuple):
+    """One packed result on its way to the host: ``host`` (a pool buffer
+    of ``slot``, or the tensor itself off the card, ``slot`` None) and
+    the event its copy records (None off the card)."""
+
+    host: torch.Tensor
+    done: Optional[torch.cuda.Event]
+    slot: Optional[int]
 
 
 def _bucket_ladder(nk: int, buckets_opt) -> Tuple[int, ...]:
@@ -201,7 +232,9 @@ class BatchStreamEngine:
         self.timer = timer
         self.state = make_stream_state(self.tcfg, cfg.embedding_dim, self.device)
         self._detect_cache = {}
-        self._pinned = {}  # rotating pinned readback buffers, by slot
+        # pinned readback buffers, owned by their tokens until collected
+        self.readback_pool = ReadbackPool(
+            lambda n: torch.empty(n, dtype=torch.int32, pin_memory=True))
         self._staging = {}  # pinned upload buffers and their copies' events, by slot and shape
 
     def reset(self):
@@ -325,17 +358,6 @@ class BatchStreamEngine:
                 cfg.similarity_threshold, cfg.unknown_trigger_count)
             return state, pack_results(res)
 
-    def _pinned_buffer(self, n: int, slot: int = 0) -> torch.Tensor:
-        # three buffers per slot (a stream): one being filled, one in
-        # flight, one being read
-        ring = self._pinned.get(slot)
-        if ring is None or ring[0].numel() != n:
-            ring = self._pinned[slot] = [torch.empty(n, dtype=torch.int32, pin_memory=True)
-                                         for _ in range(3)]
-        buf = ring.pop(0)
-        ring.append(buf)
-        return buf
-
     def _upload(self, frames, device: torch.device, slot: int = 0) -> torch.Tensor:
         """Frames (a host array or tensor) on ``device``.  To a card, host
         frames go through one of two pinned buffers of ``slot`` (a
@@ -375,29 +397,37 @@ class BatchStreamEngine:
             frames = self._upload(frames, self.device)
         with torch.inference_mode():
             packed = self._step(frames)
-        return self._readback(packed) + (b,)
+        return self._readback(packed), b
 
-    def _readback(self, packed: torch.Tensor, slot: int = 0):
-        """Start the copy of one packed result to host memory: ``(host
-        tensor, event to wait on or None)``.  On the card the copy goes to
-        pinned memory asynchronously, into ``slot``'s buffers."""
+    def _readback(self, packed: torch.Tensor, slot: int = 0) -> Readback:
+        """Start the copy of one packed result to host memory.  On the
+        card it goes asynchronously into a pinned buffer of ``slot`` that
+        the returned token owns until :meth:`_unpack` gives it back."""
         if packed.device.type != "cuda":
-            return packed, None
-        host = self._pinned_buffer(packed.numel(), slot)
+            return Readback(packed, None, None)
+        host = self.readback_pool.take(packed.numel(), slot)
         host.copy_(packed, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host, done
+        return Readback(host, done, slot)
+
+    def _unpack(self, read: Readback, b: int) -> BatchResults:
+        """Wait for one readback, unpack it, and give its buffer back."""
+        if read.done is not None:
+            read.done.synchronize()
+        res = unpack_results(read.host.numpy().copy(), b, self.tcfg.max_tracks,
+                             self.cfg.embedding_dim)
+        if read.slot is not None:
+            self.readback_pool.give(read.host, read.slot)
+        return res
 
     def collect(self, token) -> BatchResults:
         """Wait for one submitted batch and unpack its results."""
-        host, done, b = token
-        if done is not None:
-            done.synchronize()
+        read, b = token
+        res = self._unpack(read, b)
         if self.timer is not None:
             self.timer.resolve()
-        return unpack_results(host.numpy().copy(), b, self.tcfg.max_tracks,
-                              self.cfg.embedding_dim)
+        return res
 
     def process_batch(self, frames) -> BatchResults:
         return self.collect(self.submit(frames))

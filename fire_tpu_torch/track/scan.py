@@ -21,6 +21,9 @@ The source, its bound and its design are in
   (frame, track), the flat index ``f * K + k`` of the detection whose
   embedding the track carries, or −1 for the one it carried into the
   scan; :func:`gather_emb` builds them.
+* Any T and K: :func:`launch_plan` keeps the kernel's arrays in shared
+  memory where they fit and places the rest in a scratch buffer (or, for
+  P and x, the table itself); it never refuses a shape.
 
 The kernel is compiled with ``nvcc`` at its first launch into
 ``fire_tpu_torch/_build/`` (named by the hash of the source and the
@@ -32,6 +35,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+import math
 import os
 from typing import NamedTuple, Optional, Tuple
 
@@ -50,11 +55,23 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-MAX_THREADS = 256             # T and K are each at most this (one thread per track / detection)
 MAX_SHARED_BYTES = 232_448    # dynamic shared memory one block may use on sm_90
+MAX_WARPS = 8
+MISC_BYTES = 128              # the mbarriers and counters before the first array
+XS, PS = 11, 101              # a track's words of x and of P in shared memory
+N_TRACK_FIELDS = 16           # per-track int fields, after the predicted boxes
+MAX_CHUNK_FRAMES = 32         # frames a staging chunk holds at most
+# The arrays a launch places, in the order of the source's enum, and the
+# order in which they leave shared memory when it is short.
+ARRAYS = ("cost", "p", "x", "tracks", "dets", "lap", "chunks")
+SPILL_ORDER = ("cost", "p", "x", "tracks", "lap", "dets")
+_WHERE = {"shared": 0, "scratch": 1, "table": 2}
 
-# What a launch counts into its ``stats`` tensor, in order.
-STATS = ("jv_frames", "predicted", "updated", "dijkstra_steps", "greedy_rounds")
+# What a launch adds into its ``stats`` tensor, in order: counts, then
+# thread 0's clock64 cycles by phase and over the whole launch.
+STATS = ("jv_frames", "predicted", "updated", "dijkstra_steps", "greedy_rounds",
+         "cyc_load", "cyc_predict", "cyc_cost", "cyc_fast_path", "cyc_solve", "cyc_spawn",
+         "cyc_update", "cyc_emit", "cyc_total")
 
 # Launch count: one per call that launches the kernel, and nowhere else.
 launches = 0
@@ -88,14 +105,35 @@ class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "x", "p", "tid", "age", "tsu", "hits", "streak", "active", "next_id", "boxes", "mask",
         "det_gid", "det_sim", "det_has_emb", "gid", "sim", "unk", "pending", "o_tid", "o_boxes",
-        "o_age", "o_mask", "o_src", "o_gid", "o_sim", "o_enroll", "o_emb_src", "stats")]
+        "o_age", "o_mask", "o_src", "o_gid", "o_sim", "o_enroll", "o_emb_src", "stats",
+        "scratch")]
+        + [("off", ctypes.c_longlong * len(ARRAYS)), ("where", ctypes.c_int * len(ARRAYS))]
         + [(n, ctypes.c_int) for n in (
-            "B", "K", "T", "greedy", "max_age", "min_hits", "unknown_trigger")]
+            "B", "K", "T", "greedy", "max_age", "min_hits", "unknown_trigger", "chunk_frames")]
         + [("q", ctypes.c_float * 10)]
         + [(n, ctypes.c_float) for n in (
             "r_diag", "max_velocity", "max_acceleration", "min_log_area", "min_log_aspect",
             "min_wh", "max_wh", "max_distance", "gate", "similarity_threshold")])
 
+
+class LaunchPlan(NamedTuple):
+    """Where a launch over T tracks and K detection slots keeps each of
+    :data:`ARRAYS`: ``where[i]`` is "shared" (dynamic shared memory),
+    "scratch" (a device buffer of ``scratch_bytes`` the wrapper
+    allocates) or "table" (P and x, updated in the table itself), at byte
+    ``offsets[i]`` of its space.  ``chunk_frames`` frames of detections
+    are staged at a time, 0 for none (then read where they lie)."""
+
+    threads: int
+    shared_bytes: int
+    scratch_bytes: int
+    chunk_frames: int
+    where: Tuple[str, ...]
+    offsets: Tuple[int, ...]
+
+    def placed(self, where: str) -> Tuple[str, ...]:
+        """The arrays kept at ``where``."""
+        return tuple(n for n, w in zip(ARRAYS, self.where) if w == where)
 
 def library_path() -> str:
     return cuda_library_path(SOURCE, f"lib{NAME}", NVCC_FLAGS)
@@ -114,29 +152,77 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = ctypes.CDLL(build()).fire_track_scan
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def shared_bytes(t: int, k: int) -> int:
-    """Dynamic shared memory of a launch (``smem_words`` in the source)."""
-    m = max(k, t)
-    return 4 * (4 * t + 4 * k + 112 * t + k * t + 2 * t + 3 * k + 8 * m + 128)
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
-def launch_plan(t: int, k: int) -> Tuple[int, int]:
-    """``(threads, shared bytes)`` of a launch over T tracks and K
-    detection slots; raises ValueError where the kernel does not take
-    them.  Pure: it touches no device."""
-    if not (1 <= t <= MAX_THREADS and 1 <= k <= MAX_THREADS):
-        raise ValueError(f"track_scan: T={t} and K={k} must be in [1, {MAX_THREADS}]")
-    smem = shared_bytes(t, k)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"track_scan: T={t}, K={k} need {smem} bytes of shared memory, "
-                         f"more than the {MAX_SHARED_BYTES} a block has")
-    return -(-max(t, k) // 32) * 32, smem
+def chunk_bytes(f: int, k: int) -> int:
+    """One staging buffer: boxes, det_gid, det_sim, mask and det_has_emb
+    of ``f`` frames (``chunk_bytes`` in the source)."""
+    n = f * k
+    return 16 * n + 2 * _r16(4 * n) + 2 * _r16(n)
+
+
+def _array_bytes(name: str, t: int, k: int, f: int, where: str) -> int:
+    """Bytes of one array at ``where`` (``array_bytes`` in the source)."""
+    if name in ("p", "x") and where == "table":
+        return 0
+    r, c = min(t, k), max(t, k)
+    return {"cost": _r16(4 * k * t), "p": _r16(4 * t * PS), "x": _r16(4 * t * XS),
+            "tracks": _r16(16 * t + 4 * t * N_TRACK_FIELDS), "dets": _r16(44 * k),
+            "lap": _r16(4 * (2 * r + 5 * c + (c + 31) // 32 + 2 * k)),
+            "chunks": 2 * chunk_bytes(f, k) if f > 0 else 0}[name]
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(t: int, k: int) -> LaunchPlan:
+    """The launch over T tracks and K detection slots.  Every array stays
+    in shared memory where they all fit with the smallest staging chunk
+    (the frames whose K detection bytes make a multiple of 16); else the
+    arrays leave it in :data:`SPILL_ORDER` (P and x into the table, the
+    rest into scratch) until the others fit; then the chunk grows to
+    :data:`MAX_CHUNK_FRAMES` within what is left.  Raises ValueError for
+    T or K below 1 only.  Pure (it touches no device), and cached: the
+    per-frame path asks for the same plan every frame."""
+    if t < 1 or k < 1:
+        raise ValueError(f"track_scan: T={t} and K={k} must be at least 1")
+    step = 16 // math.gcd(k, 16)
+    spilled = []
+
+    def where(name):
+        if name not in spilled:
+            return "shared"
+        return "table" if name in ("p", "x") else "scratch"
+
+    def shared(f):
+        return MISC_BYTES + sum(_array_bytes(n, t, k, f, "shared") for n in ARRAYS
+                                if where(n) == "shared")
+
+    frames = step
+    for name in SPILL_ORDER:
+        if shared(frames) <= MAX_SHARED_BYTES:
+            break
+        spilled.append(name)
+    if shared(frames) > MAX_SHARED_BYTES:
+        frames = 0
+    while 0 < frames + step <= MAX_CHUNK_FRAMES and shared(frames + step) <= MAX_SHARED_BYTES:
+        frames += step
+    ends = {"shared": MISC_BYTES, "scratch": 0, "table": 0}
+    offsets = []
+    for name in ARRAYS:
+        w = where(name)
+        offsets.append(ends[w])
+        ends[w] += _array_bytes(name, t, k, frames, w)
+    warps = min(MAX_WARPS, max(1, -(-max(t, k) // 8)))
+    return LaunchPlan(32 * warps, ends["shared"], ends["scratch"], frames,
+                      tuple(where(n) for n in ARRAYS), tuple(offsets))
 
 
 # ------------------------------------------------------------ plain version --
@@ -256,8 +342,15 @@ def _launch(table: TrackTable, boxes, mask, cfg: TrackerConfig, ident=None, det=
             stats: Optional[torch.Tensor] = None):
     global launches
     b, k, t = boxes.shape[0], boxes.shape[1], table.x.shape[0]
-    threads, smem = launch_plan(t, k)
+    plan = launch_plan(t, k)
     dev = boxes.device
+    if plan.chunk_frames:
+        # the bulk copies read from 16-byte boundaries: a view that starts
+        # elsewhere is copied once
+        boxes, mask = _aligned(boxes), _aligned(mask)
+        det = None if det is None else tuple(_aligned(x) for x in det)
+    scratch = (torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+               if plan.scratch_bytes else None)
     i32 = dict(dtype=torch.int32, device=dev)
     out = TrackOutputs(torch.empty((b, t), **i32), torch.empty((b, t, 4), **i32),
                        torch.empty((b, t), **i32),
@@ -270,7 +363,12 @@ def _launch(table: TrackTable, boxes, mask, cfg: TrackerConfig, ident=None, det=
               max_acceleration=cfg.max_acceleration, min_log_area=cfg.min_log_area,
               min_log_aspect=cfg.min_log_aspect, min_wh=cfg.min_wh, max_wh=cfg.max_wh,
               max_distance=cfg.max_distance, gate=(1.0 - cfg.iou_threshold) + 1.0,
-              similarity_threshold=float(similarity_threshold))
+              similarity_threshold=float(similarity_threshold),
+              chunk_frames=plan.chunk_frames)
+    a.off[:] = plan.offsets
+    a.where[:] = [_WHERE[w] for w in plan.where]
+    if scratch is not None:
+        a.scratch = scratch.data_ptr()
     a.q[:] = [cfg.q_pos, cfg.q_pos, cfg.q_acc, cfg.q_acc, cfg.q_vel, cfg.q_vel,
               cfg.q_acc, cfg.q_acc, cfg.q_acc, cfg.q_acc]
     for name, x in zip(TrackTable._fields, table):
@@ -290,17 +388,22 @@ def _launch(table: TrackTable, boxes, mask, cfg: TrackerConfig, ident=None, det=
         for name, x in zip(("o_gid", "o_sim", "o_enroll", "o_emb_src"), iout):
             setattr(a, name, x.data_ptr())
     if stats is not None:
-        _check("stats", stats, torch.int32, (len(STATS),), dev)
+        _check("stats", stats, torch.int64, (len(STATS),), dev)
         a.stats = stats.data_ptr()
     fn = _kernel()
     other = dev.index != torch.cuda.current_device()  # the launch goes to the current device
     with torch.cuda.device(dev) if other else contextlib.nullcontext():
-        err = fn(ctypes.byref(a), threads, smem, raw_stream(dev.index))
+        err = fn(ctypes.byref(a), plan.threads, plan.shared_bytes, plan.scratch_bytes,
+                 raw_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"track_scan kernel launch failed: code {err} (a cudaError_t, or "
                            f"the kernel's own above 20000) at B={b}, K={k}, T={t}")
     launches += 1
     return out, iout
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _copy_into(dst, src) -> None:
@@ -316,8 +419,8 @@ def sort_scan(table: TrackTable, boxes: torch.Tensor, mask: torch.Tensor, cfg: T
 
     CPU tensors → :func:`sort_scan_plain`.  CUDA tensors → one launch
     of the kernel on the current stream, or an exception.  ``stats``
-    ((5,) int32 on the card) gets the launch's work counts (:data:`STATS`)
-    added to it; the kernel alone counts them."""
+    ((14,) int64 on the card) gets the launch's work counts and cycles
+    (:data:`STATS`) added to it; the kernel alone counts them."""
     _check_args(table, boxes, mask)
     if boxes.device.type == "cpu":
         if stats is not None:

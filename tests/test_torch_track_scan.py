@@ -14,7 +14,8 @@ JAX's ``lax.scan``.
 * ``emb_src`` gathered into embeddings equals the in-loop ``temb`` the
   scan carried before; the epilogue's scatter equals the boolean index.
 * The wrapper on CPU tensors takes the plain version and updates in
-  place; its argument checks and launch limits.
+  place; its argument checks; the launch plan for every T, K >= 1
+  within shared memory; a failed launch raises, never falling back.
 """
 
 import os
@@ -291,7 +292,7 @@ def test_wrapper_checks_its_arguments():
     with pytest.raises(ValueError, match="the CPU or a CUDA device"):
         K2.sort_scan(table, boxes.to("meta"), mask.to("meta"), cfg)
     with pytest.raises(ValueError, match="stats"):
-        K2.sort_scan(table, boxes, mask, cfg, stats=torch.zeros(5, dtype=torch.int32))
+        K2.sort_scan(table, boxes, mask, cfg, stats=torch.zeros(len(K2.STATS), dtype=torch.int64))
     gid = torch.zeros(mask.shape, dtype=torch.int32)
     ident = K2.IdentityState(torch.zeros(16, dtype=torch.int32), torch.zeros(16),
                              torch.zeros(16, dtype=torch.int32), torch.zeros(16, dtype=torch.bool))
@@ -302,17 +303,68 @@ def test_wrapper_checks_its_arguments():
                       gid.float(), mask, cfg, 0.7, 1)
 
 
-def test_launch_plan_limits():
-    assert K2.launch_plan(64, 8) == (64, K2.shared_bytes(64, 8))
-    assert K2.launch_plan(32, 8)[0] == 32 and K2.launch_plan(1, 1)[0] == 32
-    threads, smem = K2.launch_plan(192, 128)
-    assert threads == 192 and 48 * 1024 < smem <= K2.MAX_SHARED_BYTES
-    assert K2.launch_plan(16, 128)[0] == 128
-    for t, k in ((0, 8), (257, 8), (64, 0), (64, 300)):
-        with pytest.raises(ValueError, match="must be in"):
+@pytest.mark.parametrize("t,k", [(1, 1), (64, 8), (64, 32), (192, 128), (256, 128), (192, 192),
+                                 (512, 256), (1024, 64)])
+def test_launch_plan_limits(t, k):
+    """Every T, K >= 1 has a plan within the block's shared memory: the
+    arrays that do not fit go to scratch (the cost first) or, for P and x,
+    stay in the table; the main path's (64, 8) and the crowd's (192, 128)
+    keep everything in shared memory."""
+    plan = K2.launch_plan(t, k)
+    assert plan.shared_bytes <= K2.MAX_SHARED_BYTES
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 32 * K2.MAX_WARPS
+    assert len(plan.where) == len(plan.offsets) == len(K2.ARRAYS)
+    spilled = plan.placed("scratch") + plan.placed("table")
+    if (t, k) in ((1, 1), (64, 8), (64, 32), (192, 128)):
+        assert spilled == () and plan.scratch_bytes == 0
+    else:  # spilled in order: the cost before P before x
+        order = [n for n in K2.SPILL_ORDER if n in spilled]
+        assert order == list(K2.SPILL_ORDER[:len(order)]) and "cost" in plan.placed("scratch")
+    assert set(plan.placed("table")) <= {"p", "x"}
+    assert plan.chunk_frames > 0 and plan.chunk_frames * k % 16 == 0
+    # the arrays in each space lie apart, 16-byte aligned, inside it
+    for space, start, end in (("shared", K2.MISC_BYTES, plan.shared_bytes),
+                              ("scratch", 0, plan.scratch_bytes)):
+        spans = sorted((off, off + K2._array_bytes(n, t, k, plan.chunk_frames, w))
+                       for n, w, off in zip(K2.ARRAYS, plan.where, plan.offsets) if w == space)
+        for (lo, hi), nxt in zip(spans, spans[1:] + [(end, end)]):
+            assert start <= lo and lo % 16 == 0 and hi <= nxt[0]
+
+
+def test_launch_plan_reads_unstaged_detections_past_any_chunk():
+    """K so large that even one frame's staging buffers do not fit beside
+    the counters: every array leaves shared memory and the detections are
+    read where they lie (chunk_frames 0)."""
+    plan = K2.launch_plan(8, 8192)
+    assert plan.chunk_frames == 0 and plan.shared_bytes <= K2.MAX_SHARED_BYTES
+    assert plan.placed("shared") == ("chunks",) and plan.placed("table") == ("p", "x")
+
+
+def test_launch_plan_refuses_nonpositive_sizes():
+    for t, k in ((0, 8), (64, 0), (-1, 1)):
+        with pytest.raises(ValueError, match="at least 1"):
             K2.launch_plan(t, k)
-    with pytest.raises(ValueError, match="shared memory"):
-        K2.launch_plan(256, 128)
+
+
+def test_a_failed_launch_raises_and_never_takes_the_plain_version(monkeypatch):
+    """The wrapper's launch path with the kernel binding returning an
+    error code (as a refused launch does): RuntimeError, nothing counted,
+    and the plain loop never called."""
+    cfg, boxes, mask = _small_case()
+    table = TS.make_table(cfg)
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version was reached from a kernel launch")
+
+    monkeypatch.setattr(K2, "sort_scan_plain", plain)
+    monkeypatch.setattr(K2, "track_scan_plain", plain)
+    monkeypatch.setattr(K2, "_kernel", lambda: (lambda *args: 20001))
+    monkeypatch.setattr(K2, "raw_stream", lambda index: 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    before = K2.launches
+    with pytest.raises(RuntimeError, match="launch failed: code 20001"):
+        K2._launch(table, boxes, mask, cfg)
+    assert K2.launches == before
 
 
 def test_module_imports_without_nvcc_or_gpu(tmp_path):
