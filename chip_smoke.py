@@ -118,25 +118,39 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    numbers.  (c) At C = 100,000 identities, the one-device and the
    (2, 2) step: ms a step, the peak memory of each device, and each
    ``mp`` block's columns and bytes on its own device.
-22. ``train_detectors``: YuNet-64 (320², B = 32), BlazeFace (192² from
+22. ``dryrun``: ``fire_tpu_torch.dryrun``, the counterpart of
+   ``__graft_entry__.py``.  ``entry()``: FaceNet-512 in bf16 at full
+   width on 8 × 160², ms a call, and unit rows at cosine ≥ 0.999 to the
+   CPU's.  Then ``dryrun_multichip(8)`` on this card repeated eight times,
+   (dp, mp) = (4, 2), TF32 off: the ArcFace step, the row-sharded top-k,
+   S = 4 streams with the stand-in engine and with the real YuNet and
+   FaceNet graphs (each equal to the single-stream engine) and
+   ``process_videos``; seconds a plane and K1's and K2's launches (K2:
+   one a stream step).  The stand-in and real-model planes run again
+   on the card with K1 and K2 swapped for their plain versions, and on
+   ``["cpu"] * 8``: masks, track and gallery ids equal, similarities
+   within 1e-3, boxes within 1e-3 of the card's plain run and within 1 px
+   of the CPU's (the CPU's ``exp`` may round a box edge a pixel apart).
+   With four cards, ``dryrun_multichip(4)`` on four distinct ones.
+23. ``train_detectors``: YuNet-64 (320², B = 32), BlazeFace (192² from
    480×640, B = 64) and RetinaFace (512² from 480×640, B = 8): each
    pool step memorises one batch as above, then the trainer's ``main``
    runs a few dozen steps on a small pool; BlazeFace and RetinaFace
    fine-tune the committed weights, and their held-out P/R stays within
    0.15 of the starting weights'.
-23. ``bench``: the measurement plane, ``fire_tpu_torch.bench``, through
+24. ``bench``: the measurement plane, ``fire_tpu_torch.bench``, through
    its functions at cut trials: the gallery A/B with K1 held to its plain
    version on the bench's inputs, the headline's legs at B = 128 and 256
    (1 warm-up, 2 trials of 2 steps), one trial each of full cost, frame
    skip and in RAM, the tracker A/B and the crowd curve at 1 and 16 faces
    a frame; K1's and K2's launches per bench (K2: one a batch).
-24. ``trace``: one more batch of the batched path and 16 frames of the
+25. ``trace``: one more batch of the batched path and 16 frames of the
    per-frame path under ``torch.profiler``, with YuNet and with
    RetinaFace, then one full-width ArcFace step on one device and one on
    the (2, 2) mesh, for the device's busy time and its idle share of the
    traced wall time (six ``trace`` lines).  It runs after every timed phase: the profiler leaves
    launches slower.
-25. ``cross_device``: one 8-frame batched step, a 2-stream step, the
+26. ``cross_device``: one 8-frame batched step, a 2-stream step, the
    per-frame engine calls (``detect_faces``, ``encode_boxes``,
    ``encode_landmarks``, ``extract_faces``, BlazeFace and RetinaFace
    ``detect``), the random-init FaceNet-128, the ONNX executor on a
@@ -169,8 +183,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main_path", "retina_path", "frame_path", "retina_frame",
           "image_mode", "default_command", "encrypted", "multistream", "sharded_gallery",
           "importers", "native", "label_text", "eval_detect", "calibrate", "eval_auc",
-          "eval_e2e", "train_encoder", "train_sharded", "train_detectors", "bench", "trace",
-          "cross_device")
+          "eval_e2e", "train_encoder", "train_sharded", "dryrun", "train_detectors", "bench",
+          "trace", "cross_device")
 
 N_GALLERY = 99_900
 PADDED_ROWS = 100_352  # DeviceGallery pads 100,000 to 49 × 2048
@@ -2453,6 +2467,169 @@ def phase_train_sharded(ctx) -> None:
           f"train_sharded: the loss went {memo['loss_first']:.3f} → {memo['loss_last']:.3f}")
 
 
+def _entry_check() -> dict:
+    """``dryrun.entry()`` on the card: (8, 512), finite; ms a call (CUDA
+    events, median of 5 after a warm call); on seeded random images unit
+    rows at cosine ≥ 0.999 to the same forward on the CPU."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch import dryrun
+
+    fn, args = dryrun.entry()
+    out = fn(*args)
+    check(tuple(out.shape) == (8, 512) and bool(torch.isfinite(out).all()),
+          f"dryrun: entry() gave {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    ms = median([event_ms(lambda: fn(*args), 1) for _ in range(5)])
+    x = np.random.default_rng(21).random((8, 160, 160, 3)).astype(np.float32)
+    card = fn(args[0], torch.tensor(x, device="cuda")).cpu().numpy()
+    cpu_fn, (cpu_model, _) = dryrun.entry("cpu")
+    ref = cpu_fn(cpu_model, torch.tensor(x)).numpy()
+    norm_err = float(np.abs(np.linalg.norm(card, axis=1) - 1.0).max())
+    min_cos = float(((card * ref).sum(1) / np.linalg.norm(ref, axis=1)).min())
+    check(norm_err <= 1e-3 and min_cos >= 0.999,
+          f"dryrun: entry() rows off unit norm by {norm_err}, cosine to the CPU {min_cos}")
+    return {"model": "facenet-512 bf16", "shape": list(out.shape), "ms_per_call": ms,
+            "max_norm_err": norm_err, "min_cos_vs_cpu": min_cos}
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """K1 and K2 swapped for their plain versions where the batched step
+    calls them, on whatever device the step runs."""
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.pipeline import batch_engine as be
+    from fire_tpu_torch.track import scan as k2
+
+    def track_scan(table, ident, *args):  # in place, as the wrapper updates them
+        new_table, new_ident, out, iout = k2.track_scan_plain(table, ident, *args)
+        for dst, src in zip((*table, *ident), (*new_table, *new_ident)):
+            dst.copy_(src)
+        return table, ident, out, iout
+
+    real = be.cosine_top1, be.track_scan
+    be.cosine_top1, be.track_scan = k1.plain_cosine_top1, track_scan
+    try:
+        yield
+    finally:
+        be.cosine_top1, be.track_scan = real
+
+
+def _compare_streams(plane: str, card, other, what: str, box_tol: float) -> dict:
+    """Masks, track ids and gallery ids equal; boxes within ``box_tol``,
+    similarities within 1e-3.  Returns the errors and where boxes differ."""
+    import numpy as np
+
+    check(len(card) == len(other), f"dryrun {plane}: {len(card)} streams vs {len(other)} ({what})")
+    box_err, sim_err, differ = 0.0, 0.0, []
+    for s, (a, b) in enumerate(zip(card, other)):
+        for f in ("mask", "tid", "gid"):
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"dryrun {plane}: stream {s} {f} differs ({what})")
+        d = np.abs(a.boxes.astype(np.float64) - b.boxes)
+        box_err = max(box_err, float(d.max()))
+        sim_err = max(sim_err, float(np.abs(a.sim - b.sim).max()))
+        differ += [{"stream": s, "frame": int(f), "track": int(t), "card": a.boxes[f, t].tolist(),
+                    "other": b.boxes[f, t].tolist()}
+                   for f, t in zip(*np.nonzero(d.max(-1)))]
+    check(box_err <= box_tol and sim_err <= 1e-3,
+          f"dryrun {plane}: boxes {box_err}, sims {sim_err} ({what}): {differ[:4]}")
+    return {"box_err": box_err, "sim_err": sim_err, "boxes_differ": len(differ),
+            "first_differ": differ[:2]}
+
+
+def _dryrun_vs_plain(summary) -> dict:
+    """The card's stand-in and real-model planes (i) against the same
+    planes on the card with K1 and K2 swapped for their plain versions:
+    boxes within 1e-3; (ii) against the CPU's run (``["cpu"] * 8``),
+    where the wrappers run the plain versions: boxes within 1 px, as
+    ``cross_device`` holds them.  The box is ``trunc`` of a sum with
+    ``exp`` of the KF's log area, and the CPU's ``exp`` may round an ulp
+    away from the card's (the phase records both at log 100): a box edge
+    at a whole pixel can land a pixel apart.  Masks, track and gallery
+    ids equal in both."""
+    from fire_tpu_torch import dryrun
+
+    card_mesh = dryrun.dryrun_mesh(8, ["cuda:0"] * 8)
+    cpu_mesh = dryrun.dryrun_mesh(8, ["cpu"] * 8)
+    out = {}
+    for plane in ("standin", "real"):
+        run = getattr(dryrun, f"{plane}_plane")
+        with _plain_kernels():
+            plain = run(card_mesh)
+        cpu = run(cpu_mesh)
+        card = summary[plane]
+        out[plane] = {"streams": len(card),
+                      "confirmed": int(sum(r.mask.sum() for r in card)),
+                      "vs_plain_on_card": _compare_streams(plane, card, plain, "plain on the card",
+                                                           1e-3),
+                      "vs_cpu": _compare_streams(plane, card, cpu, "the CPU", 1.0)}
+    return out
+
+
+def phase_dryrun(ctx) -> None:
+    """``fire_tpu_torch.dryrun`` (``__graft_entry__.py``'s counterpart):
+    ``entry()`` at full width in bf16, then ``dryrun_multichip(8)`` on
+    this card repeated eight times, K1's and K2's launches counted, its
+    stand-in and real-model planes held against their plain versions on
+    the card and against the CPU (:func:`_dryrun_vs_plain`); with four
+    cards, ``dryrun_multichip(4)`` on four distinct ones.  TF32 is off
+    for the dry run so that its float32 convolutions compare with the
+    CPU's."""
+    import io
+
+    import torch
+
+    from fire_tpu_torch import dryrun
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.track import scan as k2
+
+    rec = {"phase": "dryrun", "entry": _entry_check()}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        closing = io.StringIO()  # the closing line: into this phase's record, not stdout
+        with _batch_steps() as steps, contextlib.redirect_stdout(closing):
+            k1.reset_launches()
+            k2.reset_launches()
+            t0 = time.perf_counter()
+            summary = dryrun.dryrun_multichip(8, devices=["cuda:0"] * 8)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, k2_launches = k1.launches, k2.launches
+        check(launches > 0, "dryrun: K1 was not launched")
+        check(k2_launches == steps.n > 0,
+              f"dryrun: K2 launched {k2_launches} times for {steps.n} stream steps")
+        t0 = time.perf_counter()
+        rec["vs_plain"] = _dryrun_vs_plain(summary)
+        rec["vs_plain"]["seconds"] = time.perf_counter() - t0
+        # why a CPU box may sit a pixel apart: exp of the stand-in track's
+        # log area, log(10 · 10) in float32, on each device
+        log_area = torch.tensor(4.6051702)
+        rec["vs_plain"]["exp_log_area"] = {"card": torch.exp(log_area.cuda()).item(),
+                                           "cpu": torch.exp(log_area).item()}
+        if torch.cuda.device_count() >= 4:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                four = dryrun.dryrun_multichip(4)
+            rec["four_cards"] = {"devices": [f"cuda:{i}" for i in range(4)],
+                                 "mesh": four["mesh"], "loss": four["loss"],
+                                 "seconds_by_plane": four["seconds"],
+                                 "wall_s": time.perf_counter() - t0}
+        else:
+            rec["four_cards"] = f"not run: {torch.cuda.device_count()} card(s)"
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    ctx["k1_launches_dryrun"], ctx["k2_launches_dryrun"] = launches, k2_launches
+    rec.update({"devices": ["cuda:0"] * 8, "mesh": summary["mesh"], "loss": summary["loss"],
+                "self_matches": summary["self_matches"], "streams": summary["streams"],
+                "cli_outputs": summary["cli_outputs"], "seconds_by_plane": summary["seconds"],
+                "wall_s": wall, "k1_launches": launches, "k2_launches": k2_launches,
+                "batch_steps": steps.n, "closing_line": closing.getvalue().strip(),
+                "card": ctx["smi"]})
+    emit(rec)
+
+
 def _scene_pool(hw, n: int, max_faces: int, face_px, seed: int):
     """``n`` rendered scenes as the trainers' device pool (uint8 frames,
     padded GT) on the card."""
@@ -2872,8 +3049,8 @@ def kernel_summary(ctx) -> dict:
     launch counts on every path: batched (YuNet, RetinaFace), per-frame
     (YuNet, RetinaFace), image mode, the default command, encrypted, the
     multi-stream runs (S = 1, 2, 4 together), the end-to-end accuracy
-    run (per-frame and batched), the sharded training step and the bench
-    phase (gallery, headline, crowd)."""
+    run (per-frame and batched), the sharded training step, the dry run
+    and the bench phase (gallery, headline, crowd)."""
     from fire_tpu_torch.ops import cosine_top1 as k1
 
     main = next(r for r in ctx["k1"] if r.get("case") == f"M={BATCH}")
@@ -2891,6 +3068,7 @@ def kernel_summary(ctx) -> dict:
         "launches_eval_e2e_frame": ctx["k1_launches_eval_e2e_frame"],
         "launches_eval_e2e_batched": ctx["k1_launches_eval_e2e_batched"],
         "launches_train_sharded": ctx["k1_launches_train_sharded"],
+        "launches_dryrun": ctx["k1_launches_dryrun"],
         "launches_bench": ctx["k1_launches_bench"],
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -2912,6 +3090,7 @@ def k2_summary(ctx) -> dict:
         "launches_retina_path": ctx["k2_launches_retina_path"],
         "launches_frame_path": ctx["k2_launches_frame_path"],
         "launches_multistream": ctx["k2_launches_multistream"],
+        "launches_dryrun": ctx["k2_launches_dryrun"],
         "launches_bench": ctx["k2_launches_bench"],
         "max_abs_err": max(r["max_abs_err"] for r in ctx["k2"]),
         "box_err_px": max(r["box_err_px"] for r in ctx["k2"]),

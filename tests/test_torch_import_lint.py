@@ -63,7 +63,7 @@ def test_lint_sees_the_whole_package():
                 "train/detect.py", "train/detect_blaze.py", "train/detect_retina.py",
                 "bench/__init__.py", "bench/__main__.py", "bench/common.py", "bench/headline.py",
                 "bench/gallery.py", "bench/tracker.py", "bench/crowd.py", "bench/profile.py",
-                "export_bf16.py", "track/scan.py"):
+                "export_bf16.py", "track/scan.py", "dryrun.py"):
         assert f"fire_tpu_torch/{new}" in rel
     assert len(rel) >= 57
     assert _imports(ast.parse("import jax\ndef f():\n    import cv2\n")) == [("jax", True), ("cv2", False)]
