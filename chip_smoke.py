@@ -7,16 +7,19 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
 
 1. ``env``: torch / CUDA versions, the card's name and power limit.
 2. ``build``: compiles kernels K1 (``fire_tpu_torch/csrc/cosine_top1.cu``)
-   and K2 (``csrc/track_scan.cu``) with nvcc for sm_90a, and beside them
-   the host AES-128-CBC library of the at-rest encryption
+   and K2 (``csrc/track_scan.cu``) and the step graph's library
+   (``csrc/step_graph.cu``) with nvcc for sm_90a, and beside them the
+   host AES-128-CBC library of the at-rest encryption
    (``csrc/aes128_cbc.cpp``) and the host LAP / NMS library with the host
    C++ compiler, all at once; fails if ptxas reports a spill.
 3. ``kernels``: K1 against its plain PyTorch version on the card at the
    host query path's and the batched path's shapes (M = 1…2048 queries ×
    the 100,352-row padded gallery × 512), with its launch plan and its
    kernel (called one by one, and replayed from a CUDA graph), plain,
-   library and bound times; then small and ragged counts,
-   a gallery that ends inside a tile, an empty gallery and duplicated rows.
+   library and bound times, at M = 64 and 2048 also in the device-count
+   form the step graph launches; then small and ragged counts (in both
+   forms), a gallery that ends inside a tile, an empty gallery and
+   duplicated rows.
    Then K2, the tracker scan, against its plain version (the ``sort_step``
    loop) on seeded sequences: B = 256 / T = 64 / K = 8 Hungarian, a crowd
    at B = 32 / T = 192 / K = 128 whose frames need the JV solve, B = 128 /
@@ -34,10 +37,16 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    width (YuNet-64 at 640², FaceNet-512, 99,900-row gallery, committed
    trained weights) over rendered 1-face 1080p scenes; K1's and K2's
    launch counts are set to 0 just before and read just after (K2: one a
-   batch).  Then the synchronising operations of one warm ``submit``
-   (``torch.cuda.set_sync_debug_mode("warn")``, stage timer off): one
-   with the bucket ladder, none with ``encode_budget=64``; the batch's
-   ``submit`` and ``collect`` wall times.  Then five distinct batches
+   batch; each replay of the step graph counts its launches), with each
+   step graph's capture seconds and pool.  Then the synchronising
+   operations of one warm ``submit`` (``torch.cuda.set_sync_debug_mode(
+   "warn")``, stage timer off): none with the bucket ladder, with
+   ``encode_budget=64`` and for two streams; the batch's ``submit`` and
+   ``collect`` wall times.  Then the step graph against the eager step
+   (its plain version) on batches that reach each rung of B = 64's
+   ladder (64, 256, 512), across an enrolment (matched with no new
+   capture) and for two streams; the eager step's device time by stage
+   (the graph replays as one stage).  Then five distinct batches
    submitted before any is collected, each equal to a second engine's
    one-at-a-time result, and the same for five steps of two streams.
 5. ``retina_path``: the same batched path and frames with the RetinaFace
@@ -64,9 +73,11 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    mesh of this one card repeated S times, B = 64 1080p frames per
    stream, two measured batches after a warm-up; streams 0 and 1 show
    one identity, which must enrol once; aggregate and per-stream
-   frames/s and K1's and K2's launches per S (K2: one a batch a stream).  Before that, at the engine level,
-   every stream of a 4-stream step equals a single-stream engine on the
-   same frames, and an ended stream runs on the cached zero batch.
+   frames/s and K1's and K2's launches per S (K2: one a batch a stream),
+   each S's step graph captured in a warm-up run first.  Before that, at
+   the engine level, every stream of a 4-stream step equals a
+   single-stream engine on the same frames, and an ended stream runs on
+   a zeroed input with no new capture.
 12. ``sharded_gallery``: ``ShardedGalleryView`` over 1…4 shards on this
    card against ``DeviceGallery.query_batch`` at M = 1, 8, 64 and
    k = 1, 5 on the 99,900-row gallery; incremental refreshes (300
@@ -159,7 +170,10 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
 
 The recognizer logs an error and goes on where a frame, an image or an
 enrolment fails, as JAX's does; every phase therefore runs with a
-handler on its logger, and an ERROR record fails the phase.
+handler on its logger, and an ERROR record fails the phase.  Between
+phases the memory their engines and step graphs held is given back to
+the card (``torch.cuda.empty_cache``), for the next phase's
+subprocesses.
 
 Any failed check raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or ``fire_tpu`` is
@@ -169,6 +183,7 @@ imported.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import logging
 import math
@@ -316,13 +331,15 @@ def phase_env(ctx) -> None:
 
 
 def phase_build(ctx) -> None:
-    """K1 with nvcc and the AES library with the host compiler, started
-    together; each from the checkout's source, never from an old build."""
+    """K1, K2 and the step graph's library with nvcc, the AES and native
+    libraries with the host compiler, started together; each from the
+    checkout's source, never from an old build."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fire_tpu_torch.gallery import crypto
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.runtime import native
+    from fire_tpu_torch.runtime import step_graph
     from fire_tpu_torch.track import scan as k2
 
     def timed(build, path):
@@ -332,13 +349,14 @@ def phase_build(ctx) -> None:
         build()
         return time.time() - t0
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         k1_job = pool.submit(timed, k1.build, k1.library_path())
         k2_job = pool.submit(timed, k2.build, k2.library_path())
+        graph_job = pool.submit(timed, step_graph.build, step_graph.library_path())
         aes_job = pool.submit(timed, crypto.build, crypto.library_path())
         native_job = pool.submit(timed, native.load_native, native.library_path())
         secs, aes_secs, native_secs = k1_job.result(), aes_job.result(), native_job.result()
-        k2_secs = k2_job.result()
+        k2_secs, graph_secs = k2_job.result(), graph_job.result()
     check(native.load_native() is not None, "build: the native library did not build")
 
     def report(kernel, seconds):
@@ -353,10 +371,14 @@ def phase_build(ctx) -> None:
 
     ptxas, ctx["k1_build"] = report(k1, secs)
     k2_ptxas, ctx["k2_build"] = report(k2, k2_secs)
+    graph_ptxas, graph_build = report(step_graph, graph_secs)
     emit({"phase": "build", "kernel": k1.NAME, "arch": "sm_90a", "nvcc_flags": list(k1.NVCC_FLAGS),
           "ptxas": ptxas, **ctx["k1_build"],
           "k2": {"kernel": k2.NAME, "nvcc_flags": list(k2.NVCC_FLAGS), "ptxas": k2_ptxas,
                  **ctx["k2_build"]},
+          "step_graph_library": {"source": "fire_tpu_torch/csrc/step_graph.cu",
+                                 "nvcc_flags": list(step_graph.NVCC_FLAGS),
+                                 "ptxas": graph_ptxas, **graph_build},
           "aes_library": {"source": "fire_tpu_torch/csrc/aes128_cbc.cpp",
                           "flags": list(crypto.CXX_FLAGS), "seconds": round(aes_secs, 3),
                           "backend": crypto.backend()},
@@ -379,11 +401,14 @@ def phase_kernels(ctx) -> None:
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def one(name, q, g, count, time_it):
+    def one(name, q, g, count, time_it, device_count=False):
         launches0 = k1.launches
-        sims, idx = k1.cosine_top1(q, g, count)
+        # the device-count form (what a step graph launches): the kernel
+        # reads the count on the card, over a plan for all N rows
+        n = torch.tensor(count, dtype=torch.int32, device=dev) if device_count else count
+        sims, idx = k1.cosine_top1(q, g, n)
         torch.cuda.synchronize()  # a fault of this case shows here, not later
-        ps, pi = k1.plain_cosine_top1(q, g, count)
+        ps, pi = k1.plain_cosine_top1(q, g, n)
         # top-2 gap of the plain product: the index must agree wherever
         # the best row wins by more than the sims' tolerance
         full = q.to(torch.bfloat16).float() @ g.to(torch.bfloat16).float().T
@@ -395,20 +420,21 @@ def phase_kernels(ctx) -> None:
         idx_ok = bool((idx[decisive] == pi[decisive]).all())
         check(err <= 1e-3, f"K1 {name}: sims differ from the plain version by {err}")
         check(idx_ok, f"K1 {name}: index differs from the plain version")
-        plan = k1.launch_plan(int(q.shape[0]), count, DIM, sms)
+        plan = k1.launch_plan(int(q.shape[0]), g.shape[0] if device_count else count, DIM, sms)
         rec = {"case": name, "M": int(q.shape[0]), "N": int(g.shape[0]), "D": DIM,
-               "count": count, "max_abs_err": err, "index_equal_where_decisive": idx_ok,
+               "count": count, "device_count": device_count, "max_abs_err": err,
+               "index_equal_where_decisive": idx_ok,
                "plan": {**plan._asdict(), "blocks": plan.blocks}}
         if time_it:
             reps = 20 if q.shape[0] <= 512 else 5
             qb, gb = q.to(torch.bfloat16), g
             rec.update(cuda_ms_each({
-                "kernel_ms": lambda: k1.cosine_top1(q, g, count),
-                "plain_ms": lambda: k1.plain_cosine_top1(q, g, count),
+                "kernel_ms": lambda: k1.cosine_top1(q, g, n),
+                "plain_ms": lambda: k1.plain_cosine_top1(q, g, n),
                 "library_ms": lambda: torch.max(torch.matmul(qb, gb[:count].T), dim=1)}, reps))
             # the same launches replayed from a CUDA graph: what the card
             # alone takes, where kernel_ms also holds the host that launches them
-            rec["kernel_device_ms"] = graph_ms(lambda: k1.cosine_top1(q, g, count), reps)
+            rec["kernel_device_ms"] = graph_ms(lambda: k1.cosine_top1(q, g, n), reps)
             rec["bound_ms"], rec["bound_by"] = k1_bound_ms(int(q.shape[0]), count)
             rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
             rec["kernel_over_library"] = rec["kernel_ms"] / rec["library_ms"]
@@ -421,6 +447,8 @@ def phase_kernels(ctx) -> None:
     for m in (1, 8, 64, 128, 256, 512, 2048):
         q = torch.from_numpy(unit_rows(rng, m, DIM)).to(dev)
         one(f"M={m}", q, g16, N_GALLERY, time_it=True)
+        if m in (BATCH, 2048):  # the step graph's form at the main path's rung, and B = 256's top
+            one(f"M={m} device count", q, g16, N_GALLERY, time_it=True, device_count=True)
     q = torch.from_numpy(unit_rows(rng, 128, DIM)).to(dev)
     one("count=0", q, g16, 0, time_it=False)
     one("count=1", q, g16, 1, time_it=False)  # inside the first chunk's first tile
@@ -429,6 +457,8 @@ def phase_kernels(ctx) -> None:
     ragged = g16[: PADDED_ROWS - 40]
     one("N=100312", q, ragged, PADDED_ROWS - 40, time_it=False)
     one("bf16 queries", q.to(torch.bfloat16), g16, N_GALLERY, time_it=False)
+    for count in (0, 1, 2047, 2048, PADDED_ROWS):
+        one(f"count={count} device count", q, g16, count, time_it=False, device_count=True)
     s0, i0 = k1.cosine_top1(q, g16, 0)
     check(bool((s0 == -2.0).all()) and bool((i0 == 0).all()), "K1 count=0: not (-2, 0)")
     # ties: a row duplicated after the original, 8 rows on (the same
@@ -696,11 +726,32 @@ class _Calls:
         setattr(self.owner, self.name, self._real)
 
 
-def _batch_steps():
-    """Counts ``BatchStreamEngine.step``: the batches, one per stream."""
-    from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine
+class _batch_steps:
+    """Counts the batches stepped, one per stream: each eager
+    ``BatchStreamEngine.step`` and each stream of a ``StepGraph`` replay
+    (the warm-up and the capture of a graph call neither)."""
 
-    return _Calls(BatchStreamEngine, "step")
+    def __enter__(self):
+        from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine, StepGraph
+
+        self.n, owner = 0, self
+        self._real = step, replay = BatchStreamEngine.step, StepGraph.replay
+
+        def counting_step(*args, **kw):
+            owner.n += 1
+            return step(*args, **kw)
+
+        def counting_replay(graph):
+            owner.n += len(graph.packed)
+            return replay(graph)
+
+        BatchStreamEngine.step, StepGraph.replay = counting_step, counting_replay
+        return self
+
+    def __exit__(self, *exc):
+        from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine, StepGraph
+
+        BatchStreamEngine.step, StepGraph.replay = self._real
 
 
 YUNET = dict(detector_type="yunet", trained_detector=_trained("yunet_synth.msgpack"))
@@ -768,7 +819,8 @@ def _batched_run(ctx, storage: str, detector: dict):
     check(1 <= added <= n_scenes, f"{name}: {added} enrolments for {n_scenes} one-face scenes")
     totals = fr.timer.totals
     stages = {k: round(v / n_batches * 1e3, 3) for k, v in totals.items()}
-    return fr, {"frames": len(frames), "batch": BATCH, "batches": n_batches,
+    return fr, {"graphs": graph_records(fr._batch_engines), "frames": len(frames),
+                "batch": BATCH, "batches": n_batches,
                 "frames_per_s": len(frames) / wall, "wall_s": wall, "k1_launches": launches,
                 "k2_launches": k2_launches,
                 "tracked_fraction": tracked, "sqlite_rows_added": added,
@@ -783,7 +835,71 @@ def phase_main_path(ctx) -> None:
     ctx["fr"] = fr  # the trace phase runs it once more, then closes it
     emit({"phase": "main_path", **rec})
     emit({"phase": "main_path", "check": "submit syncs", **submit_syncs(fr)})
+    emit({"phase": "main_path", "check": "graph vs eager", **graph_vs_eager(fr)})
+    emit({"phase": "main_path", "check": "eager stages", **eager_stages(fr)})
     emit({"phase": "main_path", "check": "outstanding tokens", **outstanding_tokens(fr)})
+
+
+class _graph_builds:
+    """Records every step graph built while active: its streams, the
+    shape of its first stream's frames, capture seconds and the memory
+    the capture added to the device's graph pool."""
+
+    def __enter__(self):
+        from fire_tpu_torch.pipeline.batch_engine import StepGraph
+
+        self.records = []
+        self._real = real = StepGraph.__init__
+
+        def noting(graph, *args, **kw):
+            real(graph, *args, **kw)
+            self.records.append({"streams": len(graph.frames),
+                                 "frames": list(graph.frames[0].shape),
+                                 "capture_s": graph.capture_s,
+                                 "pool_gb": graph.pool_bytes / 1e9})
+
+        StepGraph.__init__ = noting
+        return self.records
+
+    def __exit__(self, *exc):
+        from fire_tpu_torch.pipeline.batch_engine import StepGraph
+
+        StepGraph.__init__ = self._real
+
+
+def graph_records(engines) -> list:
+    """Each step graph of the recognizer's kept batch engines: its
+    streams and frames' shape, capture seconds and the memory the capture
+    reserved."""
+    return [{"streams": key[1], "frames": list(key[2]), "capture_s": g.capture_s,
+             "pool_gb": g.pool_bytes / 1e9}
+            for engine in engines.values() for key, g in engine.graphs]
+
+
+def eager_stages(fr, reps: int = 3) -> dict:
+    """The per-stage device times of the main path's batch, from the
+    eager step (the graph replays as one stage): CUDA events around each
+    stage, ms a batch, the median of ``reps`` steps after a warm one."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine, clone_state
+    from fire_tpu_torch.pipeline.timing import StageTimer
+
+    frames = torch.from_numpy(np.stack(_frames(seed=0, n_scenes=2, per_scene=BATCH // 2))).cuda()
+    bse = BatchStreamEngine(fr.engine, fr.gallery, fr.cfg)
+    runs = []
+    for i in range(reps + 1):
+        bse.timer = StageTimer()
+        with torch.inference_mode():
+            bse.step(fr.engine, fr.gallery.gal_matmul, fr.gallery.count_dev,
+                     clone_state(bse.state), frames)
+        bse.timer.resolve()
+        if i:
+            runs.append(bse.timer.totals)
+    return {"source": "eager step (the graph's plain version), CUDA events a stage",
+            "batch": BATCH,
+            "stage_ms_per_batch": {k: median([r[k] for r in runs]) * 1e3 for k in runs[0]}}
 
 
 def outstanding_tokens(fr, n: int = 5, batch: int = 16) -> dict:
@@ -829,54 +945,163 @@ def outstanding_tokens(fr, n: int = 5, batch: int = 16) -> dict:
             "multistream": {"streams": 2, "steps": n}}
 
 
+def _count_syncs(fn):
+    """``fn()``'s result and the synchronising CUDA operations it made
+    (``torch.cuda.set_sync_debug_mode("warn")``, where each is a warning),
+    each named by the lines that called it."""
+    import traceback
+    import warnings
+
+    import torch
+
+    syncs = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        # torch's own words; its one-time note that the mode is a prototype is not a sync
+        if "called a synchronizing cuda operation" in str(message).lower():
+            syncs.append(" < ".join(f"{os.path.relpath(fr.filename, REPO)}:{fr.lineno}"
+                                    for fr in traceback.extract_stack()[-5:-1][::-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, syncs
+
+
 def submit_syncs(fr) -> dict:
     """The synchronising operations of one warm ``BatchStreamEngine.submit``
     of 64 host frames (numpy, 1080p) on the main path's engine and gallery,
     stage timer off, counted by ``torch.cuda.set_sync_debug_mode("warn")``:
-    one with the bucket ladder (the read that picks the bucket), none with
-    ``encode_budget=64``.  With the wall times of that ``submit`` and of
-    the ``collect`` after it."""
-    import traceback
-    import warnings
-
+    none with the bucket ladder (the rung is chosen on the card, inside
+    the step graph) and none with ``encode_budget=64``; none either for
+    one ``MultiStreamEngine.submit`` of two streams on this card.  With the
+    wall times of that ``submit`` and of the ``collect`` after it."""
     import numpy as np
     import torch
 
+    from fire_tpu_torch.parallel.mesh import make_mesh
+    from fire_tpu_torch.parallel.multistream import MultiStreamEngine
     from fire_tpu_torch.pipeline.batch_engine import BatchStreamEngine
 
     frames = [np.stack(_frames(seed=8 + i, n_scenes=2, per_scene=BATCH // 2)) for i in range(2)]
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    engines = (("ladder", BatchStreamEngine(fr.engine, fr.gallery, fr.cfg), frames),
+               ("encode_budget=64",
+                BatchStreamEngine(fr.engine, fr.gallery, fr.cfg, encode_budget=64), frames),
+               ("two streams", MultiStreamEngine(fr.engine, fr.gallery, fr.cfg, mesh),
+                [np.stack([x, x[::-1]]) for x in frames]))
     out = {}
-    for name, budget, want in (("ladder", None, 1), ("encode_budget=64", 64, 0)):
-        bse = BatchStreamEngine(fr.engine, fr.gallery, fr.cfg, encode_budget=budget)
-        bse.collect(bse.submit(frames[0]))  # warm: allocations, the pinned buffers
+    for name, engine, batches in engines:
+        engine.collect(engine.submit(batches[0]))  # warm: the capture, the pinned buffers
         torch.cuda.synchronize()
-        syncs = []
-
-        def note(message, category, filename, lineno, file=None, line=None):
-            # torch's own words; its one-time note that the mode is a prototype is not a sync
-            if "called a synchronizing cuda operation" in str(message).lower():
-                syncs.append(" < ".join(f"{os.path.relpath(fr.filename, REPO)}:{fr.lineno}"
-                                        for fr in traceback.extract_stack()[-5:-1][::-1]))
-
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = note
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                t0 = time.perf_counter()
-                token = bse.submit(frames[1])
-                t_submit = time.perf_counter() - t0
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
         t0 = time.perf_counter()
-        res = bse.collect(token)
+        token, syncs = _count_syncs(lambda: engine.submit(batches[1]))
+        t_submit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = engine.collect(token)
         t_collect = time.perf_counter() - t0
+        confirmed = int(sum(r.mask.sum() for r in (res if isinstance(res, list) else [res])))
         out[name] = {"syncs": len(syncs), "at": syncs, "submit_ms": t_submit * 1e3,
-                     "collect_ms": t_collect * 1e3, "confirmed": int(res.mask.sum())}
-        check(len(syncs) == want, f"submit syncs ({name}): {len(syncs)} where {want} was "
-              f"expected, at {syncs}")
-        check(out[name]["confirmed"] > 0, f"submit syncs ({name}): no track confirmed")
+                     "collect_ms": t_collect * 1e3, "confirmed": confirmed}
+        check(not syncs, f"submit syncs ({name}): {len(syncs)} where none was expected, at {syncs}")
+        check(confirmed > 0, f"submit syncs ({name}): no track confirmed")
     return {"batch": BATCH, **out}
+
+
+def _crowd_frames(seed: int, faces: int, n: int):
+    """``n`` 1080p frames of ``faces`` faces each that fit without overlap
+    (the crowd bench's scenes), 8 scenes taking turns."""
+    from fire_tpu_torch.bench.crowd import crowd_scenes
+    from fire_tpu_torch.train.scenes import make_identities
+
+    import numpy as np
+
+    scenes = crowd_scenes(np.random.default_rng(seed), make_identities(16, seed=seed), faces,
+                          hw=(1080, 1920))
+    return np.stack([scenes[i % len(scenes)][0] for i in range(n)])
+
+
+def _same_results(got, want, what: str) -> dict:
+    """Ids, masks, enrol flags and track ids equal; boxes within 1 px,
+    similarities within 1e-3."""
+    import numpy as np
+
+    for f in ("tid", "gid", "mask", "enroll", "enroll_frame", "enroll_slot"):
+        check(np.array_equal(getattr(got, f), getattr(want, f)), f"{what}: {f} differs")
+    box = int(np.abs(got.boxes.astype(np.int64) - want.boxes).max())
+    sim = float(np.abs(got.sim - want.sim).max())
+    check(box <= 1 and sim <= 1e-3, f"{what}: boxes {box} px, sims {sim} apart")
+    return {"box_err_px": box, "sim_err": sim}
+
+
+def graph_vs_eager(fr) -> dict:
+    """The step graph against its plain version, the eager step, at full
+    width on the 99,900-row gallery.  B = 64's ladder is (64, 256, 512):
+    half a batch of one-face scenes (the rest blank), three faces a frame
+    and eight faces a frame reach its three rungs, which the graph
+    records on the card.  Each replay's results equal the eager step's on
+    a copy of the same state.  Then a face the replay flagged is enrolled
+    into the gallery, and the next replay matches it without a new
+    capture.  Then two streams on this card, one graph for both, against
+    the eager step of each."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.parallel.mesh import make_mesh
+    from fire_tpu_torch.parallel.multistream import MultiStreamEngine
+    from fire_tpu_torch.pipeline import batch_engine as be
+
+    one = np.stack(_frames(seed=30, n_scenes=1, per_scene=BATCH))
+    one[BATCH // 2:] = 0
+    batches = [one, _crowd_frames(31, 3, BATCH), _crowd_frames(32, 8, BATCH)]
+    gallery = fr.gallery
+
+    def eager(engine, frames, state):
+        with torch.inference_mode():
+            _, packed = engine.step(engine.engine, gallery.gal_matmul, gallery.count_dev,
+                                    be.clone_state(state), torch.from_numpy(frames).cuda())
+        return be.unpack_results(packed.cpu().numpy(), frames.shape[0], engine.tcfg.max_tracks,
+                                 engine.cfg.embedding_dim)
+
+    bse = be.BatchStreamEngine(fr.engine, gallery, fr.cfg)
+    rungs, errs = [], []
+    for i, frames in enumerate(batches + batches[:1]):
+        want = eager(bse, frames, bse.state)
+        got = bse.process_batch(frames)
+        graph = next(g for _, g in bse.graphs)
+        rungs.append(int(graph.rungs[0]))
+        errs.append(_same_results(got, want, f"graph vs eager, batch {i} (rung {rungs[-1]})"))
+    check(sorted(set(rungs)) == [0, 1, 2], f"graph vs eager: rungs reached {rungs}")
+    # an enrolment between two replays
+    flagged = np.nonzero(got.enroll_frame >= 0)[0]
+    check(len(flagged) > 0, "graph vs eager: no face flagged for enrolment")
+    emb = got.enroll_emb[flagged[0]] / np.linalg.norm(got.enroll_emb[flagged[0]])
+    row = gallery.count
+    fr.enroll_unknown_now(emb, rename_label="graph check")
+    check(gallery.count == row + 1, "graph vs eager: the enrolment did not reach the gallery")
+    want = eager(bse, batches[0], bse.state)
+    got = bse.process_batch(batches[0])
+    errs.append(_same_results(got, want, "graph vs eager after an enrolment"))
+    check(len(list(bse.graphs)) == 1, "graph vs eager: the enrolment caused a new capture")
+    check(bool((got.gid[got.mask] == row).any()), "graph vs eager: the enrolled face not matched")
+    # two streams, one graph
+    mse = MultiStreamEngine(fr.engine, gallery, fr.cfg, make_mesh(devices=["cuda:0"] * 2))
+    for step in range(2):
+        frames = np.stack([batches[2 * step], batches[1]])
+        want = [eager(mse.inner, frames[s], mse.states[s]) for s in range(2)]
+        got2 = mse.process_batches(frames)
+        for s in range(2):
+            errs.append(_same_results(got2[s], want[s], f"two streams, step {step}, stream {s}"))
+    graph = next(g for _, g in bse.graphs)
+    return {"rungs": rungs, "box_err_px": max(e["box_err_px"] for e in errs),
+            "sim_err": max(e["sim_err"] for e in errs), "enrolled_row_matched": row,
+            "captures": len(list(bse.graphs)), "two_stream_captures": len(list(mse.graphs)),
+            "capture_s": graph.capture_s, "pool_gb": graph.pool_bytes / 1e9}
 
 
 def phase_retina_path(ctx) -> None:
@@ -930,7 +1155,7 @@ def phase_bench(ctx) -> None:
     del inputs
 
     fr, frames = common.setup_headline(os.path.join(ctx["tmp"], "bench"), dev)
-    with contextlib.closing(fr), _batch_steps() as steps:
+    with contextlib.closing(fr), _batch_steps() as steps, _graph_builds() as graphs:
         k1.reset_launches()
         k2.reset_launches()
         legs = {}
@@ -957,7 +1182,7 @@ def phase_bench(ctx) -> None:
     ctx["k1_launches_bench"]["headline"] = launches
     ctx["k2_launches_bench"] = {"headline": k2_launches}
     emit({"phase": "bench", "bench": "headline", **legs, "k1_launches": launches,
-          "k2_launches": k2_launches, "batch_steps": steps.n})
+          "k2_launches": k2_launches, "batch_steps": steps.n, "graphs": graphs})
     check(all(v > 0 for v in fps), f"bench headline: a frames/s is not above 0: {fps}")
     check(launches > 0, "bench headline: K1 was not launched")
     check(k2_launches == steps.n > 0,
@@ -973,7 +1198,7 @@ def phase_bench(ctx) -> None:
           f"times for {3 * len(tracker.VARIANTS)} scans")
 
     fr, bse, rng = crowd.setup_crowd(os.path.join(ctx["tmp"], "bench_crowd"), dev)
-    with contextlib.closing(fr), _batch_steps() as steps:
+    with contextlib.closing(fr), _batch_steps() as steps, _graph_builds() as graphs:
         idents = make_identities(32, seed=0)
         k1.reset_launches()
         k2.reset_launches()
@@ -990,7 +1215,7 @@ def phase_bench(ctx) -> None:
     ctx["k1_launches_bench"]["crowd"] = launches
     ctx["k2_launches_bench"]["crowd"] = k2_launches
     emit({"phase": "bench", "bench": "crowd", "batch": 32, "curve": curve, "k1_launches": launches,
-          "k2_launches": k2_launches, "batch_steps": steps.n,
+          "k2_launches": k2_launches, "batch_steps": steps.n, "graphs": graphs,
           "seconds": time.perf_counter() - t_phase})
     check(k2_launches == steps.n > 0,
           f"bench crowd: K2 launched {k2_launches} times for {steps.n} batch steps")
@@ -1536,9 +1761,10 @@ def _identity_frames(ident: int, render_seed: int, n_scenes: int, per_scene: int
 
 def _multistream_engine_check(fr) -> dict:
     """Four streams of one 64-frame batch through ``MultiStreamEngine`` on
-    a mesh of this card repeated, against four single-stream engines on
-    the same frames and gallery; then a second step with stream 3 ended
-    (its slot holds 255s, which it must never read)."""
+    a mesh of this card repeated (one step graph for the four), against
+    four single-stream engines on the same frames and gallery; then a
+    second step with stream 3 ended (its slot holds 255s, which it must
+    never read; the graph's input for it is zeroed on the card)."""
     import numpy as np
 
     from fire_tpu_torch.parallel.mesh import make_mesh
@@ -1566,12 +1792,13 @@ def _multistream_engine_check(fr) -> dict:
             worst["sim_err"] = max(worst["sim_err"], float(np.abs(got[i].sim - ref.sim).max()))
     check(worst["box_err_px"] == 0 and worst["sim_err"] <= 1e-6,
           f"multistream: boxes / sims differ from the single streams: {worst}")
-    check(list(mse._zero_batches) == [(*steps[1].shape[2:4], BATCH, 3)],
-          f"multistream: cached zero batches {list(mse._zero_batches)}")
+    # the ended stream's slot of the graph's input is zeroed on the card:
+    # no upload, no new capture
+    check(len(list(mse.graphs)) == 1, f"multistream: {len(list(mse.graphs))} captures")
     # the ended stream's track coasts max_age frames, then nothing is left
     check(all(got[i].mask.any() for i in range(3)) and not got[3].mask[BATCH // 2:].any(),
           "multistream: live streams tracked their face, the ended one nothing")
-    return {"streams": s, "batch": BATCH, **worst, "zero_batch_cached": True}
+    return {"streams": s, "batch": BATCH, **worst, "captures": 1}
 
 
 def phase_multistream(ctx) -> None:
@@ -1617,8 +1844,10 @@ def phase_multistream(ctx) -> None:
             torch.cuda.synchronize()
             return time.perf_counter() - t0, [l - {"Unknown"} for l in labels]
 
-        # warm-up (cuDNN plans, the first 204 MB snapshot): identity 7
-        run([_identity_frames(7, 900, 1, BATCH)], "warm-up")
+        # warm-up (cuDNN plans, the first 204 MB snapshot, each S's step
+        # graph): identity 7
+        for n_streams in (1, 2, 4):
+            run([_identity_frames(7, 900, 1, BATCH)] * n_streams, f"warm-up S={n_streams}")
         engine_check = _multistream_engine_check(fr)
         shared = {1: 0, 2: 1, 4: 2}  # the identity streams 0 and 1 share, by S
         others = {4: [3, 4]}
@@ -2496,7 +2725,9 @@ def _entry_check() -> dict:
 @contextlib.contextmanager
 def _plain_kernels():
     """K1 and K2 swapped for their plain versions where the batched step
-    calls them, on whatever device the step runs."""
+    calls them, on whatever device the step runs, and the step run
+    eagerly there: the graph's plain version (the plain tracker reads the
+    card for its assignment, which no graph can hold)."""
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.pipeline import batch_engine as be
     from fire_tpu_torch.track import scan as k2
@@ -2507,12 +2738,13 @@ def _plain_kernels():
             dst.copy_(src)
         return table, ident, out, iout
 
-    real = be.cosine_top1, be.track_scan
+    real = be.cosine_top1, be.track_scan, be.BatchStreamEngine._graphed
     be.cosine_top1, be.track_scan = k1.plain_cosine_top1, track_scan
+    be.BatchStreamEngine._graphed = lambda self, device: False
     try:
         yield
     finally:
-        be.cosine_top1, be.track_scan = real
+        be.cosine_top1, be.track_scan, be.BatchStreamEngine._graphed = real
 
 
 def _compare_streams(plane: str, card, other, what: str, box_tol: float) -> dict:
@@ -3044,7 +3276,9 @@ def _cross_device_per_frame(yunet: dict, cfg) -> dict:
 
 def kernel_summary(ctx) -> dict:
     """The contract line: K1 at the main path's shape (M = one query per
-    frame of a 64-frame batch, the smallest compaction rung), then K2
+    frame of a 64-frame batch, the smallest compaction rung) in the form
+    the step graph launches (the count read on the card), its int-count
+    form's times beside, then K2
     (:func:`k2_summary`).  K1 with its
     launch counts on every path: batched (YuNet, RetinaFace), per-frame
     (YuNet, RetinaFace), image mode, the default command, encrypted, the
@@ -3053,7 +3287,8 @@ def kernel_summary(ctx) -> dict:
     and the bench phase (gallery, headline, crowd)."""
     from fire_tpu_torch.ops import cosine_top1 as k1
 
-    main = next(r for r in ctx["k1"] if r.get("case") == f"M={BATCH}")
+    main = next(r for r in ctx["k1"] if r.get("case") == f"M={BATCH} device count")
+    host_count = next(r for r in ctx["k1"] if r.get("case") == f"M={BATCH}")
     worst = max(r["max_abs_err"] for r in ctx["k1"] if "max_abs_err" in r)
     return {"kernels": [{
         "name": k1.NAME, "route": "cuda", "source": "fire_tpu_torch/csrc/cosine_top1.cu",
@@ -3073,7 +3308,9 @@ def kernel_summary(ctx) -> dict:
         "max_abs_err": worst, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "device_ms": main["kernel_device_ms"],
-        "plan": main["plan"], **ctx["k1_build"]}, k2_summary(ctx)]}
+        "plan": main["plan"], "host_count_ms": host_count["kernel_ms"],
+        "host_count_device_ms": host_count["kernel_device_ms"], **ctx["k1_build"]},
+        k2_summary(ctx)]}
 
 
 def k2_summary(ctx) -> dict:
@@ -3120,8 +3357,15 @@ def main() -> int:
     ctx = {"tmp": tempfile.mkdtemp(prefix="fire_chip_smoke_")}
     try:
         for name in PHASES:
+            t0 = time.perf_counter()
             with recognizer_errors_fail(name):
                 globals()[f"phase_{name}"](ctx)
+            print(f"[chip_smoke] {name}: {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+                  flush=True)
+            # what the phase's engines and step graphs held goes back to the
+            # card, for the next phase's subprocesses
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         for key in ("fr", "fr_retina"):  # a phase failed before the trace phase closed it
             if key in ctx:

@@ -39,7 +39,13 @@
 // * Only live rows are read: the wrapper's plan cuts rows [0, count) into
 //   chunks of whole tiles, one block each for every query tile; the one
 //   tile that straddles `count` masks by row index in its epilogue.
-//   `count` is a plain int argument: no host read of a device value.
+//   `count` comes in one of two forms, through the one kernel: a plain
+//   int (the plan covers rows [0, count)), or a pointer to a device int
+//   (a launch captured into a CUDA graph, replayed as the gallery grows):
+//   then the plan covers the rows the gallery may hold, every block reads
+//   the count, and a block whose chunk starts at or past it writes the
+//   empty partial (NEG, 0) and returns.  Neither form reads a device
+//   value on the host.
 // * The arg-max stays in registers.  In the accumulator a thread holds,
 //   for each of its QT/4 query columns, rows r and r + 8 of the tile; it
 //   folds them into a running (max, row) per column with strict '>',
@@ -480,7 +486,8 @@ __device__ __forceinline__ void consume(const Block& b, int M, int s, float* red
 template <int QT>
 __global__ void __launch_bounds__(THREADS, 1)
 top1_partial(const __grid_constant__ CUtensorMap map_g, const __grid_constant__ CUtensorMap map_q,
-             const float* __restrict__ qf, int M, int D, int count, int chunk_rows, int stages,
+             const float* __restrict__ qf, int M, int D, int count,
+             const int* __restrict__ count_dev, int N, int chunk_rows, int stages,
              float* __restrict__ part_v, int* __restrict__ part_i) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -501,6 +508,14 @@ top1_partial(const __grid_constant__ CUtensorMap map_g, const __grid_constant__ 
   const int s = blockIdx.y;
   b.q0 = blockIdx.x * QT;
   b.r_begin = s * chunk_rows;
+  if (count_dev) count = min(max(*count_dev, 0), N);
+  if (b.r_begin >= count) {  // a chunk past the live rows (device count): the empty partial
+    if (tid < QT && b.q0 + tid < M) {
+      part_v[(size_t)s * M + b.q0 + tid] = NEG;
+      part_i[(size_t)s * M + b.q0 + tid] = 0;
+    }
+    return;
+  }
   b.live_end = min(count, b.r_begin + chunk_rows);
   b.n_tiles = b.live_end > b.r_begin ? (b.live_end - b.r_begin + RT - 1) / RT : 0;
 
@@ -603,7 +618,7 @@ int encode_rows(CUtensorMap* map, const void* base, int rows, int D, int box_row
 
 template <int QT>
 int launch_partial(const CUtensorMap& map_g, const CUtensorMap& map_q, const float* qf, int M,
-                   int D, int count,
+                   int D, int count, const int* count_dev, int N,
                    int chunk_rows, int live_chunks, int stages, int smem_bytes, float* part_v,
                    int* part_i, cudaStream_t st) {
   // The attribute is per device and grows only: set it when a device
@@ -619,8 +634,8 @@ int launch_partial(const CUtensorMap& map_g, const CUtensorMap& map_q, const flo
     if (dev < 64) granted[dev] = smem_bytes;
   }
   dim3 grid((M + QT - 1) / QT, live_chunks);
-  top1_partial<QT><<<grid, THREADS, smem_bytes, st>>>(map_g, map_q, qf, M, D, count, chunk_rows,
-                                                      stages, part_v, part_i);
+  top1_partial<QT><<<grid, THREADS, smem_bytes, st>>>(map_g, map_q, qf, M, D, count, count_dev,
+                                                      N, chunk_rows, stages, part_v, part_i);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -630,24 +645,30 @@ int launch_partial(const CUtensorMap& map_g, const CUtensorMap& map_q, const flo
 // the blocks themselves (cast_in_block, one query tile only) or by a pass
 // of its own into the scratch `q16` (M * D bf16), which is not used
 // otherwise.  g: (N, D) bf16.  Both contiguous and
-// 16-byte aligned, D % 8 == 0.  The launch plan comes from the caller and
-// is not chosen again here: `qt` queries per block (8, 16, 32, 64 or
-// 128), `chunk_rows` gallery rows per block (whole 128-row tiles),
+// 16-byte aligned, D % 8 == 0.  The live rows are [0, count), or, where
+// `count_dev` is set, [0, *count_dev) read on the card (clamped to
+// [0, N]; `count` is then not read).  The launch plan comes from the
+// caller and is not chosen again here: `qt` queries per block (8, 16, 32,
+// 64 or 128), `chunk_rows` gallery rows per block (whole 128-row tiles),
 // `stages` ring stages, `smem_bytes` of dynamic shared memory (at least
 // what the layout needs).  part_v / part_i: (ceil(count / chunk_rows), M)
-// scratch; out_v / out_i: (M,).  Launches on `stream`.  Returns 0, the
-// cudaError_t of a refused launch, or one of the ERR_* codes above.
+// scratch, (ceil(N / chunk_rows), M) with `count_dev`; out_v / out_i:
+// (M,).  Launches on `stream`.  Returns 0, the cudaError_t of a refused
+// launch, or one of the ERR_* codes above.
 extern "C" int fire_cosine_top1(const void* q, int q_is_f32, int cast_in_block, void* q16,
-                                const void* g, int M, int N, int D, int count, int qt,
-                                int chunk_rows, int stages, int smem_bytes, void* part_v,
-                                void* part_i, void* out_v, void* out_i, void* stream) {
+                                const void* g, int M, int N, int D, int count,
+                                const void* count_dev, int qt, int chunk_rows, int stages,
+                                int smem_bytes, void* part_v, void* part_i, void* out_v,
+                                void* out_i, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   float* pv = static_cast<float*>(part_v);
   int* pi = static_cast<int*>(part_i);
-  count = count < N ? count : N;
+  const int* cd = static_cast<const int*>(count_dev);
+  // the rows the plan covers: the live ones, or all that may be live
+  const int rows = cd ? N : (count < N ? count : N);
   int live_chunks = 0;
-  if (count > 0) {
+  if (rows > 0) {
     if (chunk_rows <= 0 || chunk_rows % RT || chunk_rows / RT > 32767 || stages < 2 || D <= 0 ||
         D % 8)
       return ERR_BAD_PLAN;  // (a tile's number in its chunk is kept in 15 bits)
@@ -655,7 +676,7 @@ extern "C" int fire_cosine_top1(const void* q, int q_is_f32, int cast_in_block, 
     const int need = SMEM_ALIGN + KB * qt * KD * 2 + stages * STAGE_BYTES +
                      CONSUMER_WARPS * qt * 8 + (2 * stages + 1) * 8;
     if (smem_bytes < need) return ERR_BAD_PLAN;
-    live_chunks = (count + chunk_rows - 1) / chunk_rows;
+    live_chunks = (rows + chunk_rows - 1) / chunk_rows;
     const float* qf = nullptr;
     if (q_is_f32 && cast_in_block) {
       if (M > qt) return ERR_BAD_PLAN;
@@ -676,8 +697,8 @@ extern "C" int fire_cosine_top1(const void* q, int q_is_f32, int cast_in_block, 
     switch (qt) {
 #define FIRE_K1_CASE(W)                                                                       \
   case W:                                                                                     \
-    rc = launch_partial<W>(map_g, map_q, qf, M, D, count, chunk_rows, live_chunks, stages,    \
-                           smem_bytes, pv, pi, st);                                           \
+    rc = launch_partial<W>(map_g, map_q, qf, M, D, rows, cd, N, chunk_rows, live_chunks,      \
+                           stages, smem_bytes, pv, pi, st);                                   \
     break;
       FIRE_K1_CASE(8)
       FIRE_K1_CASE(16)

@@ -96,12 +96,17 @@ class DeviceGallery:
             log.info("Initialized new device gallery (capacity %d).", capacity)
 
     def _reset_matrix(self, host: Optional[np.ndarray] = None) -> None:
+        """A new matrix (zeros, or ``host`` with one row per label) and a
+        new device count.  Captured step graphs read the old ones, so the
+        matrix version moves on and their owners capture anew."""
         if host is None:
             self._gal = torch.zeros((self.padded, self.embedding_dim), dtype=torch.float32,
                                     device=self.device)
         else:
             self._gal = torch.from_numpy(host).to(self.device)
         self._gal16 = self._gal.to(torch.bfloat16)
+        self._count_dev = torch.full((), len(self.labels), dtype=torch.int32, device=self.device)
+        self.matrix_version = getattr(self, "matrix_version", -1) + 1
 
     # -- size --------------------------------------------------------------
 
@@ -119,6 +124,16 @@ class DeviceGallery:
         self._flush_pending()
         return self._gal if self.strict_f32_match else self._gal16
 
+    @property
+    def count_dev(self) -> torch.Tensor:
+        """The rows on the device, as a 0-d int32 tensor there: the
+        count a captured step reads (JAX passes ``count`` into the jitted
+        step as an operand).  It is written in stream order wherever rows
+        land, so a step queued before an enrolment sees the count it was
+        queued with, and nothing waits for the card."""
+        self._flush_pending()
+        return self._count_dev
+
     def _set_rows(self, start: int, block: np.ndarray) -> None:
         """Write rows into the f32 master and its bf16 shadow in place.
         (JAX copies here only because of buffer donation; on one CUDA
@@ -128,6 +143,7 @@ class DeviceGallery:
         n = rows.shape[0]
         self._gal[start : start + n] = rows
         self._gal16[start : start + n] = rows.to(torch.bfloat16)
+        self._count_dev.fill_(start + n)
 
     def _flush_pending(self) -> None:
         """Write the host-buffered enrollments to the device in one copy

@@ -24,7 +24,7 @@ import contextlib
 import ctypes
 import functools
 import os
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -51,13 +51,16 @@ CAST_IN_BLOCK_MAX_QT = 64           # wider float32 query tiles get a cast pass 
 MAX_CHUNK_TILES = 32_767            # a tile's number in its chunk is kept in 15 bits
 BLOCK_OVERHEAD_TILES = 0.5          # a block's start and end, in tiles of streaming time
 
-# Launch count: one per call that launches the kernel, and nowhere else.
+# Launch count: one per call that launches the kernel, and one per replay of
+# a CUDA graph that holds a launch (count_replayed); nowhere else.
 launches = 0
 # nvcc's output of the last build (ptxas register / spill report).
 build_log = ""
 
 _fn = None
 _sm_count = {}
+
+Count = Union[int, torch.Tensor]  # live rows: an int, or a 0-d int32 tensor on the device
 
 
 def library_path() -> str:
@@ -79,7 +82,7 @@ def _kernel():
         lib = ctypes.CDLL(build())
         fn = lib.fire_cosine_top1
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, i32, i32, ptr, ptr] + [i32] * 8 + [ptr] * 5
+        fn.argtypes = [ptr, i32, i32, ptr, ptr] + [i32] * 4 + [ptr] + [i32] * 4 + [ptr] * 5
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -149,9 +152,10 @@ def launch_plan(m: int, rows: int, d: int, sms: int) -> LaunchPlan:
 
 
 def plain_cosine_top1(queries: torch.Tensor, gallery: torch.Tensor,
-                      count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      count: Count) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version: ``cosine_topk(..., k=1)`` with rows ≥ count
-    masked.  Returns ``(sims (M,) f32, idx (M,) int32)``."""
+    masked (``count`` an int or a 0-d tensor beside the gallery).
+    Returns ``(sims (M,) f32, idx (M,) int32)``."""
     valid = torch.arange(gallery.shape[0], device=gallery.device) < count
     sims, idx = cosine_topk(queries, gallery, valid, k=1)
     return sims[:, 0], idx[:, 0].to(torch.int32)
@@ -163,11 +167,13 @@ def _sms(index: int) -> int:
     return _sm_count[index]
 
 
-def _launch(q: torch.Tensor, g: torch.Tensor, count: int,
+def _launch(q: torch.Tensor, g: torch.Tensor, count: Count,
             plan: LaunchPlan) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel under ``plan`` on contiguous, 16-byte aligned
-    CUDA operands with ``0 <= count <= N``: ``g`` bf16, ``q`` bf16 or
-    float32 (cast to bf16 on the card, into scratch)."""
+    CUDA operands: ``g`` bf16, ``q`` bf16 or float32 (cast to bf16 on the
+    card, into scratch), and ``count`` an int with ``0 <= count <= N`` or
+    a 0-d int32 tensor on the card that the kernel reads there (the
+    plan then covers all N rows)."""
     global launches
     (m, d), n, dev = q.shape, g.shape[0], q.device
     q_is_f32 = q.dtype == torch.float32
@@ -187,8 +193,10 @@ def _launch(q: torch.Tensor, g: torch.Tensor, count: int,
     # the launch goes to the current device's context
     other = dev.index != torch.cuda.current_device()
     with torch.cuda.device(dev) if other else contextlib.nullcontext():
-        err = fn(q.data_ptr(), q_is_f32, cast_in_block, q16, g.data_ptr(), m, n, d, count,
-                 plan.qt, plan.chunk_rows, plan.stages, plan.shared_bytes, part_v,
+        on_card = isinstance(count, torch.Tensor)
+        err = fn(q.data_ptr(), q_is_f32, cast_in_block, q16, g.data_ptr(), m, n, d,
+                 0 if on_card else count, count.data_ptr() if on_card else None, plan.qt,
+                 plan.chunk_rows, plan.stages, plan.shared_bytes, part_v,
                  part_v + 4 * plan.chunks * m, out_v.data_ptr(), out_i.data_ptr(),
                  raw_stream(dev.index))
     if err != 0:
@@ -199,10 +207,15 @@ def _launch(q: torch.Tensor, g: torch.Tensor, count: int,
 
 
 def cosine_top1(queries: torch.Tensor, gallery: torch.Tensor,
-                count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                count: Count) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused top-1 cosine match of ``queries`` (M, D) against the first
     ``count`` rows of ``gallery`` (N, D).  Returns ``(sims (M,) f32,
     idx (M,) int32)``; ``(-2, 0)`` for an empty gallery.
+
+    ``count`` is an int, or a 0-d int32 tensor beside the gallery: the
+    device-count form, which a CUDA graph captures once and replays as
+    the count changes (the kernel reads the count on the card, over a
+    plan for all N rows).
 
     CPU tensors → the plain version.  CUDA tensors → the kernel, on the
     current stream, or an exception."""
@@ -222,14 +235,27 @@ def cosine_top1(queries: torch.Tensor, gallery: torch.Tensor,
     q, g = q.contiguous(), gallery.to(torch.bfloat16).contiguous()
     if q.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("cosine_top1: operands must be 16-byte aligned")
-    count = max(0, min(int(count), n))
+    if isinstance(count, torch.Tensor):
+        if count.shape != () or count.dtype != torch.int32 or count.device != q.device:
+            raise ValueError(f"cosine_top1: a device count is a 0-d int32 tensor on {q.device}, "
+                             f"not {count.dtype} {tuple(count.shape)} on {count.device}")
+        rows = n
+    else:
+        count = rows = max(0, min(int(count), n))
     if m == 0:
         return (torch.empty(0, dtype=torch.float32, device=q.device),
                 torch.empty(0, dtype=torch.int32, device=q.device))
-    return _launch(q, g, count, launch_plan(m, count, d, _sms(q.device.index)))
+    return _launch(q, g, count, launch_plan(m, rows, d, _sms(q.device.index)))
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def count_replayed(n: int) -> None:
+    """Add the ``n`` launches of this kernel that one replay of a CUDA
+    graph makes (capturing a launch counts nothing: it runs at replay)."""
+    global launches
+    launches += n
 

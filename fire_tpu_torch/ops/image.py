@@ -109,6 +109,40 @@ def crop_and_resize_mm(image: torch.Tensor, boxes_xywh: torch.Tensor,
     return torch.einsum("kxw,kywc->kyxc", wx.to(torch.bfloat16).float(), tmp.float())
 
 
+# Float32 working set of one pass of :func:`crop_and_resize_mm_batched`:
+# the frames are taken this many bytes at a time (about 9 frames of 1080p
+# with 8 boxes each), where a B = 256 batch of 1080p frames cast whole
+# would take 6.4 GB and its first product 7.5 GB more.
+CROP_CHUNK_BYTES = 1 << 30
+
+
+def crop_and_resize_mm_batched(frames: torch.Tensor, boxes_xywh: torch.Tensor,
+                               out_hw: Tuple[int, int] = (160, 160),
+                               chunk_bytes: int = CROP_CHUNK_BYTES) -> torch.Tensor:
+    """:func:`crop_and_resize_mm` over a batch: (n, H, W, C) frames and
+    (n, K, 4) boxes, the counterpart of ``jax.vmap(crop_and_resize_mm)``
+    with the frame dimension written out.  The same rounding points (bf16
+    operands, float32 sums, a bf16 cast after the first product), so each
+    frame's crops equal the one-frame call's.  The frames go in chunks of
+    at most ``chunk_bytes`` of float32 temporaries (at least one frame).
+    Returns (n, K, oh, ow, C) float32."""
+    n, h, w, c = frames.shape
+    k = boxes_xywh.shape[1]
+    oh, ow = out_hw
+    per_frame = h * w * c * 6 + k * oh * w * c * 10 + k * oh * ow * c * 4
+    step = max(1, chunk_bytes // per_frame)
+    ys, xs = _crop_coords(boxes_xywh.reshape(n * k, 4).float(), out_hw, (h, w))
+    wy = _tent(ys, h).to(torch.bfloat16).reshape(n, k, oh, h)
+    wx = _tent(xs, w).to(torch.bfloat16).reshape(n, k, ow, w)
+    outs = []
+    for s in range(0, n, step):
+        img = frames[s : s + step].to(torch.bfloat16)
+        tmp = torch.einsum("nkyh,nhwc->nkywc", wy[s : s + step].float(), img.float())
+        tmp = tmp.to(torch.bfloat16)
+        outs.append(torch.einsum("nkxw,nkywc->nkyxc", wx[s : s + step].float(), tmp.float()))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 def _rows_then_cols(rows_src: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, w: int):
     """Finish crops from their gathered bracketing rows
     ``rows_src`` (K, oh, 2, W, C): a bf16 2-point row lerp, then the

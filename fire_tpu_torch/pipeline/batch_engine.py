@@ -11,36 +11,55 @@
 
 Semantics are the JAX step's: the same top-k pick (stable sorts, so
 ties keep the lower index as ``lax.top_k`` / ``argsort`` do), the same
-exact bucketed compaction with ``encode_full`` as the top rung, the same
+exact bucketed compaction with the full path as the top rung, the same
 identity bookkeeping and ``MAX_ENROLL`` starvation guard, and the same
 packed int32 result buffer.
 
-Where JAX compiles control flow, the port reads the device once a
-batch: the batch's real-detection count selects the encoder bucket
-(``lax.switch`` in JAX).  With ``encode_budget`` or a single rung it
-reads nothing.  The tracker's branches (the LAP fast path, the JV solve)
+It also runs the way the JAX step runs.  On a CUDA device
+:meth:`BatchStreamEngine.submit` replays one CUDA graph a batch
+(:class:`StepGraph`, captured at the first batch of each shape and
+gallery matrix), the counterpart of ``jax.jit(step)``:
+
+* the encoder rung is chosen on the card: ``searchsorted`` of the
+  batch's real-detection count over the ladder, then one conditional
+  node a rung (``jnp.searchsorted`` + ``lax.switch``);
+* the top rung crops every frame in one batched pass
+  (:func:`~fire_tpu_torch.ops.image.crop_and_resize_mm_batched`,
+  ``jax.vmap(crop_and_resize_mm)``);
+* K1 reads the gallery's live rows from its device count, so an
+  enrolment needs no new capture (JAX passes ``count`` as an operand);
+* the stream state lives in static tensors that every replay updates.
+
+The frames go up from pinned host memory into the graph's input and the
+result comes back to pinned memory, both asynchronously, so ``submit``
+reads nothing from the card and returns once the batch is queued;
+:meth:`BatchStreamEngine.collect` waits for it.  The eager
+:meth:`BatchStreamEngine.step` is the graph's plain version: the CPU runs
+it, and on the card the tests and ``chip_smoke.py`` hold the replay
+against it.  The tracker's branches (the LAP fast path, the JV solve)
 run inside K2, and the epilogue scatters over padded indices where a
-boolean index would read a count back.  On the card the frames go up
-from pinned host memory and the result buffer comes back to it, both
-asynchronously, so :meth:`BatchStreamEngine.submit` returns once the
-batch is queued and :meth:`BatchStreamEngine.collect` waits for it.
+boolean index would read a count back.
 """
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 import logging
+import time
+import weakref
+from collections import OrderedDict
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fire_tpu_torch.config import RecognizerConfig, TrackerConfig
+from fire_tpu_torch.ops import cosine_top1 as _k1
 from fire_tpu_torch.ops.boxes import top_k_stable
 from fire_tpu_torch.ops.cosine_top1 import cosine_top1
 from fire_tpu_torch.ops.gallery_match import l2_normalize
-from fire_tpu_torch.ops.image import bgr_to_rgb, crop_and_resize_mm, crop_selected_rows
+from fire_tpu_torch.ops.image import bgr_to_rgb, crop_and_resize_mm_batched, crop_selected_rows
+from fire_tpu_torch.track import scan as _k2
 from fire_tpu_torch.track.scan import IdentityState, gather_emb, track_scan
 from fire_tpu_torch.track.sort import TrackTable, make_table
 
@@ -132,6 +151,55 @@ def make_stream_state(tcfg: TrackerConfig, dim: int, device=None) -> StreamState
     )
 
 
+def state_tensors(state: StreamState) -> Tuple[torch.Tensor, ...]:
+    return (*state.table, state.gid, state.sim, state.unk, state.pending, state.last_emb)
+
+
+def copy_state(dst: StreamState, src: StreamState) -> None:
+    """Write ``src`` into ``dst``'s own tensors (those it shares are
+    skipped)."""
+    for d, s in zip(state_tensors(dst), state_tensors(src)):
+        if d is not s:
+            d.copy_(s)
+
+
+def clone_state(state: StreamState) -> StreamState:
+    return StreamState(TrackTable(*(t.clone() for t in state.table)),
+                       *(t.clone() for t in state[1:]))
+
+
+def rung_index(ladder: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The encoder rung of a batch, on the batch's device: the first
+    bucket of ``ladder`` (ascending int64) that holds its real detections
+    (``mask.sum()``), ``jnp.searchsorted(side="left")`` as JAX picks the
+    ``lax.switch`` branch.  A 0-d int64 tensor; nothing is read back."""
+    n_real = mask.sum().reshape(1).to(ladder.dtype)
+    return torch.searchsorted(ladder, n_real, side="left")[0]
+
+
+def check_graph_runtime() -> None:
+    """Raise unless this PyTorch can hand over the graphs it captures and
+    runs a CUDA with conditional nodes (12.4 or later)."""
+    version = tuple(int(v) for v in (torch.version.cuda or "0.0").split(".")[:2])
+    if version < (12, 4) or not hasattr(torch.cuda.CUDAGraph, "raw_cuda_graph"):
+        raise RuntimeError(
+            f"the step graph needs CUDA graph conditional nodes (CUDA 12.4 or later) and "
+            f"torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph(); this PyTorch "
+            f"{torch.__version__} is built with CUDA {torch.version.cuda}")
+
+
+class _Front(NamedTuple):
+    """What the encoder rungs and the tracker take from detection."""
+
+    det_frames: torch.Tensor   # (n_det, H, W, 3) uint8
+    boxes: torch.Tensor        # (n_det, k, 4) the top-k boxes by score
+    mask: torch.Tensor         # (n_det, k) bool
+    flat_scores: torch.Tensor  # (n_det·k,) f32, −1 where masked
+    batch: int
+    n_det: int
+    k: int
+
+
 def _track_scan(state: StreamState, det_boxes, det_mask, det_gid, det_sim, det_emb,
                 det_has_emb, tcfg: TrackerConfig, similarity_threshold: float,
                 unknown_trigger: int):
@@ -208,6 +276,142 @@ def unpack_results(buf: np.ndarray, b: int, t: int, d: int) -> BatchResults:
     return BatchResults(*out)
 
 
+class StepGraph:
+    """The batched steps of one or more streams on one CUDA device as one
+    CUDA graph, replayed per batch: the counterpart of ``jax.jit(step)``.
+    ``frames`` are its static inputs (one (B, H, W, 3) uint8 batch a
+    stream), ``states`` its static stream states, updated in place by
+    every replay, and ``packed`` its outputs, overwritten by every replay
+    (so a replay's readback is queued right after it, in stream order).
+    ``count`` is the gallery's device count: an enrolment between two
+    replays needs no new capture.
+
+    Building it: the first batch is copied into ``frames``; each encoder
+    rung runs eagerly once on a side stream, on scratch copies of the
+    first state, so that cuDNN's choice of algorithm, the cuBLAS
+    workspace and the allocator's blocks are settled before the capture
+    (torch's ``ControlFlowOpWarmupDispatchMode`` idea).  Then each
+    stream's step is captured on that stream in parts, all into ``pool``
+    (:meth:`BatchStreamEngine._capture_parts`), and the parts are chained
+    into one graph (:class:`~fire_tpu_torch.runtime.step_graph.
+    ComposedGraph`) in which the rung bodies sit behind conditional nodes.
+    A capture that fails raises: nothing falls back to eager dispatch.
+
+    K1's and K2's launch counters count what runs: the warm-up and the
+    capture add nothing, and each replay adds the launches its graph
+    holds (K1 and K2 once a stream, whatever the rung)."""
+
+    def __init__(self, owner: "BatchStreamEngine", engine, gal: torch.Tensor,
+                 count: torch.Tensor, states: List[StreamState], frames: List[torch.Tensor],
+                 pool):
+        """``frames``: the first batch of each stream on the device, kept
+        as the static inputs."""
+        from fire_tpu_torch.runtime.step_graph import ComposedGraph
+
+        check_graph_runtime()
+        dev = gal.device
+        self.device = dev
+        self.states = states
+        self.frames = frames
+        self.pool = pool
+        self.parts: List[torch.cuda.CUDAGraph] = []  # they hold the graph's memory
+        k1_0, k2_0 = _k1.launches, _k2.launches
+        cur = torch.cuda.current_stream(dev)
+        side = _SIDE_STREAMS.get(dev)
+        if side is None:
+            side = _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(side), torch.inference_mode():
+                owner.warm_up(engine, gal, count, states[0], frames[0])
+                # the warm-up's blocks back to the card, where the capture's
+                # pool can take them (as torch.cuda.graph does before a capture)
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
+                t0 = time.perf_counter()
+                items, self.packed, self.rungs, self._held = [], [], [], []
+                self.k1_per_replay = self.k2_per_replay = 0
+                for state, x in zip(states, frames):
+                    k2_before = _k2.launches
+                    got = owner._capture_parts(self._part, engine, gal, count, state, x)
+                    stream_items, packed, rung, k1_runs, held = got
+                    items += stream_items
+                    self.packed.append(packed)
+                    # each stream's rung of the last replay, a 0-d tensor on the
+                    # card (None for a single rung): for checks, never read on the path
+                    self.rungs.append(rung)
+                    self._held.append(held)
+                    self.k1_per_replay += k1_runs
+                    self.k2_per_replay += _k2.launches - k2_before
+                self.graph = ComposedGraph(items, dev)
+                self.capture_s = time.perf_counter() - t0
+                # what this capture added to the device's shared pool
+                self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            cur.wait_stream(side)
+        finally:
+            _k1.launches, _k2.launches = k1_0, k2_0
+
+    @contextlib.contextmanager
+    def _part(self):
+        """Capture the enclosed work on the current stream as one part."""
+        part = torch.cuda.CUDAGraph(keep_graph=True)
+        part.capture_begin(pool=self.pool)
+        try:
+            yield part
+        finally:
+            part.capture_end()
+        self.parts.append(part)
+
+    def replay(self) -> List[torch.Tensor]:
+        """Queue one run of the graph on the current stream (its inputs
+        already copied into ``frames``); returns ``packed``."""
+        self.graph.launch()
+        _k1.count_replayed(self.k1_per_replay)
+        _k2.count_replayed(self.k2_per_replay)
+        return self.packed
+
+
+# One memory pool per device for the step graphs of the process, with the
+# graphs that use it.  Graphs on a device replay one after another on its
+# stream, and every tensor that outlives a replay (inputs, states,
+# outputs, what passes between parts) is held by its graph, so one
+# graph's scratch may be another's.  A pool whose graphs are all gone is
+# released by PyTorch and not captured into again: the next graph takes a
+# new one.
+_POOLS: Dict[torch.device, Tuple[object, "weakref.WeakSet[StepGraph]"]] = {}
+# One side stream per device for every warm-up and capture, so that the
+# blocks a warm-up leaves in the allocator's cache serve the next one.
+_SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+class GraphCache:
+    """An engine's step graphs by key (whose first entry is the device),
+    the ``limit`` most recently used kept."""
+
+    def __init__(self, limit: int = 4):
+        self.limit = limit
+        self._graphs: "OrderedDict[tuple, StepGraph]" = OrderedDict()
+
+    def get(self, key: tuple, build: Callable[[object], StepGraph]) -> StepGraph:
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+            return graph
+        dev = key[0]
+        if dev not in _POOLS or not _POOLS[dev][1]:
+            _POOLS[dev] = (torch.cuda.graph_pool_handle(), weakref.WeakSet())
+        pool, users = _POOLS[dev]
+        graph = self._graphs[key] = build(pool)
+        users.add(graph)
+        while len(self._graphs) > self.limit:
+            self._graphs.popitem(last=False)
+        return graph
+
+    def __iter__(self):
+        return iter(self._graphs.items())
+
+
 class BatchStreamEngine:
     """Runs the batched pipeline on the engine's device."""
 
@@ -219,7 +423,8 @@ class BatchStreamEngine:
                  timer=None):
         """Arguments as in the JAX engine (``batch_engine.py:276``);
         ``timer`` (a :class:`~fire_tpu_torch.pipeline.timing.StageTimer`)
-        records per-stage device time when given."""
+        records device time when given: per stage in the eager step, the
+        whole replay on the card."""
         self.engine = engine
         self.gallery = gallery
         self.cfg = cfg
@@ -232,116 +437,124 @@ class BatchStreamEngine:
         self.timer = timer
         self.state = make_stream_state(self.tcfg, cfg.embedding_dim, self.device)
         self._detect_cache = {}
+        self._ladders = {}
+        self.graphs = GraphCache()
         # pinned readback buffers, owned by their tokens until collected
         self.readback_pool = ReadbackPool(
             lambda n: torch.empty(n, dtype=torch.int32, pin_memory=True))
         self._staging = {}  # pinned upload buffers and their copies' events, by slot and shape
 
     def reset(self):
-        self.state = make_stream_state(self.tcfg, self.cfg.embedding_dim, self.device)
+        """A fresh tracker and identity state, written into the state's
+        own tensors (the step graphs hold them)."""
+        copy_state(self.state, make_stream_state(self.tcfg, self.cfg.embedding_dim, self.device))
 
-    def _stage(self, name: str):
-        if self.timer is None:
+    def _stage(self, name: str, timer):
+        if timer is None:
             return contextlib.nullcontext()
-        return self.timer.stage(name, self.device)
+        return timer.stage(name, self.device)
 
-    def _step(self, frames_u8: torch.Tensor) -> torch.Tensor:
-        """One batch: (B, H, W, 3) uint8 on the device → packed int32."""
-        self.state, packed = self.step(self.engine, self.gallery.gal_matmul, self.gallery.count,
-                                       self.state, frames_u8)
-        return packed
+    def rungs(self, nk: int) -> Tuple[Optional[Tuple[int, ...]], Tuple[Tuple[int, bool], ...]]:
+        """The encoder rungs of a batch of ``nk`` detection slots as
+        ``(m, full)`` pairs, with the ladder that picks one (None for a
+        single rung): ``encode_budget``'s one compacted rung, else the
+        bucket ladder's, compacted at each bucket but the top one, which is
+        the full path (``batch_engine.py:424-468``)."""
+        if self.encode_budget is not None:
+            return None, ((max(1, min(self.encode_budget, nk)), False),)
+        buckets = _bucket_ladder(nk, self.encode_buckets)
+        if buckets == (nk,) or not buckets:
+            return None, ((nk, True),)
+        return buckets, tuple((m, False) for m in buckets[:-1]) + ((nk, True),)
 
-    def step(self, engine, gal: torch.Tensor, count: int, state: StreamState,
-             frames_u8: torch.Tensor) -> Tuple[StreamState, torch.Tensor]:
-        """The step as a function of its operands, as the JAX step is of
-        ``(det_vars, enc_vars, gal, count, state, frames)``: ``engine``
-        holds the models on the frames' device, ``gal`` the gallery matrix
-        there with ``count`` live rows.  Returns the new state and the
-        packed int32 results."""
-        cfg, k_enc = self.cfg, self.encode_k
+    def _ladder_on(self, ladder: Tuple[int, ...], device) -> torch.Tensor:
+        key = (ladder, torch.device(device))
+        if key not in self._ladders:
+            self._ladders[key] = torch.tensor(ladder, dtype=torch.int64, device=device)
+        return self._ladders[key]
+
+    def _front(self, engine, frames_u8: torch.Tensor, timer) -> _Front:
+        """Detect every interval-th frame and keep each one's top-k
+        detections (``batch_engine.py:340-396``)."""
         batch, h, w = frames_u8.shape[:3]
         interval = self.interval
         if batch % interval != 0:
             raise ValueError(f"batch {batch} not a multiple of detection_interval {interval}")
         n_det = batch // interval
-        size = cfg.engine.encode_size
-        detect = self._detect_cache.get((engine.device, h, w))
+        key = (engine.device, h, w, timer)
+        detect = self._detect_cache.get(key)
         if detect is None:
-            detect = engine._build_detect((h, w), self.timer)
-            self._detect_cache[(engine.device, h, w)] = detect
-
-        # ---- detect every interval-th frame (frame-skip phase as in JAX)
+            detect = self._detect_cache[key] = engine._build_detect((h, w), timer)
+        # frame-skip phase as in JAX
         det_frames = frames_u8[interval - 1 :: interval] if interval > 1 else frames_u8
         dets = detect(det_frames)
-        k = min(k_enc, dets.mask.shape[1])
+        k = min(self.encode_k, dets.mask.shape[1])
         scores_raw = torch.where(dets.mask, dets.scores.float(), torch.full_like(dets.scores, -1.0))
         pick = torch.sort(-scores_raw, dim=1, stable=True).indices[:, :k]
         boxes = torch.gather(dets.boxes_xywh, 1, pick[..., None].expand(n_det, k, 4))
         mask = torch.gather(dets.mask, 1, pick)
-        nk = n_det * k
         scores = torch.gather(scores_raw, 1, pick)
         flat_scores = torch.where(mask, scores, torch.full_like(scores, -1.0)).reshape(-1)
-        boxes_flat = boxes.reshape(-1, 4)
+        return _Front(det_frames, boxes, mask, flat_scores, batch, n_det, k)
+
+    def _encode(self, engine, gal: torch.Tensor, count, front: _Front, m: int, full: bool,
+                timer) -> Tuple[torch.Tensor, ...]:
+        """One encoder rung: crop, FaceNet and K1 over ``m`` compacted
+        detections (``full``: every slot, one batched crop), scattered
+        back to the (n_det, k) slots as ``(emb, det_sim, det_gid,
+        has_emb)``; unencoded slots carry emb 0 / sim 0 / gid -1 and
+        has_emb False (``batch_engine.py:398-447``)."""
+        size = self.cfg.engine.encode_size
+        n_det, k = front.n_det, front.k
+        nk = n_det * k
 
         def embed(crops):
-            with self._stage("facenet"):
+            with self._stage("facenet", timer):
                 flat = bgr_to_rgb(crops / 255.0).reshape(-1, *size, 3)
                 emb_q = l2_normalize(engine.encode(flat).float())
-            with self._stage("K1"):
+            with self._stage("K1", timer):
                 sims, idx = cosine_top1(emb_q, gal, count)
             return emb_q, sims, idx
 
-        def encode_compacted(m):
-            """Crop+encode+match the top-m detections, scattered back to
-            (n_det, k) slots; unencoded slots carry emb 0 / sim 0 /
-            gid -1 and has_emb False."""
-            top_s, top_idx = top_k_stable(flat_scores, m)
-            sel_valid = top_s >= 0.0
-            with self._stage("crop"):
-                crops = crop_selected_rows(det_frames, top_idx // k, boxes_flat[top_idx], size)
+        if full:
+            with self._stage("crop", timer):
+                crops = crop_and_resize_mm_batched(front.det_frames, front.boxes, size)
             emb_q, sims, idx = embed(crops)
-            dim_e = emb_q.shape[-1]
-            emb = torch.zeros((nk, dim_e), dtype=emb_q.dtype, device=emb_q.device)
-            emb[top_idx] = emb_q * sel_valid[:, None]
-            det_sim = torch.zeros(nk, dtype=torch.float32, device=emb_q.device)
-            det_sim[top_idx] = sims * sel_valid
-            det_gid = torch.full((nk,), -1, dtype=torch.int32, device=emb_q.device)
-            det_gid[top_idx] = torch.where(sel_valid, idx, torch.full_like(idx, -1))
-            has_emb = torch.zeros(nk, dtype=torch.bool, device=emb_q.device)
-            has_emb[top_idx] = sel_valid
-            return (emb.reshape(n_det, k, dim_e), det_sim.reshape(n_det, k),
-                    det_gid.reshape(n_det, k), has_emb.reshape(n_det, k))
-
-        def encode_full():
-            """Full n_det·k path: one crop per slot (the ladder's top rung)."""
-            with self._stage("crop"):
-                crops = torch.stack([crop_and_resize_mm(det_frames[i], boxes[i], size)
-                                     for i in range(n_det)])
-            emb_q, sims, idx = embed(crops)
+            mask = front.mask
             emb = emb_q.reshape(n_det, k, -1) * mask[..., None]
-            det_sim = torch.where(mask, sims.reshape(n_det, k), torch.zeros_like(scores))
-            det_gid = torch.where(mask, idx.reshape(n_det, k), torch.full_like(pick, -1).int())
+            det_sim = torch.where(mask, sims.reshape(n_det, k), 0.0)
+            det_gid = torch.where(mask, idx.reshape(n_det, k), -1)
             return emb, det_sim, det_gid, mask
+        top_s, top_idx = top_k_stable(front.flat_scores, m)
+        sel_valid = top_s >= 0.0
+        with self._stage("crop", timer):
+            crops = crop_selected_rows(front.det_frames, top_idx // k,
+                                       front.boxes.reshape(-1, 4)[top_idx], size)
+        emb_q, sims, idx = embed(crops)
+        dim_e = emb_q.shape[-1]
+        emb = torch.zeros((nk, dim_e), dtype=emb_q.dtype, device=emb_q.device)
+        emb[top_idx] = emb_q * sel_valid[:, None]
+        det_sim = torch.zeros(nk, dtype=torch.float32, device=emb_q.device)
+        det_sim[top_idx] = sims * sel_valid
+        det_gid = torch.full((nk,), -1, dtype=torch.int32, device=emb_q.device)
+        det_gid[top_idx] = torch.where(sel_valid, idx, torch.full_like(idx, -1))
+        has_emb = torch.zeros(nk, dtype=torch.bool, device=emb_q.device)
+        has_emb[top_idx] = sel_valid
+        return (emb.reshape(n_det, k, dim_e), det_sim.reshape(n_det, k),
+                det_gid.reshape(n_det, k), has_emb.reshape(n_det, k))
 
-        if self.encode_budget is not None:
-            emb, det_sim, det_gid, has_emb = encode_compacted(max(1, min(self.encode_budget, nk)))
-        else:
-            buckets = _bucket_ladder(nk, self.encode_buckets)
-            if buckets == (nk,) or not buckets:
-                emb, det_sim, det_gid, has_emb = encode_full()
-            else:
-                # lax.switch on device → one read of the real-detection count
-                sel = bisect.bisect_left(buckets, int(mask.sum()))
-                if sel >= len(buckets) - 1:
-                    emb, det_sim, det_gid, has_emb = encode_full()
-                else:
-                    emb, det_sim, det_gid, has_emb = encode_compacted(buckets[sel])
-
-        boxes = boxes.float()
+    def _back(self, state: StreamState, front: _Front, enc, timer
+              ) -> Tuple[StreamState, torch.Tensor]:
+        """Coast frames filled in, then the tracker scan and the packed
+        results (``batch_engine.py:470-489``)."""
+        emb, det_sim, det_gid, has_emb = enc
+        boxes, mask = front.boxes.float(), front.mask
+        interval = self.interval
         if interval > 1:
             # coast frames carry an all-False mask
             def expand(x, fill=0):
-                full = torch.full((batch, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+                full = torch.full((front.batch, *x.shape[1:]), fill, dtype=x.dtype,
+                                  device=x.device)
                 full[interval - 1 :: interval] = x
                 return full
 
@@ -351,23 +564,115 @@ class BatchStreamEngine:
             det_sim = expand(det_sim)
             emb = expand(emb)
             has_emb = expand(has_emb, fill=False)
-
-        with self._stage("tracker scan"):
+        with self._stage("tracker scan", timer):
             state, res = _track_scan(
                 state, boxes, mask, det_gid, det_sim, emb, has_emb, self.tcfg,
-                cfg.similarity_threshold, cfg.unknown_trigger_count)
+                self.cfg.similarity_threshold, self.cfg.unknown_trigger_count)
             return state, pack_results(res)
 
-    def _upload(self, frames, device: torch.device, slot: int = 0) -> torch.Tensor:
-        """Frames (a host array or tensor) on ``device``.  To a card, host
-        frames go through one of two pinned buffers of ``slot`` (a
-        stream) and up asynchronously, so the call does not wait for the
-        work already queued on the card."""
+    def step(self, engine, gal: torch.Tensor, count, state: StreamState,
+             frames_u8: torch.Tensor, rung: Optional[int] = None
+             ) -> Tuple[StreamState, torch.Tensor]:
+        """The step as a function of its operands, as the JAX step is of
+        ``(det_vars, enc_vars, gal, count, state, frames)``: ``engine``
+        holds the models on the frames' device, ``gal`` the gallery matrix
+        there with ``count`` live rows (an int, or the gallery's 0-d
+        device count).  Returns the new state and the packed int32
+        results.
+
+        Run eagerly, it is the plain version of the captured graph: the
+        batch's real-detection count picks the rung by the same
+        ``searchsorted`` on its device, then read to the host (the graph
+        branches on the card).  ``rung`` forces a rung instead."""
+        timer = self.timer
+        front = self._front(engine, frames_u8, timer)
+        ladder, rungs = self.rungs(front.n_det * front.k)
+        if rung is None:
+            rung = 0 if ladder is None else int(
+                rung_index(self._ladder_on(ladder, frames_u8.device), front.mask))
+        return self._back(state, front, self._encode(engine, gal, count, front, *rungs[rung],
+                                                     timer), timer)
+
+    def warm_up(self, engine, gal: torch.Tensor, count, state: StreamState,
+                frames_u8: torch.Tensor) -> None:
+        """Every rung of the step once, eagerly, on scratch copies of
+        ``state``: what a capture needs settled first."""
+        front = self._front(engine, frames_u8, None)
+        ladder, rungs = self.rungs(front.n_det * front.k)
+        if ladder is not None:
+            rung_index(self._ladder_on(ladder, frames_u8.device), front.mask)
+        for m, full in rungs:
+            enc = self._encode(engine, gal, count, front, m, full, None)
+            self._back(clone_state(state), front, enc, None)
+
+    def _capture_parts(self, part, engine, gal: torch.Tensor, count: torch.Tensor,
+                       state: StreamState, frames_u8: torch.Tensor):
+        """One stream's step captured in parts by ``part()`` (a context
+        that captures what it encloses as one graph): the front, whose
+        last work is the rung index (``jnp.searchsorted`` in JAX), each
+        encoder rung's body (all writing the same four tensors), and the
+        back, which writes the new state into ``state``'s own tensors.
+        Returns the items to compose (the bodies behind the rung index:
+        ``lax.switch``), the packed results, the rung index (None for a
+        single rung), K1's launches in one run of the step, and the tensors
+        that pass between parts, which must outlive the graph."""
+        with part() as front_part:
+            front = self._front(engine, frames_u8, None)
+            ladder, rungs = self.rungs(front.n_det * front.k)
+            sel = None
+            if ladder is not None:
+                sel = rung_index(self._ladder_on(ladder, frames_u8.device), front.mask)
+                shape, dev = (front.n_det, front.k), frames_u8.device
+                enc = (torch.empty((*shape, self.cfg.embedding_dim), dtype=torch.float32,
+                                   device=dev),
+                       torch.empty(shape, dtype=torch.float32, device=dev),
+                       torch.empty(shape, dtype=torch.int32, device=dev),
+                       torch.empty(shape, dtype=torch.bool, device=dev))
+        bodies, per_rung = [], []
+        for m, full in rungs:
+            k1_0 = _k1.launches
+            with part() as body:
+                out = self._encode(engine, gal, count, front, m, full, None)
+                if ladder is None:
+                    enc = out
+                else:
+                    for dst, src in zip(enc, out):
+                        dst.copy_(src)
+            bodies.append(body)
+            per_rung.append(_k1.launches - k1_0)
+        if len(set(per_rung)) != 1:
+            raise RuntimeError(f"step graph: the rungs launch K1 {per_rung} times")
+        with part() as back_part:
+            new, packed = self._back(state, front, enc, None)
+            copy_state(state, new)
+        items = [([front_part], None), (bodies, sel), ([back_part], None)]
+        return items, packed, sel, per_rung[0], (front, enc, sel, packed)
+
+    def _graph_key(self, engine, gal: torch.Tensor, count: torch.Tensor, n_streams: int,
+                   frames_shape) -> tuple:
+        """What a step graph is captured for: the device, the streams and
+        the frames' shape, the gallery matrix and its count, and the
+        models (a module put in another's slot needs a new capture)."""
+        return (gal.device, n_streams, tuple(frames_shape), gal.dtype, gal.data_ptr(),
+                count.data_ptr(), getattr(self.gallery, "matrix_version", None),
+                id(getattr(engine, "detector", None)), id(getattr(engine, "encoder", None)))
+
+    def _graphed(self, device: torch.device) -> bool:
+        """Whether ``submit`` replays a captured graph: on a CUDA device."""
+        return torch.device(device).type == "cuda"
+
+    def _upload(self, frames, device: torch.device, slot: int = 0,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Frames (a host array or tensor) on ``device``, in ``out`` (a
+        graph's static input) when given.  To a card, host frames go
+        through one of two pinned buffers of ``slot`` (a stream) and up
+        asynchronously, so the call does not wait for the work already
+        queued on the card."""
         device = torch.device(device)
         if isinstance(frames, np.ndarray):
             frames = torch.from_numpy(np.ascontiguousarray(frames))
         if device.type != "cuda" or frames.device.type != "cpu":
-            return frames.to(device)
+            return frames.to(device) if out is None else out.copy_(frames)
         key = (slot, tuple(frames.shape), frames.dtype)
         ring = self._staging.get(key)
         if ring is None:
@@ -380,23 +685,40 @@ class BatchStreamEngine:
         if done is not None:
             done.synchronize()  # the upload out of this buffer, two batches ago, has left it
         buf.copy_(frames)
-        out = buf.to(device, non_blocking=True)
+        if out is None:
+            out = buf.to(device, non_blocking=True)
+        else:
+            out.copy_(buf, non_blocking=True)
         entry[1] = torch.cuda.Event()
         entry[1].record(torch.cuda.current_stream(device))
         return out
 
     def submit(self, frames):
-        """Enqueue one batch; returns a token for :meth:`collect`.  On
-        the card nothing here waits for the device except the one read
-        that picks the encoder bucket (none with ``encode_budget`` or a
-        single rung): the upload goes through pinned memory, the step
-        queues, and the result copy to pinned host memory is
-        asynchronous."""
+        """Enqueue one batch; returns a token for :meth:`collect`.  On the
+        card this reads nothing back and waits for nothing queued there:
+        the frames go up from pinned memory into the graph's static
+        input, the step graph for this shape and gallery matrix replays
+        (captured at its first batch), and the result is copied to pinned
+        host memory asynchronously.  Elsewhere the eager step runs."""
         b = frames.shape[0]
-        with self._stage("H2D"):
-            frames = self._upload(frames, self.device)
-        with torch.inference_mode():
-            packed = self._step(frames)
+        dev = self.device
+        if not self._graphed(dev):
+            with self._stage("H2D", self.timer):
+                frames = self._upload(frames, dev)
+            with torch.inference_mode():
+                new, packed = self.step(self.engine, self.gallery.gal_matmul,
+                                        self.gallery.count, self.state, frames)
+            copy_state(self.state, new)
+            return self._readback(packed), b
+        gal, count = self.gallery.gal_matmul, self.gallery.count_dev
+        key = self._graph_key(self.engine, gal, count, 1, frames.shape)
+        graph = self.graphs.get(key, lambda pool: StepGraph(
+            self, self.engine, gal, count, [self.state],
+            [self._upload(frames, dev)], pool))
+        with self._stage("H2D", self.timer):
+            self._upload(frames, dev, out=graph.frames[0])
+        with self._stage("step (graph replay)", self.timer):
+            packed = graph.replay()[0]
         return self._readback(packed), b
 
     def _readback(self, packed: torch.Tensor, slot: int = 0) -> Readback:
@@ -406,9 +728,10 @@ class BatchStreamEngine:
         if packed.device.type != "cuda":
             return Readback(packed, None, None)
         host = self.readback_pool.take(packed.numel(), slot)
-        host.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        with torch.cuda.device(packed.device):
+            host.copy_(packed, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         return Readback(host, done, slot)
 
     def _unpack(self, read: Readback, b: int) -> BatchResults:
@@ -426,7 +749,7 @@ class BatchStreamEngine:
         read, b = token
         res = self._unpack(read, b)
         if self.timer is not None:
-            self.timer.resolve()
+            self.timer.resolve(wait=False)
         return res
 
     def process_batch(self, frames) -> BatchResults:

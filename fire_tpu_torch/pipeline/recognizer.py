@@ -298,6 +298,10 @@ class FaceRecognition:
 
         self.face_tracker = Sort(self.tracker_cfg, device=self.device)
         self.timer = StageTimer()
+        # the batched paths' engines (by detection interval and encode
+        # budget, and the mesh for several streams): kept, with their
+        # captured step graphs, from one call to the next
+        self._batch_engines = {}
         self.counters = {
             "faces_detected": 0, "tier1_track_cache": 0,
             "tier2_recent_cache": 0, "tier3_gallery": 0,
@@ -907,10 +911,18 @@ class FaceRecognition:
                 log.warning("batch_size %d rounded up to %d (multiple of detection_interval %d).",
                             batch_size, rounded, interval)
                 batch_size = rounded
-            # no tracker_cfg, as in JAX (``recognizer.py:1160``)
-            mse = MultiStreamEngine(self.engine, self.gallery, self.cfg, mesh,
-                                    detection_interval=interval,
-                                    encode_budget=self.cfg.encode_budget)
+            # no tracker_cfg, as in JAX (``recognizer.py:1160``).  Kept with
+            # its step graphs for the next call on a mesh of the same
+            # devices, from a fresh state, as the batched path keeps its
+            key = (repr(mesh), interval, self.cfg.encode_budget)
+            mse = self._batch_engines.get(key)
+            if mse is None or mse.inner.engine is not self.engine \
+                    or mse.inner.gallery is not self.gallery:
+                mse = self._batch_engines[key] = MultiStreamEngine(
+                    self.engine, self.gallery, self.cfg, mesh, detection_interval=interval,
+                    encode_budget=self.cfg.encode_budget)
+            else:
+                mse.reset()
             n_real = len(caps)
             self.timer = StageTimer()
             self.timer.start()
@@ -1007,9 +1019,18 @@ class FaceRecognition:
         self.timer = StageTimer()
         self.timer.start()
         # no tracker_cfg, as in JAX (``recognizer.py:958``): the batched
-        # step tracks with the default TrackerConfig
-        bse = BatchStreamEngine(self.engine, self.gallery, self.cfg, detection_interval=interval,
-                                encode_budget=self.cfg.encode_budget, timer=self.timer)
+        # step tracks with the default TrackerConfig.  JAX builds a new
+        # engine a call; the port keeps one, with its step graphs, and
+        # starts it from a fresh state instead.
+        key = (interval, self.cfg.encode_budget)
+        bse = self._batch_engines.get(key)
+        if bse is None or bse.engine is not self.engine or bse.gallery is not self.gallery:
+            bse = self._batch_engines[key] = BatchStreamEngine(
+                self.engine, self.gallery, self.cfg, detection_interval=interval,
+                encode_budget=self.cfg.encode_budget)
+        else:
+            bse.reset()
+        bse.timer = self.timer
         sink = reader = None
 
         def emit(token, frames) -> bool:

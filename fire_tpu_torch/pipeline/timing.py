@@ -50,13 +50,21 @@ class StageTimer:
             finally:
                 self.add(name, time.perf_counter() - t0)
 
-    def resolve(self) -> None:
-        """Fold recorded CUDA event pairs into the totals (waits for the
-        last event of each pair)."""
+    def resolve(self, wait: bool = True) -> None:
+        """Fold recorded CUDA event pairs into the totals, in the order
+        they were recorded: all of them, waiting for each pair's last
+        event, or (``wait=False``) those the card has finished, so that
+        collecting one batch does not wait for the batches queued after
+        it."""
+        done = 0
         for name, e0, e1 in self._events:
-            e1.synchronize()
+            if wait:
+                e1.synchronize()
+            elif not e1.query():
+                break
             self.add(name, e0.elapsed_time(e1) / 1000.0)
-        self._events.clear()
+            done += 1
+        del self._events[:done]
 
     def add(self, name: str, seconds: float) -> None:
         self.totals[name] = self.totals.get(name, 0.0) + seconds

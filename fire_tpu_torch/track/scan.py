@@ -73,7 +73,8 @@ STATS = ("jv_frames", "predicted", "updated", "dijkstra_steps", "greedy_rounds",
          "cyc_load", "cyc_predict", "cyc_cost", "cyc_fast_path", "cyc_solve", "cyc_spawn",
          "cyc_update", "cyc_emit", "cyc_total")
 
-# Launch count: one per call that launches the kernel, and nowhere else.
+# Launch count: one per call that launches the kernel, and one per replay of
+# a CUDA graph that holds a launch (count_replayed); nowhere else.
 launches = 0
 # nvcc's output of the last build (ptxas register / spill report).
 build_log = ""
@@ -459,3 +460,10 @@ def track_scan(table: TrackTable, ident: IdentityState, boxes: torch.Tensor, mas
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def count_replayed(n: int) -> None:
+    """Add the ``n`` launches of this kernel that one replay of a CUDA
+    graph makes (capturing a launch counts nothing: it runs at replay)."""
+    global launches
+    launches += n
