@@ -57,14 +57,28 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    same gallery; frames/s and ms per frame by stage.  A second, shorter
    run uses ``detection_interval=3`` and ``align_video=True`` (coasting
    and landmark-aligned encoding).  K2 launches once a frame (``Sort.update``
-   at B = 1).
-7. ``retina_frame``: the per-frame loop's first run with RetinaFace.
+   at B = 1).  Detect, each encoder bucket and the tracker step replay
+   CUDA graphs (``runtime/graphs.py``), captured at the first frame of
+   each key and never again (capture seconds and pool bytes recorded).
+   Then 16 more frames, each under ``set_sync_debug_mode``: a frame that
+   neither enrols nor captures synchronises no more often than JAX reads
+   back for it (detect 1, tracker 1, an encode call 1, a gallery query 2).
+   Then ``frame graph vs eager``: the same frames through a recognizer
+   replaying the graphs and one run eagerly (the plain version), for each
+   of the two runs: tracks, boxes, confidences, embeddings and SQLite rows
+   bitwise equal, labels up to their random names.
+7. ``retina_frame``: the per-frame loop's first run with RetinaFace, with
+   the same graph, sync and graph-vs-eager checks.
 8. ``image_mode``: ``fire_tpu_torch.cli.main`` in process on a rendered
    1080p BMP: enrol, recognise, relabel (``--label``), then the default
-   command (BlazeFace at 192²).
+   command (BlazeFace at 192²); detect and encode replay graphs (each
+   command's engine captures its own); then, untimed, each engine call of
+   a YuNet and a default command against the same call run eagerly,
+   bitwise.
 9. ``default_command``: ``cli.main`` image mode without ``--encoder``
    (the random-init FaceNet-128 and its params cache), twice on fresh
-   storage: the first call writes the cache, the second reads it.
+   storage: the first call writes the cache, the second reads it; the
+   graph's embedding equals the eager call's.
 10. ``encrypted``: ``FaceRecognition(encryption_password=...)`` on the
    99,900-row gallery: enrolment, close, reopen, an encrypted BMP save, a
    wrong password; AES MB/s and the seconds of the 204 MB snapshot.
@@ -113,7 +127,8 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    where OpenCV is installed, as JAX scores it, else the frames) through
    the per-frame path and the batched path at B = 64, committed weights:
    detection recall ≥ 0.85, precision ≥ 0.95 and identity consistency
-   ≥ 0.80 on both; K1's launches on each.
+   ≥ 0.80 on both, and through the XVID file the per-frame row exactly
+   JAX's recorded 0.917 / 1.000 / 0.884 / 0.75; K1's launches on each.
 20. ``train_encoder``: ``python -m fire_tpu_torch.train``'s ``main`` for
    two epochs of a rendered identity dataset (32 × 8 PNGs) at full width
    (FaceNet-512, B = 64, 160², bf16), its file loaded into a
@@ -157,9 +172,11 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    a frame; K1's and K2's launches per bench (K2: one a batch).
 25. ``trace``: one more batch of the batched path and 16 frames of the
    per-frame path under ``torch.profiler``, with YuNet and with
-   RetinaFace, then one full-width ArcFace step on one device and one on
-   the (2, 2) mesh, for the device's busy time and its idle share of the
-   traced wall time (six ``trace`` lines).  It runs after every timed phase: the profiler leaves
+   RetinaFace (the per-frame frames twice: first sight, with its
+   enrolments, then again after their tracks died), then one full-width
+   ArcFace step on one device and one on the (2, 2) mesh, for the
+   device's busy time, its idle share of the traced wall time and the
+   host's launch calls (eight ``trace`` lines).  It runs after every timed phase: the profiler leaves
    launches slower.
 26. ``cross_device``: one 8-frame batched step, a 2-stream step, the
    per-frame engine calls (``detect_faces``, ``encode_boxes``,
@@ -1242,8 +1259,14 @@ def phase_trace(ctx) -> None:
                   "detector": detector})
             fr.process_frames(_frames(seed=6, n_scenes=1, per_scene=8, n_faces=(1, 3)),
                               annotate=False, batch_size=0)  # warm-up of this path
-            emit({**trace_frames(fr, _frames(seed=7, n_scenes=2, per_scene=8, n_faces=(1, 3)),
-                                 batch_size=0), "detector": detector})
+            frames = _frames(seed=7, n_scenes=2, per_scene=8, n_faces=(1, 3))
+            emit({**trace_frames(fr, frames, batch_size=0), "detector": detector})
+            # the same frames again once their tracks have died: every key
+            # captured and every face enrolled before
+            fr.process_frames([frames[0] * 0] * (fr.tracker_cfg.max_age + 2), annotate=False,
+                              batch_size=0)
+            emit({**trace_frames(fr, frames, batch_size=0), "detector": detector,
+                  "window": "steady: the frames seen before"})
         finally:
             fr.close()
     for key, path in (("arcface", "arcface train step"),
@@ -1267,13 +1290,19 @@ def trace_frames(fr, frames, batch_size: int = BATCH) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    enrolled = fr.gallery.count
+    with _frame_graphs() as built, profile(activities=[ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fr.process_frames(frames, annotate=False, batch_size=batch_size)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    summary = device_summary(prof, wall_ms)
     return {"phase": "trace", "path": "batched" if batch_size else "per-frame",
-            "frames": len(frames), **device_summary(prof, wall_ms)}
+            "frames": len(frames), "enrolled_in_window": fr.gallery.count - enrolled,
+            "captured_in_window": [b["kind"] for b in built.builds], **summary,
+            "host_launch_calls_per_frame": sum(summary["host_launch_calls"].values()) / len(frames),
+            "device_events_per_frame": summary["device_events"] / len(frames)}
 
 
 def device_summary(prof, wall_ms: float) -> dict:
@@ -1297,15 +1326,324 @@ def device_summary(prof, wall_ms: float) -> dict:
         by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     busy_ms = busy_us / 1e3 if dev else None
+    # the host's calls that put work on the card: kernel launches, copies,
+    # graph launches (one graph launch runs all of its kernels)
+    host = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith(("cuda", "cu")) and (
+                "Launch" in e.name or "Memcpy" in e.name or "Memset" in e.name):
+            host[e.name] = host.get(e.name, 0) + 1
     return {"traced_wall_ms": wall_ms, "device_events": len(dev), "device_busy_ms": busy_ms,
             "idle_share_traced": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
-            "top_device_ms": {k: v / 1e3 for k, v in top}}
+            "host_launch_calls": host, "top_device_ms": {k: v / 1e3 for k, v in top}}
+
+
+def _graph_kind(key) -> str:
+    """What a per-frame graph's key runs: ``detect``, ``detect extract``,
+    ``encode_boxes 4`` (the bucket), ``encode_faces 8``, ``tracker step``."""
+    if len(key) == 4:  # Sort: (device, cfg, max_dets, piece)
+        return f"tracker {key[3]}"
+    jit = key[1]
+    if isinstance(jit[0], str):
+        name = {"encb": "encode_boxes", "encl": "encode_landmarks", "encf": "encode_faces"}[jit[0]]
+        return f"{name} {jit[1][0] if jit[0] == 'encf' else jit[2]}"
+    return "detect" if isinstance(jit[0], int) else f"detect {jit[1]}"
+
+
+class _frame_graphs:
+    """While active, records every per-frame graph built (its kind, the
+    recognizer's frame index then, capture seconds and the bytes the
+    capture added to the device's pool), counts the replays by kind
+    (detect, encode_*, tracker; of ``fr``'s graphs captured earlier too),
+    and counts recaptures: a key captured again by a cache that had
+    captured it before."""
+
+    def __init__(self, fr=None):
+        self.fr = fr
+
+    def __enter__(self):
+        import weakref
+
+        from fire_tpu_torch.runtime import graphs
+
+        self.builds, self.replays, self.recaptures = [], {}, 0
+        kind_of, seen, owner = {}, weakref.WeakKeyDictionary(), self
+        if self.fr is not None:  # graphs its engine captured before (an engine shared by runs)
+            for key, graph in (*self.fr.engine.graphs, *self.fr.face_tracker.graphs):
+                kind_of[id(graph)] = _graph_kind(key)
+        self._real = get, replay = graphs.GraphCache.get, graphs.CapturedCall.replay
+
+        def noting_get(cache, key, build):
+            fresh = cache.find(key) is None
+            graph = get(cache, key, build)
+            if fresh and isinstance(graph, graphs.CapturedCall):
+                keys = seen.setdefault(cache, set())
+                owner.recaptures += key in keys
+                keys.add(key)
+                kind_of[id(graph)] = kind = _graph_kind(key)
+                owner.builds.append({
+                    "kind": kind, "frame": owner.fr.frame_index if owner.fr is not None else None,
+                    "capture_s": graph.capture_s, "pool_gb": graph.pool_bytes / 1e9})
+            return graph
+
+        def counting_replay(graph):
+            kind = kind_of.get(id(graph), "other").split()[0]
+            owner.replays[kind] = owner.replays.get(kind, 0) + 1
+            return replay(graph)
+
+        graphs.GraphCache.get, graphs.CapturedCall.replay = noting_get, counting_replay
+        return self
+
+    def __exit__(self, *exc):
+        from fire_tpu_torch.runtime import graphs
+
+        graphs.GraphCache.get, graphs.CapturedCall.replay = self._real
+
+    def record(self) -> dict:
+        return {"captures": len(self.builds), "recaptures": self.recaptures,
+                "capture_s_total": sum(b["capture_s"] for b in self.builds),
+                "capture_s_max": max((b["capture_s"] for b in self.builds), default=0.0),
+                "pool_gb_total": sum(b["pool_gb"] for b in self.builds),
+                "replays": dict(self.replays),
+                "captured": sorted({b["kind"] for b in self.builds})}
+
+    def check(self, name: str, expect=("detect", "tracker", "encode_boxes")) -> None:
+        check(self.recaptures == 0, f"{name}: {self.recaptures} keys captured again")
+        for kind in expect:
+            check(self.replays.get(kind, 0) > 0,
+                  f"{name}: no {kind} graph replayed ({self.record()})")
+
+
+def _same_faces_dicts(a, b) -> bool:
+    """``detect_faces`` results equal: boxes, confidences, landmarks."""
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        x["bbox"] == y["bbox"] and x["confidence"] == y["confidence"]
+        and np.array_equal(x["landmarks"], y["landmarks"]) for x, y in zip(a, b))
+
+
+class _engine_vs_eager:
+    """While active, each ``DeviceEngine.detect_faces`` / ``encode_*``
+    call runs as called (on a card, a graph replay), then again on the
+    same engine and arguments run eagerly (the plain version, ``_graphed``
+    off); the two must be bitwise equal.  ``calls`` counts them by name."""
+
+    NAMES = ("detect_faces", "encode_boxes", "encode_landmarks", "encode_faces")
+
+    def __enter__(self):
+        import numpy as np
+
+        from fire_tpu_torch.pipeline.engine import DeviceEngine
+
+        self.calls = {}
+        self._real = {n: getattr(DeviceEngine, n) for n in self.NAMES}
+        for name, real in self._real.items():
+            def twice(eng, *args, real=real, name=name):
+                out = real(eng, *args)
+                eng._graphed = lambda device: False
+                try:
+                    want = real(eng, *args)
+                finally:
+                    del eng._graphed
+                same = (_same_faces_dicts(out, want) if name == "detect_faces"
+                        else np.array_equal(out, want))
+                check(same, f"{name}: the graph's result differs from the eager call's")
+                self.calls[name] = self.calls.get(name, 0) + 1
+                return out
+
+            setattr(DeviceEngine, name, twice)
+        return self
+
+    def __exit__(self, *exc):
+        from fire_tpu_torch.pipeline.engine import DeviceEngine
+
+        for name, real in self._real.items():
+            setattr(DeviceEngine, name, real)
+
+
+def frame_syncs(fr, frames) -> dict:
+    """The synchronising CUDA calls of each of ``frames`` through
+    ``fr.recognize_faces`` (``torch.cuda.set_sync_debug_mode("warn")``),
+    on a second pass over them (the first captures any key they need)
+    against what JAX reads back for that frame: detect 1 on a detecting
+    frame, the tracker 1 (2 under ``hungarian_host``), each encode call 1,
+    each gallery query 2.  Enrolment is held off meanwhile (the unknown
+    trigger raised), so a frame with a new track is detect, track, encode
+    and query alone; a frame that still enrols or captures is not held to
+    the count.  Returns the counts."""
+    eng, matcher = fr.engine, fr._matcher
+    calls = {"encode": 0, "query": 0}
+    real = {n: getattr(eng, n) for n in ("encode_boxes", "encode_landmarks")}
+    real_query = matcher.query_batch
+
+    def counting(name):
+        def call(*args, **kw):
+            calls["encode"] += 1
+            return real[name](*args, **kw)
+        return call
+
+    def counting_query(*args, **kw):
+        calls["query"] += 1
+        return real_query(*args, **kw)
+
+    for name in real:
+        setattr(eng, name, counting(name))
+    matcher.query_batch = counting_query
+    tracker = 2 if fr.tracker_cfg.assignment == "hungarian_host" else 1
+    rows, trigger = [], fr.unknown_trigger_count
+    fr.unknown_trigger_count = 1 << 30
+    try:
+        with _frame_graphs(fr) as built:
+            for frame in frames:  # a first pass captures what the frames need
+                fr.recognize_faces(frame)
+            for frame in frames:
+                calls.update(encode=0, query=0)
+                n_gal, n_built = fr.gallery.count, len(built.builds)
+                _, syncs = _count_syncs(lambda: fr.recognize_faces(frame))
+                detecting = fr.frame_index % fr.detection_interval == 0
+                rows.append({"syncs": len(syncs), "at": syncs,
+                             "budget": int(detecting) + tracker + calls["encode"]
+                             + 2 * calls["query"],
+                             "encodes": calls["encode"], "queries": calls["query"],
+                             "enrolled": fr.gallery.count - n_gal,
+                             "captured": [b["kind"] for b in built.builds[n_built:]]})
+                rows[-1]["steady"] = not (rows[-1]["enrolled"] or rows[-1]["captured"])
+    finally:
+        fr.unknown_trigger_count = trigger
+        for name in real:
+            delattr(eng, name)
+        del matcher.query_batch
+    steady = [r for r in rows if r["steady"]]
+    over = [r for r in steady if r["syncs"] > r["budget"]]
+    check(not over, f"frame syncs: above JAX's readbacks on {len(over)} frames: {over[:2]}")
+    full = [r for r in steady if r["encodes"] and r["queries"]]
+    check(len(full) > 0, "frame syncs: no steady frame encoded and matched a new track: "
+          f"{[(r['encodes'], r['queries'], r['enrolled'], r['captured']) for r in rows]}")
+    worst = max(full, key=lambda r: r["syncs"])
+    return {"frames": len(rows), "steady_frames": len(steady),
+            "max_syncs_steady": max(r["syncs"] for r in steady),
+            "syncs_new_track_frame": worst["syncs"], "budget_new_track_frame": worst["budget"],
+            "at_new_track_frame": worst["at"],
+            "syncs_by_frame": [r["syncs"] for r in rows],
+            "budget_by_frame": [r["budget"] for r in rows]}
+
+
+def _recording(fr):
+    """``fr``'s per-frame outputs as it runs: each tracker update's tracks
+    and each encode call's embeddings, in order."""
+    seen = {"tracks": [], "embeddings": []}
+    update = fr.face_tracker.update
+
+    def noting_update(dets):
+        out = update(dets)
+        seen["tracks"].append(out)
+        return out
+
+    fr.face_tracker.update = noting_update
+    for name in ("encode_boxes", "encode_landmarks"):
+        real = getattr(fr.engine, name)
+
+        def noting(frame, rows, real=real, name=name):
+            out = real(frame, rows)
+            seen["embeddings"].append((name, out.copy()))
+            return out
+
+        setattr(fr.engine, name, noting)
+    return seen
+
+
+def _frame_engine(detector: dict):
+    """The engine a per-frame phase's recognizers share (FaceNet-512 and
+    ``detector``, committed weights): one engine start a phase, its
+    graphs kept across the phase's runs until ``release_graphs()``."""
+    from fire_tpu_torch.config import EngineConfig, RecognizerConfig
+    from fire_tpu_torch.pipeline.engine import DeviceEngine
+
+    cfg = RecognizerConfig(detector_type=detector["detector_type"], encoder_model_type="512",
+                           engine=detector.get("engine_cfg") or EngineConfig())
+    eng = DeviceEngine(cfg.with_embedding_dim(), device="cuda")
+    eng.load_trained_encoder(_trained("facenet512_synth.msgpack"))
+    eng.load_trained_detector(detector["trained_detector"])
+    return eng
+
+
+def _on_engine(detector: dict) -> dict:
+    """A recognizer's keywords for ``detector`` on an engine given to it."""
+    return {k: v for k, v in detector.items() if k != "trained_detector"}
+
+
+def frame_graph_vs_eager(storage: str, frames, detector: dict, engine, **fr_kw) -> dict:
+    """The same frames through two recognizers on ``engine`` at full
+    width on fresh storage, one replaying the per-frame graphs and one
+    with the engine and its tracker run eagerly (their plain version,
+    ``_graphed`` off): tracks, boxes, confidences and embeddings bitwise
+    equal frame by frame, labels equal up to their random names (a
+    bijection), and the same SQLite rows, embeddings bitwise."""
+    import sqlite3
+
+    import numpy as np
+
+    from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+
+    runs = {}
+    for mode in ("graph", "eager"):
+        fr = FaceRecognition(
+            encoder_model_type="512", similarity_threshold=0.7, unknown_trigger_count=1,
+            enable_logging=False, storage_root=os.path.join(storage, mode), engine=engine,
+            device="cuda", **_on_engine(detector), **fr_kw)
+        try:
+            if mode == "eager":
+                engine._graphed = fr.face_tracker._graphed = lambda device: False
+            seen = _recording(fr)
+            with _frame_graphs(fr) as built:
+                seen["faces"] = [fr.recognize_faces(f) for f in frames]
+            seen["graphs"] = built.record()
+            stem = f"{fr.cfg.detector_type}_512"
+            db = os.path.join(storage, mode, f"{stem}_unencrypted", "db",
+                              f"face_embeddings_{stem}.db")
+        finally:
+            for name in ("_graphed", "encode_boxes", "encode_landmarks"):  # _recording's too
+                engine.__dict__.pop(name, None)
+            fr.close()
+        con = sqlite3.connect(db)
+        try:
+            seen["rows"] = list(con.execute("SELECT id, label, embedding FROM faces ORDER BY id"))
+        finally:
+            con.close()
+        runs[mode] = seen
+    g, e = runs["graph"], runs["eager"]
+    check(g["tracks"] == e["tracks"], "frame graph vs eager: the tracks differ")
+    check(len(g["embeddings"]) == len(e["embeddings"]) > 0
+          and all(a[0] == b[0] and np.array_equal(a[1], b[1])
+                  for a, b in zip(g["embeddings"], e["embeddings"])),
+          "frame graph vs eager: the embeddings differ")
+    labels = {}
+    for f, (a, b) in enumerate(zip(g["faces"], e["faces"])):
+        check([(d["bbox"], d["confidence"]) for d in a] == [(d["bbox"], d["confidence"])
+                                                             for d in b],
+              f"frame graph vs eager: frame {f}'s boxes or confidences differ")
+        for da, db_ in zip(a, b):
+            check(labels.setdefault(da["label"], db_["label"]) == db_["label"],
+                  f"frame graph vs eager: frame {f}'s labels differ")
+    check(len(set(labels.values())) == len(labels), "frame graph vs eager: labels merge")
+    check(len(g["rows"]) == len(e["rows"]) > 0
+          and all(ra[0] == rb[0] and labels.get(ra[1], ra[1]) == rb[1] and ra[2] == rb[2]
+                  for ra, rb in zip(g["rows"], e["rows"])),
+          "frame graph vs eager: the SQLite rows differ")
+    check(not e["graphs"]["captures"], "frame graph vs eager: the eager run captured")
+    return {"frames": len(frames), "tracker_updates": len(g["tracks"]),
+            "encode_calls": len(g["embeddings"]), "faces": sum(len(x) for x in g["faces"]),
+            "labels": len(labels), "sqlite_rows": len(g["rows"]), "bitwise_equal": True,
+            "graphs": g["graphs"]}
 
 
 def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: dict,
-                   **fr_kw) -> dict:
-    """One ``process_frames(batch_size=0)`` run at full width against the
-    99,900-row gallery; returns what the phase checks and prints."""
+                   engine, **fr_kw) -> dict:
+    """One ``process_frames(batch_size=0)`` run at full width on
+    ``engine`` against the 99,900-row gallery; returns what the phase
+    checks and prints."""
+    import numpy as np
     import torch
 
     from fire_tpu_torch.ops import cosine_top1 as k1
@@ -1315,45 +1653,50 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: 
 
     fr = FaceRecognition(
         encoder_model_type="512", similarity_threshold=0.7,
-        unknown_trigger_count=1, enable_logging=False, storage_root=storage,
-        trained_encoder=_trained("facenet512_synth.msgpack"), device="cuda", **detector, **fr_kw)
+        unknown_trigger_count=1, enable_logging=False, storage_root=storage, engine=engine,
+        device="cuda", **_on_engine(detector), **fr_kw)
     try:
         fr.gallery.load_rows(_gallery_rows(ctx))
         check(fr.gallery.count == N_GALLERY and fr.gallery.padded == PADDED_ROWS, "gallery size")
-        # cuDNN plans, the allocator, and the first enrolment, which writes
-        # the hydrated gallery's first snapshot (204 MB) to disk
-        fr.process_frames(warmup, annotate=False, batch_size=0)
-        check(fr.counters["unknown_enrolled"] > 0, "frame_path: the warm-up enrolled nothing")
-        sql_before = fr.db_manager.count()
-        counters_before = dict(fr.counters)
+        with _frame_graphs(fr) as built:
+            # the graphs' captures, cuDNN plans, the allocator, and the first
+            # enrolment, which writes the hydrated gallery's first snapshot
+            # (204 MB) to disk
+            fr.process_frames(warmup, annotate=False, batch_size=0)
+            check(fr.counters["unknown_enrolled"] > 0, "frame_path: the warm-up enrolled nothing")
+            warm_captures = len(built.builds)
+            sql_before = fr.db_manager.count()
+            counters_before = dict(fr.counters)
 
-        # frames on which a track was encoded, by either crop
-        encode_frames = {"boxes": set(), "landmarks": set()}
+            # frames on which a track was encoded, by either crop
+            encode_frames = {"boxes": set(), "landmarks": set()}
+            for kind in encode_frames:
+                real = getattr(fr.engine, f"encode_{kind}")
+
+                def noting(frame, per_face, real=real, seen=encode_frames[kind]):
+                    seen.add(fr.frame_index)
+                    return real(frame, per_face)
+
+                setattr(fr.engine, f"encode_{kind}", noting)
+
+            faces_per_frame = []
+            k1.reset_launches()
+            k2.reset_launches()
+            with _K1Sizes() as sizes, _Calls(Sort, "update") as updates:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fr.process_frames(frames, annotate=False, batch_size=0,
+                                  on_frame=lambda f, faces: faces_per_frame.append(len(faces)))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches, k2_launches = k1.launches, k2.launches
         for kind in encode_frames:
-            real = getattr(fr.engine, f"encode_{kind}")
-
-            def noting(frame, per_face, real=real, seen=encode_frames[kind]):
-                seen.add(fr.frame_index)
-                return real(frame, per_face)
-
-            setattr(fr.engine, f"encode_{kind}", noting)
-
-        faces_per_frame = []
-        k1.reset_launches()
-        k2.reset_launches()
-        with _K1Sizes() as sizes, _Calls(Sort, "update") as updates:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fr.process_frames(frames, annotate=False, batch_size=0,
-                              on_frame=lambda f, faces: faces_per_frame.append(len(faces)))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        launches, k2_launches = k1.launches, k2.launches
+            delattr(fr.engine, f"encode_{kind}")
         n = len(frames)
         stage_ms = {k: v / n * 1e3 for k, v in fr.timer.totals.items()}
         stage_ms["other (H2D copy, enrolment, host loop)"] = (wall / n * 1e3
                                                              - sum(stage_ms.values()))
-        return {
+        rec = {
             "frames": n, "frames_per_s": n / wall, "ms_per_frame": wall / n * 1e3,
             "stage_ms_per_frame": stage_ms, "k1_launches": launches,
             "k2_launches": k2_launches, "tracker_updates": updates.n,
@@ -1367,12 +1710,29 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: 
                 fr.tracker_cfg.min_hits * fr.detection_interval + fr.detection_interval - 1),
             "sqlite_rows_added": fr.db_manager.count() - sql_before,
             "counters": {k: v - counters_before[k] for k, v in fr.counters.items()},
+            "graphs": built.record(),
+            "graphs_captured_in_timed_run": [b["kind"] for b in built.builds[warm_captures:]],
+            "_graphs": built,
         }
+        # then blank frames until every track has died, and the first scene
+        # again: new tracks, matched in the caches and the gallery (no
+        # enrolment)
+        blank = [np.zeros_like(frames[0])] * (fr.tracker_cfg.max_age + 2)
+        rec["syncs"] = frame_syncs(fr, blank + frames[: 8 * fr.detection_interval])
+        # the tracker's frame alone: its graph (K2 and the packing) replayed
+        # back to back on the last frame's detections, CUDA events
+        step = next(g for key, g in fr.face_tracker.graphs if key[-1] == "step")
+        rec["tracker_graph_replay_ms"] = cuda_ms_each({"replay": step.replay}, reps=50)["replay"]
+        return rec
     finally:
         fr.close()
 
 
-def _check_per_frame(rec: dict, name: str) -> None:
+def _check_per_frame(rec: dict, name: str, built: "_frame_graphs",
+                     encode=("encode_boxes",)) -> None:
+    """The run's checks; ``built``: its graphs, which detect, the tracker
+    and ``encode`` must have replayed, each key captured once."""
+    built.check(name, ("detect", "tracker") + tuple(encode))
     check(rec["results"] == rec["frames"], f"{name}: every frame produced a result")
     check(rec["k2_launches"] == rec["tracker_updates"] > 0,
           f"{name}: K2 launched {rec['k2_launches']} times for {rec['tracker_updates']} "
@@ -1390,41 +1750,68 @@ def _check_per_frame(rec: dict, name: str) -> None:
 def phase_frame_path(ctx) -> None:
     """The per-frame loop on 64 frames (2 scenes × 32, 1–3 faces), then a
     shorter run that skips detection on two frames of three and encodes
-    landmark-aligned crops."""
-    per_scene = 32
-    warmup = _frames(seed=1, n_scenes=2, per_scene=8, n_faces=(1, 3))
-    rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "frame_path"),
-                         _frames(seed=0, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
-                         per_scene, warmup, YUNET, detection_interval=1)
-    emit({"phase": "frame_path", "run": "detect every frame, box crops", **rec})
-    _check_per_frame(rec, "frame_path")
-    check(rec["tracker_updates"] == rec["frames"],
-          f"frame_path: {rec['tracker_updates']} tracker updates for {rec['frames']} frames")
-    ctx["k1_launches_frame_path"] = rec["k1_launches"]
-    ctx["k2_launches_frame_path"] = rec["k2_launches"]
+    landmark-aligned crops; every run on one engine."""
+    eng = _frame_engine(YUNET)
+    try:
+        per_scene = 32
+        warmup = _frames(seed=1, n_scenes=2, per_scene=8, n_faces=(1, 3))
+        rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "frame_path"),
+                             _frames(seed=0, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
+                             per_scene, warmup, YUNET, eng, detection_interval=1)
+        built = rec.pop("_graphs")
+        emit({"phase": "frame_path", "run": "detect every frame, box crops", **rec})
+        _check_per_frame(rec, "frame_path", built)
+        check(rec["tracker_updates"] == rec["frames"],
+              f"frame_path: {rec['tracker_updates']} tracker updates for {rec['frames']} frames")
+        ctx["k1_launches_frame_path"] = rec["k1_launches"]
+        ctx["k2_launches_frame_path"] = rec["k2_launches"]
+        emit({"phase": "frame_path", "check": "frame graph vs eager",
+              "run": "detect every frame, box crops",
+              **frame_graph_vs_eager(os.path.join(ctx["tmp"], "frame_path_vs_eager"),
+                                     _frames(seed=0, n_scenes=2, per_scene=12, n_faces=(1, 3)),
+                                     YUNET, eng, detection_interval=1)})
 
-    per_scene = 36
-    rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "frame_path_aligned"),
-                         _frames(seed=4, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
-                         per_scene, _frames(seed=1, n_scenes=1, per_scene=18, n_faces=(1, 3)),
-                         YUNET, detection_interval=3, align_video=True)
-    emit({"phase": "frame_path", "run": "detection_interval=3, align_video", **rec})
-    _check_per_frame(rec, "frame_path (interval 3, aligned)")
-    check(rec["encode_frames_aligned"] > 0, "frame_path: no landmark-aligned crop was encoded")
+        per_scene = 36
+        rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "frame_path_aligned"),
+                             _frames(seed=4, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
+                             per_scene, _frames(seed=1, n_scenes=1, per_scene=18, n_faces=(1, 3)),
+                             YUNET, eng, detection_interval=3, align_video=True)
+        built = rec.pop("_graphs")
+        emit({"phase": "frame_path", "run": "detection_interval=3, align_video", **rec})
+        _check_per_frame(rec, "frame_path (interval 3, aligned)", built, ("encode_landmarks",))
+        check(rec["encode_frames_aligned"] > 0, "frame_path: no landmark-aligned crop was encoded")
+        emit({"phase": "frame_path", "check": "frame graph vs eager",
+              "run": "detection_interval=3, align_video",
+              **frame_graph_vs_eager(os.path.join(ctx["tmp"], "frame_path_aligned_vs_eager"),
+                                     _frames(seed=4, n_scenes=2, per_scene=15, n_faces=(1, 3)),
+                                     YUNET, eng, detection_interval=3, align_video=True)})
+    finally:
+        eng.release_graphs()
 
 
 def phase_retina_frame(ctx) -> None:
     """The per-frame loop's first run (64 frames, 1–3 faces, detect every
     frame) with RetinaFace at 512²."""
     per_scene = 32
-    rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "retina_frame"),
-                         _frames(seed=0, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
-                         per_scene, _frames(seed=1, n_scenes=2, per_scene=8, n_faces=(1, 3)),
-                         _retina(), detection_interval=1)
-    emit({"phase": "retina_frame", "detector": "retinaface-512",
-          "run": "detect every frame, box crops", **rec})
-    _check_per_frame(rec, "retina_frame")
-    ctx["k1_launches_retina_frame"] = rec["k1_launches"]
+    detector = _retina()
+    eng = _frame_engine(detector)
+    try:
+        rec = _per_frame_run(ctx, os.path.join(ctx["tmp"], "retina_frame"),
+                             _frames(seed=0, n_scenes=2, per_scene=per_scene, n_faces=(1, 3)),
+                             per_scene, _frames(seed=1, n_scenes=2, per_scene=8, n_faces=(1, 3)),
+                             detector, eng, detection_interval=1)
+        built = rec.pop("_graphs")
+        emit({"phase": "retina_frame", "detector": "retinaface-512",
+              "run": "detect every frame, box crops", **rec})
+        _check_per_frame(rec, "retina_frame", built)
+        ctx["k1_launches_retina_frame"] = rec["k1_launches"]
+        ctx["k2_launches_retina_frame"] = rec["k2_launches"]
+        emit({"phase": "retina_frame", "check": "frame graph vs eager",
+              **frame_graph_vs_eager(os.path.join(ctx["tmp"], "retina_frame_vs_eager"),
+                                     _frames(seed=0, n_scenes=2, per_scene=12, n_faces=(1, 3)),
+                                     detector, eng, detection_interval=1)})
+    finally:
+        eng.release_graphs()
 
 
 def _iou_xywh(a, b) -> float:
@@ -1493,7 +1880,7 @@ def phase_image_mode(ctx) -> None:
     k1.reset_launches()
     try:
         os.chdir(work)  # storage/ is made under the working directory
-        with _K1Sizes() as sizes:
+        with _K1Sizes() as sizes, _frame_graphs() as built:
             first, t_first, st_first = run("--detector", "yunet", "--save", out)
             enrolled = labels("yunet")
             second, t_second, st_second = run("--detector", "yunet", "--save", out)
@@ -1501,10 +1888,18 @@ def phase_image_mode(ctx) -> None:
             _, t_label, _ = run("--detector", "yunet", "--label", "alice")
             relabelled = labels("yunet")
             default, t_default, st_default = run()  # BlazeFace at 192²
+        launches = k1.launches
+        # untimed: each engine call of both detectors' commands against its
+        # plain version, the eager call on the same engine and inputs
+        with _engine_vs_eager() as twice:
+            run("--detector", "yunet")
+            run()
     finally:
         os.chdir(cwd)
         FaceRecognition.process_image = real
-    launches = k1.launches
+    built.check("image_mode", ("detect", "encode_boxes"))
+    check(twice.calls.get("detect_faces", 0) == 2 and twice.calls.get("encode_boxes", 0) == 2,
+          f"image_mode: graph vs eager ran {twice.calls}")
 
     n = len(gt_boxes)
     check(len(first) == n == len(enrolled), f"image_mode: {len(first)} faces, rendered {n}")
@@ -1531,7 +1926,8 @@ def phase_image_mode(ctx) -> None:
                       "default (blazeface-192)": t_default},
           "stage_seconds": {"yunet, first": st_first, "yunet, second": st_second,
                             "default": st_default},
-          "default_detector_iou": ious})
+          "default_detector_iou": ious, "graphs": built.record(),
+          "graph_vs_eager_calls": twice.calls, "graph_vs_eager_bitwise_equal": True})
 
 
 def _one_face_bmp(work: str, seed: int):
@@ -1599,6 +1995,7 @@ def phase_default_command(ctx) -> None:
     E.materialize, E.DeviceEngine.encode_boxes = counting, noting
     k1.reset_launches()
     seconds, materialized = [], []
+    built = _frame_graphs().__enter__()
     try:
         os.chdir(work)
         for _ in range(2):
@@ -1615,9 +2012,11 @@ def phase_default_command(ctx) -> None:
                 cache_mtime = os.path.getmtime(cache)
                 enrolled = labels()
     finally:
+        built.__exit__(None, None, None)
         os.chdir(cwd)
         E.materialize, E.DeviceEngine.encode_boxes = real_mat, real_enc
     launches = k1.launches
+    built.check("default_command", ("detect", "encode_boxes"))
     check(materialized == [2, 0], f"default_command: materialize calls per run {materialized}")
     check(os.path.getmtime(cache) == cache_mtime, "default_command: the second call rewrote the cache")
     check(len(embs) == 2 and embs[0].shape == (1, 128), f"default_command: embeddings {len(embs)}")
@@ -1629,6 +2028,9 @@ def phase_default_command(ctx) -> None:
     check(np.array_equal(here, embs[0]),
           f"default_command: materialize(seed 0) embeds differently, max "
           f"{float(np.abs(here - embs[0]).max())}")
+    eng._graphed = lambda device: False  # the plain version: the same call run eagerly
+    check(np.array_equal(eng.encode_boxes(scene, boxes_seen[0]), here),
+          "default_command: the encode graph differs from the eager call")
     check(len(enrolled) == 1 and enrolled[0].startswith("Unknown_"),
           f"default_command: the first call enrolled {enrolled}")
     check(labels() == enrolled, "default_command: the second call did not recognise the face")
@@ -1637,7 +2039,8 @@ def phase_default_command(ctx) -> None:
     emit({"phase": "default_command", "encoder": "facenet128 random-init (seed 0)",
           "seconds": {"first (writes the cache)": seconds[0], "second (reads it)": seconds[1]},
           "params_cache_bytes": os.path.getsize(cache), "k1_launches": launches,
-          "embedding_bitwise_equal": True, "enrolled": enrolled})
+          "embedding_bitwise_equal": True, "graph_vs_eager_bitwise_equal": True,
+          "enrolled": enrolled, "graphs": built.record()})
 
 
 def phase_encrypted(ctx) -> None:
@@ -2387,6 +2790,11 @@ def phase_eval_e2e(ctx) -> None:
         for key, floor in (("det_recall", 0.85), ("det_precision", 0.95),
                            ("id_consistency", 0.80)):
             check(m[key] >= floor, f"eval_e2e {name}: {key} {m[key]:.3f} < {floor}")
+    if isinstance(video, str):  # scored as JAX scores it: its recorded row, exactly
+        got = {k: round(runs["per-frame"][k], 3) for k in ("det_recall", "det_precision",
+                                                           "id_consistency", "id_separation")}
+        check(got == {k: JAX_E2E_V5E[k] for k in got},
+              f"eval_e2e per-frame: {got}, JAX's recorded row {JAX_E2E_V5E}")
 
 
 # ---------------------------------------------------------------- training --
@@ -2727,10 +3135,13 @@ def _plain_kernels():
     """K1 and K2 swapped for their plain versions where the batched step
     calls them, on whatever device the step runs, and the step run
     eagerly there: the graph's plain version (the plain tracker reads the
-    card for its assignment, which no graph can hold)."""
+    card for its assignment, which no graph can hold).  The per-frame
+    engine and tracker run eagerly too."""
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.pipeline import batch_engine as be
+    from fire_tpu_torch.pipeline.engine import DeviceEngine
     from fire_tpu_torch.track import scan as k2
+    from fire_tpu_torch.track.sort import Sort
 
     def track_scan(table, ident, *args):  # in place, as the wrapper updates them
         new_table, new_ident, out, iout = k2.track_scan_plain(table, ident, *args)
@@ -2738,13 +3149,17 @@ def _plain_kernels():
             dst.copy_(src)
         return table, ident, out, iout
 
-    real = be.cosine_top1, be.track_scan, be.BatchStreamEngine._graphed
+    owners = (be.BatchStreamEngine, DeviceEngine, Sort)
+    real = be.cosine_top1, be.track_scan, [o._graphed for o in owners]
     be.cosine_top1, be.track_scan = k1.plain_cosine_top1, track_scan
-    be.BatchStreamEngine._graphed = lambda self, device: False
+    for owner in owners:
+        owner._graphed = lambda self, device: False
     try:
         yield
     finally:
-        be.cosine_top1, be.track_scan, be.BatchStreamEngine._graphed = real
+        be.cosine_top1, be.track_scan = real[:2]
+        for owner, graphed in zip(owners, real[2]):
+            owner._graphed = graphed
 
 
 def _compare_streams(plane: str, card, other, what: str, box_tol: float) -> dict:
@@ -3326,6 +3741,7 @@ def k2_summary(ctx) -> dict:
         "launches": ctx["k2_launches"],
         "launches_retina_path": ctx["k2_launches_retina_path"],
         "launches_frame_path": ctx["k2_launches_frame_path"],
+        "launches_retina_frame": ctx["k2_launches_retina_frame"],
         "launches_multistream": ctx["k2_launches_multistream"],
         "launches_dryrun": ctx["k2_launches_dryrun"],
         "launches_bench": ctx["k2_launches_bench"],

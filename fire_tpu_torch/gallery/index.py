@@ -36,6 +36,7 @@ from fire_tpu_torch.device import DeviceLike, resolve_device
 from fire_tpu_torch.gallery.crypto import Encryptor
 from fire_tpu_torch.ops.cosine_top1 import cosine_top1
 from fire_tpu_torch.ops.gallery_match import cosine_topk, cosine_topk_f32
+from fire_tpu_torch.runtime.graphs import HostStaging
 
 log = logging.getLogger(__name__)
 
@@ -62,6 +63,7 @@ class DeviceGallery:
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
+        self._staging = HostStaging()  # the K1 queries' pinned upload buffers
         self.embedding_dim = embedding_dim
         self.capacity = capacity
         # 2048-row padding for large galleries (100,000 → 100,352 =
@@ -377,10 +379,14 @@ class DeviceGallery:
         if self.count == 0:
             return None, None
         self._flush_pending()
-        q = torch.from_numpy(np.ascontiguousarray(embeddings, np.float32)).to(self.device)
+        embeddings = np.ascontiguousarray(embeddings, np.float32)
         if k == 1 and not self.strict_f32_match:
+            # the few queries of a frame go up without waiting for the card:
+            # its two readbacks are the call's only waits, as in JAX
+            q = self._staging.upload(embeddings, self.device)
             sims, idx = cosine_top1(q, self._gal16, self.count)
             return idx.cpu().numpy()[:, None], 1.0 - sims.cpu().numpy()[:, None]
+        q = torch.from_numpy(embeddings).to(self.device)
         valid = torch.arange(self.padded, device=self.device) < self.count
         k = min(k, self.count)
         sims, idx = [], []

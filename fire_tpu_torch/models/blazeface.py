@@ -20,6 +20,7 @@ by cell.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -50,6 +51,13 @@ def blaze_anchors(input_px: int = 128) -> np.ndarray:
                 cx, cy = (x + 0.5) * step, (y + 0.5) * step
                 anchors.extend([(cx, cy)] * per_cell)
     return np.asarray(anchors, np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _anchors_on(input_px: int, device: torch.device) -> torch.Tensor:
+    """:func:`blaze_anchors` on ``device``, made once: a captured graph
+    cannot copy from host memory."""
+    return torch.from_numpy(blaze_anchors(input_px)).to(device)
 
 
 class BlazeBlock(nn.Module):
@@ -147,7 +155,7 @@ def decode_blazeface(
     canvas px).  The 6 keypoints (right_eye, left_eye, nose, mouth,
     right_ear, left_ear) map to the 5-point layout with the mouth in
     both mouth slots."""
-    anchors = torch.from_numpy(blaze_anchors(input_px)).to(scores.device) * input_px
+    anchors = _anchors_on(input_px, scores.device) * input_px
     prob = torch.sigmoid(torch.clamp(scores, -100.0, 100.0))
     r = regs / scale
     apx = anchors / scale
@@ -157,7 +165,7 @@ def decode_blazeface(
     boxes = torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], dim=-1)
     kp = r[..., 4:16].reshape(*r.shape[:-1], 6, 2)
     kps6 = torch.stack([apx[:, None, 0] + kp[..., 0], apx[:, None, 1] + kp[..., 1]], dim=-1)
-    lms = kps6[..., [0, 1, 2, 3, 3], :]
+    lms = torch.cat([kps6[..., :4, :], kps6[..., 3:4, :]], dim=-2)  # no host index list
 
     keep_idx, keep_mask = fbox.nms(boxes, prob, nms_threshold, max_out=max_faces,
                                    score_threshold=conf_threshold, pre_top_k=256)

@@ -152,7 +152,8 @@ def _slice(x, starts, ends, axes, steps):
             x = x.narrow(ax, idx.start, len(idx)) if sp == 1 else x[
                 (slice(None),) * (ax % x.ndim) + (slice(idx.start, idx.stop, sp),)]
         else:
-            x = x.index_select(ax, torch.tensor(list(idx), dtype=torch.long, device=x.device))
+            x = x.index_select(ax, torch.arange(idx.start, idx.stop, idx.step, dtype=torch.long,
+                                                device=x.device))
     return x
 
 
@@ -188,6 +189,20 @@ class OnnxExecutor:
                 self.consts[name] = arr
             else:
                 self.params[name] = arr
+        self._on_device: Dict[tuple, torch.Tensor] = {}
+
+    def _const(self, a, device) -> torch.Tensor:
+        """A host constant that meets a tensor, on ``device``, made once
+        per value: JAX folds such values into the compiled program, and a
+        captured CUDA graph cannot copy from host memory."""
+        if isinstance(a, torch.Tensor):
+            return a
+        arr = np.asarray(a)
+        key = (arr.dtype.str, arr.shape, arr.tobytes(), torch.device(device))
+        out = self._on_device.get(key)
+        if out is None:
+            out = self._on_device[key] = _tensor(arr, device)
+        return out
 
     # -- dispatch ----------------------------------------------------------
 
@@ -313,7 +328,7 @@ class OnnxExecutor:
                 "executor")
         host = self._SHAPE_SLOTS.get(op, ())
         args = [a if a is None or i in host or isinstance(a, torch.Tensor)
-                else _tensor(a, self._device) for i, a in enumerate(args)]
+                else self._const(a, self._device) for i, a in enumerate(args)]
         return handler(node, args)
 
     # elementwise / activation
@@ -368,9 +383,9 @@ class OnnxExecutor:
             hi = args[2]
         x = args[0]
         if lo is not None:
-            x = torch.maximum(x, _tensor(lo, x.device).to(x.dtype))
+            x = torch.maximum(x, self._const(lo, x.device).to(x.dtype))
         if hi is not None:
-            x = torch.minimum(x, _tensor(hi, x.device).to(x.dtype))
+            x = torch.minimum(x, self._const(hi, x.device).to(x.dtype))
         return x
 
     def _op_hardswish(self, node, args):
@@ -674,7 +689,7 @@ class OnnxExecutor:
                     out = out.repeat_interleave(dst // src, dim=ax)
                 else:
                     idx = np.floor(np.arange(dst) * (src / dst)).astype(np.int64)
-                    out = out.index_select(ax, torch.from_numpy(idx).to(out.device))
+                    out = out.index_select(ax, self._const(idx, out.device))
             return out
         kernel = _triangle if mode == "linear" else _keys_cubic
         out = x

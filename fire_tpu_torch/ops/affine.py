@@ -14,6 +14,7 @@ image (``cv2.warpAffine``'s constant border).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -88,12 +89,19 @@ def warp_affine(image: torch.Tensor, m: torch.Tensor, out_hw: Tuple[int, int]) -
     return _warp(image.float(), m[None], out_hw)[0]
 
 
+@functools.lru_cache(maxsize=16)
+def _template_on(device: torch.device) -> torch.Tensor:
+    """``ALIGN_TEMPLATE_160`` on ``device``, made once: a captured graph
+    cannot copy from host memory."""
+    return torch.tensor(ALIGN_TEMPLATE_160, dtype=torch.float32, device=device)
+
+
 def align_faces_160(image: torch.Tensor, landmarks3: torch.Tensor,
                     out_hw: Tuple[int, int] = (160, 160)) -> torch.Tensor:
     """Align every face of a frame to the canonical template.
 
     ``image``: (H, W, C) float frame; ``landmarks3``: (N, 3, 2) per-face
     (left_eye, right_eye, nose) pixels.  Returns (N, oh, ow, C)."""
-    template = torch.tensor(ALIGN_TEMPLATE_160, dtype=torch.float32, device=image.device)
+    template = _template_on(image.device)
     m = affine_from_3pts(landmarks3.float(), template.expand(landmarks3.shape[0], 3, 2))
     return _warp(image.float(), m, out_hw)

@@ -30,8 +30,9 @@ import torch
 
 from fire_tpu_torch.config import RecognizerConfig, TrackerConfig
 from fire_tpu_torch.parallel.mesh import Mesh, canonical_device
-from fire_tpu_torch.pipeline.batch_engine import (BatchResults, BatchStreamEngine, GraphCache,
-                                                  StepGraph, copy_state, make_stream_state)
+from fire_tpu_torch.pipeline.batch_engine import (BatchResults, BatchStreamEngine, StepGraph,
+                                                  copy_state, make_stream_state)
+from fire_tpu_torch.runtime.graphs import GraphCache
 
 
 def replicate_engine(engine, device: torch.device):

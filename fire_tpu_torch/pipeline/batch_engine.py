@@ -46,8 +46,6 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-import weakref
-from collections import OrderedDict
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -59,6 +57,8 @@ from fire_tpu_torch.ops.boxes import top_k_stable
 from fire_tpu_torch.ops.cosine_top1 import cosine_top1
 from fire_tpu_torch.ops.gallery_match import l2_normalize
 from fire_tpu_torch.ops.image import bgr_to_rgb, crop_and_resize_mm_batched, crop_selected_rows
+from fire_tpu_torch.runtime.graphs import (GraphCache, HostStaging, check_graph_runtime,
+                                           side_stream)
 from fire_tpu_torch.track import scan as _k2
 from fire_tpu_torch.track.scan import IdentityState, gather_emb, track_scan
 from fire_tpu_torch.track.sort import TrackTable, make_table
@@ -175,17 +175,6 @@ def rung_index(ladder: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     ``lax.switch`` branch.  A 0-d int64 tensor; nothing is read back."""
     n_real = mask.sum().reshape(1).to(ladder.dtype)
     return torch.searchsorted(ladder, n_real, side="left")[0]
-
-
-def check_graph_runtime() -> None:
-    """Raise unless this PyTorch can hand over the graphs it captures and
-    runs a CUDA with conditional nodes (12.4 or later)."""
-    version = tuple(int(v) for v in (torch.version.cuda or "0.0").split(".")[:2])
-    if version < (12, 4) or not hasattr(torch.cuda.CUDAGraph, "raw_cuda_graph"):
-        raise RuntimeError(
-            f"the step graph needs CUDA graph conditional nodes (CUDA 12.4 or later) and "
-            f"torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph(); this PyTorch "
-            f"{torch.__version__} is built with CUDA {torch.version.cuda}")
 
 
 class _Front(NamedTuple):
@@ -317,9 +306,7 @@ class StepGraph:
         self.parts: List[torch.cuda.CUDAGraph] = []  # they hold the graph's memory
         k1_0, k2_0 = _k1.launches, _k2.launches
         cur = torch.cuda.current_stream(dev)
-        side = _SIDE_STREAMS.get(dev)
-        if side is None:
-            side = _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side = side_stream(dev)
         side.wait_stream(cur)
         try:
             with torch.cuda.device(dev), torch.cuda.stream(side), torch.inference_mode():
@@ -372,46 +359,6 @@ class StepGraph:
         return self.packed
 
 
-# One memory pool per device for the step graphs of the process, with the
-# graphs that use it.  Graphs on a device replay one after another on its
-# stream, and every tensor that outlives a replay (inputs, states,
-# outputs, what passes between parts) is held by its graph, so one
-# graph's scratch may be another's.  A pool whose graphs are all gone is
-# released by PyTorch and not captured into again: the next graph takes a
-# new one.
-_POOLS: Dict[torch.device, Tuple[object, "weakref.WeakSet[StepGraph]"]] = {}
-# One side stream per device for every warm-up and capture, so that the
-# blocks a warm-up leaves in the allocator's cache serve the next one.
-_SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
-
-
-class GraphCache:
-    """An engine's step graphs by key (whose first entry is the device),
-    the ``limit`` most recently used kept."""
-
-    def __init__(self, limit: int = 4):
-        self.limit = limit
-        self._graphs: "OrderedDict[tuple, StepGraph]" = OrderedDict()
-
-    def get(self, key: tuple, build: Callable[[object], StepGraph]) -> StepGraph:
-        graph = self._graphs.get(key)
-        if graph is not None:
-            self._graphs.move_to_end(key)
-            return graph
-        dev = key[0]
-        if dev not in _POOLS or not _POOLS[dev][1]:
-            _POOLS[dev] = (torch.cuda.graph_pool_handle(), weakref.WeakSet())
-        pool, users = _POOLS[dev]
-        graph = self._graphs[key] = build(pool)
-        users.add(graph)
-        while len(self._graphs) > self.limit:
-            self._graphs.popitem(last=False)
-        return graph
-
-    def __iter__(self):
-        return iter(self._graphs.items())
-
-
 class BatchStreamEngine:
     """Runs the batched pipeline on the engine's device."""
 
@@ -442,7 +389,7 @@ class BatchStreamEngine:
         # pinned readback buffers, owned by their tokens until collected
         self.readback_pool = ReadbackPool(
             lambda n: torch.empty(n, dtype=torch.int32, pin_memory=True))
-        self._staging = {}  # pinned upload buffers and their copies' events, by slot and shape
+        self._staging = HostStaging()  # pinned upload buffers, by slot and shape
 
     def reset(self):
         """A fresh tracker and identity state, written into the state's
@@ -666,32 +613,9 @@ class BatchStreamEngine:
         """Frames (a host array or tensor) on ``device``, in ``out`` (a
         graph's static input) when given.  To a card, host frames go
         through one of two pinned buffers of ``slot`` (a stream) and up
-        asynchronously, so the call does not wait for the work already
-        queued on the card."""
-        device = torch.device(device)
-        if isinstance(frames, np.ndarray):
-            frames = torch.from_numpy(np.ascontiguousarray(frames))
-        if device.type != "cuda" or frames.device.type != "cpu":
-            return frames.to(device) if out is None else out.copy_(frames)
-        key = (slot, tuple(frames.shape), frames.dtype)
-        ring = self._staging.get(key)
-        if ring is None:
-            ring = self._staging[key] = [
-                [torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True), None]
-                for _ in range(2)]
-        entry = ring.pop(0)
-        ring.append(entry)
-        buf, done = entry
-        if done is not None:
-            done.synchronize()  # the upload out of this buffer, two batches ago, has left it
-        buf.copy_(frames)
-        if out is None:
-            out = buf.to(device, non_blocking=True)
-        else:
-            out.copy_(buf, non_blocking=True)
-        entry[1] = torch.cuda.Event()
-        entry[1].record(torch.cuda.current_stream(device))
-        return out
+        asynchronously (:class:`~fire_tpu_torch.runtime.graphs.HostStaging`),
+        so the call does not wait for the work already queued on the card."""
+        return self._staging.upload(frames, device, slot, out)
 
     def submit(self, frames):
         """Enqueue one batch; returns a token for :meth:`collect`.  On the

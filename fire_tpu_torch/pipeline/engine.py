@@ -28,10 +28,21 @@ a Git-LFS pointer keeps the random init.  Trained variables replace any
 of them through ``load_trained_*``, which puts the port's own module
 back in its slot.
 
-Where the JAX engine pads each call to a power-of-two bucket to bound
-XLA recompiles, the port runs the faces it was given (in chunks of
-``max_encode``): eager PyTorch has no compile to bound, and BatchNorm
-in eval mode makes a row independent of its neighbours.
+The per-frame calls run the way the JAX engine's jitted functions run.
+JAX compiles detect (with ``_pack_dets``) per frame size and variant,
+each encoder per (frame size, power-of-two bucket) and ``encode_faces``
+per bucket; the port pads to the same buckets (``_buckets``; more faces
+than ``max_encode`` go in bucket-sized slices, landmark pad rows take
+``ALIGN_TEMPLATE_160``) and, on a card, replays one CUDA graph per key
+(:mod:`fire_tpu_torch.runtime.graphs`), captured at the key's first
+call: the key is JAX's ``_detect_jit_cache`` key with the device and
+the module in the slot.  A frame goes up once, through pinned memory,
+into the static frame input of its size, which the detect and encode
+graphs of that size read (:meth:`DeviceEngine.to_device`).  A graph's
+outputs are overwritten by its next replay, so what leaves the engine is
+a copy or a host array.  The eager calls are the graphs' plain version:
+the CPU runs them, and on the card the tests and ``chip_smoke.py`` hold
+each replay against them.
 """
 
 from __future__ import annotations
@@ -39,12 +50,12 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from fire_tpu_torch.config import RecognizerConfig
+from fire_tpu_torch.config import ALIGN_TEMPLATE_160, RecognizerConfig
 from fire_tpu_torch.device import DeviceLike, resolve_device
 from fire_tpu_torch.models.blazeface import BlazeFace, decode_blazeface
 from fire_tpu_torch.models.detections import Detections
@@ -54,6 +65,7 @@ from fire_tpu_torch.models.yunet import YuNet, decode_yunet
 from fire_tpu_torch.ops.affine import align_faces_160
 from fire_tpu_torch.ops.gallery_match import l2_normalize
 from fire_tpu_torch.ops.image import bgr_to_rgb, crop_and_resize, crop_and_resize_mm, letterbox
+from fire_tpu_torch.runtime.graphs import GraphCache, HostStaging, indexed, replay
 from fire_tpu_torch.weights import (flax_shapes, from_flax_blazeface, from_flax_facenet,
                                     from_flax_retinaface, from_flax_yunet, load_into, materialize,
                                     msgpack_serialize, read_msgpack)
@@ -66,6 +78,14 @@ YUNET_OUTPUTS = ["cls_8", "obj_8", "bbox_8", "kps_8", "cls_16", "obj_16",
                  "bbox_16", "kps_16", "cls_32", "obj_32", "bbox_32", "kps_32"]
 BLAZEFACE_OUTPUTS = ["classifier_8", "regressor_8", "classifier_16", "regressor_16"]
 RETINAFACE_PERM = (7, 1, 4, 8, 0, 3, 6, 2, 5)  # the export's output order → (sc, bb, lm) × 32/16/8
+
+
+def _buckets(n: int, cap: int) -> int:
+    """Round n up to the next power-of-two bucket (≤ cap)."""
+    b = 1
+    while b < n and b < cap:
+        b *= 2
+    return min(b, cap)
 
 
 def _ordered(model, want: List[str], what: str) -> List[int]:
@@ -205,6 +225,12 @@ class DeviceEngine:
         # "onnx-exec:<path>")
         self.weight_source: Dict[str, str] = {"detector": "random-init",
                                               "encoder": "random-init"}
+        # the per-frame graphs (on a card), every key kept as JAX keeps its
+        # jit cache until release_graphs(); their static frame inputs by
+        # size; the pinned buffers that feed them
+        self.graphs = GraphCache(limit=None)
+        self._frames: Dict[Tuple[int, int], torch.Tensor] = {}
+        self._staging = HostStaging()
         self._init_params(seed)
         self._load_reference_weights()
         if self.weight_source["detector"] == "random-init":
@@ -453,12 +479,65 @@ class DeviceEngine:
 
     # -- detection ---------------------------------------------------------
 
+    def _graphed(self, device: torch.device) -> bool:
+        """Whether the per-frame calls replay captured graphs: on a CUDA
+        device."""
+        return torch.device(device).type == "cuda"
+
+    def release_graphs(self) -> None:
+        """Drop the per-frame graphs, their static inputs and the pinned
+        buffers; the next call on a card captures again."""
+        self.graphs.clear()
+        self._frames.clear()
+        self._staging = HostStaging()
+
     def to_device(self, frame: Frame) -> torch.Tensor:
         """Host frame → device tensor (a no-op for tensors already
-        there), so one copy can serve detect and encode."""
+        there), so one copy can serve detect and encode.  On a card a
+        (H, W, 3) uint8 frame goes into the static frame input of its
+        size, which the graphs of that size read: from the host through a
+        pinned buffer, from a card by a device-to-device copy, so that no
+        graph ever binds, reads later or writes a caller's tensor.  The
+        static input itself is returned as it is; the next frame of its
+        size overwrites it."""
         if isinstance(frame, np.ndarray):
             frame = torch.from_numpy(np.ascontiguousarray(frame))
-        return frame.to(self.device)
+        if (not self._graphed(self.device) or frame.dtype != torch.uint8 or frame.dim() != 3
+                or frame.shape[2] != 3):
+            return frame.to(self.device)
+        hw = tuple(frame.shape[:2])
+        static = self._frames.get(hw)
+        if frame is static:
+            return static
+        if static is None:
+            static = self._frames[hw] = torch.empty(frame.shape, dtype=torch.uint8,
+                                                    device=self.device)
+        if frame.device.type == "cpu":
+            return self._staging.upload(frame, self.device, out=static)
+        return static.copy_(frame)
+
+    def _run(self, jit_key: tuple, module: torch.nn.Module, fn: Callable,
+             args: Sequence) -> Tuple[torch.Tensor, ...]:
+        """``fn(*args)`` (device tensors and host arrays) as JAX runs its
+        jitted form: on a card the graph of ``(device, jit_key, module)``
+        replays (captured at the key's first call) and its static outputs
+        come back; elsewhere ``fn`` runs eagerly, its plain version.  The
+        key holds the module in the slot (a module put in another's slot
+        needs a new capture, and the graph reads its weights)."""
+        if self._graphed(self.device):
+            key = (indexed(self.device), jit_key, module)
+            return replay(self.graphs, key, fn, args, self._staging)
+        with torch.no_grad():
+            out = fn(*(self._staging.upload(a, self.device) if isinstance(a, np.ndarray) else a
+                       for a in args))
+        return out if isinstance(out, tuple) else (out,)
+
+    def _frame_arg(self, frame_bgr: Frame) -> torch.Tensor:
+        frame = self.to_device(frame_bgr)
+        if self._graphed(self.device) and self._frames.get(tuple(frame.shape[:2])) is not frame:
+            raise ValueError(f"a frame is (H, W, 3) uint8 BGR, not {frame.dtype} "
+                             f"{tuple(frame.shape)}")
+        return frame
 
     def _build_detect(self, frame_hw: Tuple[int, int], timer=None, variant: str = "detect"):
         """Batched detect for frames of ``frame_hw``: letterbox →
@@ -511,13 +590,32 @@ class DeviceEngine:
 
         return run
 
+    def _detect(self, frame_bgr: Frame, variant: str) -> Tuple[Detections, torch.Tensor]:
+        """Detections of one frame and their ``_pack_dets`` rows, under
+        JAX's ``_detect_jit_cache`` key (``engine.py:584-591``): on a card
+        the graph's static outputs, overwritten by its next replay."""
+        frame = self._frame_arg(frame_bgr)
+        hw = tuple(frame.shape[:2])
+        if variant != "detect" and not isinstance(self._detector_net, BlazeFace):
+            variant = "detect"  # the variants differ only for the BlazeFace slot
+        detect = self._build_detect(hw, variant=variant)
+
+        def run(frame_u8):
+            d = Detections(*(t[0] for t in detect(frame_u8[None])))
+            return (*d, self._pack_dets(d))
+
+        out = self._run(hw if variant == "detect" else (hw, variant), self.detector, run, (frame,))
+        return Detections(*out[:4]), out[4]
+
     @torch.no_grad()
     def detect(self, frame_bgr: Frame, variant: str = "detect") -> Detections:
-        """Frame (H, W, 3) uint8 BGR → padded `Detections` on the device.
-        ``variant="extract"`` differs only for the BlazeFace slot."""
-        frame = self.to_device(frame_bgr)
-        d = self._build_detect(tuple(frame.shape[:2]), variant=variant)(frame[None])
-        return Detections(*(t[0] for t in d))
+        """Frame (H, W, 3) uint8 BGR → padded `Detections` on the device
+        (new tensors, as JAX returns new arrays).  ``variant="extract"``
+        differs only for the BlazeFace slot."""
+        d, _ = self._detect(frame_bgr, variant)
+        if self._graphed(self.device):
+            d = Detections(*(t.clone() for t in d))
+        return d
 
     @staticmethod
     def _pack_dets(d: Detections) -> torch.Tensor:
@@ -529,8 +627,13 @@ class DeviceEngine:
 
     def detect_faces(self, frame_bgr: Frame) -> List[dict]:
         """List of ``{bbox, landmarks, confidence}`` dicts; coordinates
-        are truncated to int32, not rounded."""
-        packed = self._pack_dets(self.detect(frame_bgr)).cpu().numpy()
+        are truncated to int32, not rounded.  On a card the detect graph's
+        packed rows are read back, once."""
+        if self._graphed(self.device):
+            packed = self._detect(frame_bgr, "detect")[1]
+        else:
+            packed = self._pack_dets(self.detect(frame_bgr))
+        packed = packed.cpu().numpy()
         return [
             {"bbox": row[:4].astype(np.int32).tolist(),
              "landmarks": row[4:14].reshape(5, 2).astype(np.int32),
@@ -544,40 +647,62 @@ class DeviceEngine:
         """(M, 160, 160, 3) RGB [0,1] → (M, D) float32, unnormalised."""
         return self.encoder(faces_rgb01)
 
-    @torch.no_grad()
-    def _encode_crops(self, frame_bgr: Frame, per_face: np.ndarray, crop) -> np.ndarray:
-        """Shared body of ``encode_boxes`` / ``encode_landmarks``:
-        ``crop(image01, rows)`` → BGR crops, in chunks of ``max_encode``."""
+    def _encode_crops(self, kind: str, frame_bgr: Frame, per_face: np.ndarray, crop,
+                      pad_row=0.0) -> np.ndarray:
+        """Shared body of ``encode_boxes`` / ``encode_landmarks``: the K
+        rows padded to ``_buckets(K, max_encode)`` with ``pad_row``,
+        ``crop(image01, rows)`` → BGR crops → FaceNet, one call (one graph
+        of ``(kind, frame size, bucket)``) a bucket; more rows than the
+        bucket go in bucket-sized slices (``engine.py:650-716``)."""
         k = per_face.shape[0]
         if k == 0:
             return np.zeros((0, self.cfg.embedding_dim), np.float32)
-        img = self.to_device(frame_bgr).float() / 255.0
-        rows = torch.from_numpy(np.ascontiguousarray(per_face, np.float32)).to(self.device)
-        step = self.cfg.engine.max_encode
-        outs = [l2_normalize(self.encoder(bgr_to_rgb(crop(img, rows[i : i + step]))).float())
-                for i in range(0, k, step)]
-        return torch.cat(outs).cpu().numpy()
+        bucket = _buckets(k, self.cfg.engine.max_encode)
+        if k > bucket:
+            return np.concatenate([self._encode_crops(kind, frame_bgr, per_face[i : i + bucket],
+                                                      crop, pad_row)
+                                   for i in range(0, k, bucket)])
+        padded = np.empty((bucket, *per_face.shape[1:]), np.float32)
+        padded[:k] = per_face
+        padded[k:] = pad_row
+        frame = self._frame_arg(frame_bgr)
+
+        def run(frame_u8, rows):
+            img = frame_u8.float() / 255.0
+            return l2_normalize(self.encoder(bgr_to_rgb(crop(img, rows))).float())
+
+        emb = self._run((kind, tuple(frame.shape[:2]), bucket), self.encoder, run,
+                        (frame, padded))[0]
+        return emb.cpu().numpy()[:k]
 
     def encode_boxes(self, frame_bgr: Frame, boxes_xywh: np.ndarray) -> np.ndarray:
         """Encode all K face boxes of a frame: (K, 4) pixel xywh →
         (K, D) L2-normalised embeddings."""
         size = self.cfg.engine.encode_size
-        return self._encode_crops(frame_bgr, boxes_xywh,
+        return self._encode_crops("encb", frame_bgr, boxes_xywh,
                                   lambda img, b: crop_and_resize_mm(img, b, size))
 
     def encode_landmarks(self, frame_bgr: Frame, lms3: np.ndarray) -> np.ndarray:
         """Encode K faces through landmark-aligned crops: ``lms3``
-        (K, 3, 2) per-face (left_eye, right_eye, nose) pixels."""
-        return self._encode_crops(frame_bgr, lms3, align_faces_160)
+        (K, 3, 2) per-face (left_eye, right_eye, nose) pixels.  Pad rows
+        take the template (an all-zero triangle would make the affine
+        solve singular)."""
+        return self._encode_crops("encl", frame_bgr, lms3, align_faces_160,
+                                  pad_row=np.asarray(ALIGN_TEMPLATE_160, np.float32))
 
-    @torch.no_grad()
     def encode_faces(self, faces_rgb01: np.ndarray) -> np.ndarray:
         """Encode pre-extracted (B, 160, 160, 3) RGB [0,1] crops (the
-        ``add_face`` path)."""
-        if faces_rgb01.shape[0] == 0:
+        ``add_face`` path), padded to ``_buckets(B, max(max_encode, B))``
+        (``engine.py:718-728``)."""
+        b = faces_rgb01.shape[0]
+        if b == 0:
             return np.zeros((0, self.cfg.embedding_dim), np.float32)
-        x = torch.from_numpy(np.ascontiguousarray(faces_rgb01, np.float32)).to(self.device)
-        return l2_normalize(self.encoder(x).float()).cpu().numpy()
+        bucket = _buckets(b, max(self.cfg.engine.max_encode, b))
+        padded = np.zeros((bucket, *faces_rgb01.shape[1:]), np.float32)
+        padded[:b] = faces_rgb01
+        emb = self._run(("encf", padded.shape), self.encoder,
+                        lambda x: l2_normalize(self.encoder(x).float()), (padded,))[0]
+        return emb.cpu().numpy()[:b]
 
     # -- extraction (detect + align) --------------------------------------
 

@@ -245,6 +245,8 @@ class FaceRecognition:
             sqlite_db_path = sqlite_db_path or os.path.join(db_dir, f"face_embeddings_{stem}.db")
             sqlite_db_encrypted_path = None
 
+        # an engine given by the caller stays the caller's, graphs and all
+        self._owns_engine = engine is None
         self.engine = engine or DeviceEngine(cfg, device=device,
                                              params_dir=os.path.join(pipeline_dir, "params"))
         if trained_encoder:
@@ -512,13 +514,17 @@ class FaceRecognition:
         frame) → track → encode every track that has no label yet in one
         pass → recent cache → one batched gallery query → unknown
         lifecycle.  Each stage ends in a readback, so the host clock
-        around it times synchronised work."""
+        around it times synchronised work.  On a card detect, the tracker
+        and each encode replay their captured graphs, and those readbacks
+        and the gallery query's two are the frame's only waits."""
         timer = self.timer
         timer.start()
         self.frame_index += 1
         detecting = self.frame_index % self.detection_interval == 0
 
-        # one host→device copy per frame, shared by detect and encode
+        # one host→device copy per frame, shared by detect and encode: on a
+        # card through pinned memory into the static frame input that the
+        # detect and encode graphs of this size read
         image_dev = self.engine.to_device(image)
 
         detected: List[dict] = []
@@ -1097,7 +1103,13 @@ class FaceRecognition:
 
     def close(self) -> None:
         """Flush the enrollment buffer, persist the gallery snapshot and
-        the SQLite store, and report."""
+        the SQLite store, release the captured graphs (the tracker's, the
+        batched engines', and the engine's when this recognizer made it),
+        and report."""
+        if self._owns_engine:
+            self.engine.release_graphs()
+        self.face_tracker.release_graphs()
+        self._batch_engines.clear()
         try:
             self.save_database_to_sqlite()
             self.gallery.save(compact=True)

@@ -1,0 +1,263 @@
+"""CUDA graphs as the port's counterpart of ``jax.jit``, and what feeds them.
+
+JAX compiles a function once per static key (shapes, static arguments)
+and replays the compiled program on every later call.  On a card the
+port captures the same function once per key into a CUDA graph and
+replays it:
+
+* :class:`CapturedCall`: one function of fixed-shape device tensors as
+  one plain CUDA graph with static inputs and outputs;
+* :func:`replay`: a call through a :class:`GraphCache` (the graph of the
+  key, captured at the key's first call), copying the call's arguments
+  into the graph's static inputs;
+* :class:`GraphCache`: graphs by key, all of a device in one memory pool
+  (``_POOLS``), warmed up and captured on one side stream a device;
+* :class:`HostStaging`: two pinned buffers for each shape of host array
+  going up to a card, so that an upload does not wait for the card.
+
+The batched step's graph (``pipeline/batch_engine.py`` ``StepGraph``,
+conditional nodes composed by :mod:`fire_tpu_torch.runtime.step_graph`)
+shares the pools, side streams and cache.  Nothing here builds or
+captures at import.
+"""
+
+from __future__ import annotations
+
+import time
+import weakref
+from collections import OrderedDict
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def check_graph_runtime() -> None:
+    """Raise unless this PyTorch can hand over the graphs it captures and
+    runs a CUDA with conditional nodes (12.4 or later)."""
+    version = tuple(int(v) for v in (torch.version.cuda or "0.0").split(".")[:2])
+    if version < (12, 4) or not hasattr(torch.cuda.CUDAGraph, "raw_cuda_graph"):
+        raise RuntimeError(
+            f"the step graph needs CUDA graph conditional nodes (CUDA 12.4 or later) and "
+            f"torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph(); this PyTorch "
+            f"{torch.__version__} is built with CUDA {torch.version.cuda}")
+
+
+def indexed(device) -> torch.device:
+    """``device`` with its index (``cuda`` → ``cuda:<current>``), the form
+    a tensor on it reports and the pools are keyed by."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+# One memory pool per device for every graph of the process, with the
+# graphs that use it.  Graphs on a device replay one after another on its
+# stream, and every tensor that outlives a replay (inputs, states,
+# outputs, what passes between parts) is held by its graph, so one
+# graph's scratch may be another's.  A pool whose graphs are all gone is
+# released by PyTorch and not captured into again: the next graph takes a
+# new one.
+_POOLS: Dict[torch.device, Tuple[object, "weakref.WeakSet"]] = {}
+# One side stream per device for every warm-up and capture, so that the
+# blocks a warm-up leaves in the allocator's cache serve the next one.
+_SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def side_stream(device: torch.device) -> torch.cuda.Stream:
+    side = _SIDE_STREAMS.get(device)
+    if side is None:
+        side = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return side
+
+
+def _new_pool():
+    return torch.cuda.graph_pool_handle()
+
+
+def _launch_counters():
+    # at the call: track.scan imports track.sort, which imports this module
+    from fire_tpu_torch.ops import cosine_top1 as k1
+    from fire_tpu_torch.track import scan as k2
+
+    return k1, k2
+
+
+class CapturedCall:
+    """``fn`` over fixed-shape device tensors as one CUDA graph, replayed
+    per call: the counterpart of ``jax.jit(fn)`` for one key.
+
+    ``inputs`` are its static inputs, holding the first call's values;
+    ``state`` static tensors that ``fn`` updates in place (a tracker's
+    table), updated by every replay; :attr:`outputs` what ``fn`` returns,
+    overwritten by every replay, so a caller reads or copies them before
+    the next one.
+
+    Building it: ``fn`` runs once eagerly on the device's side stream, on
+    clones of the inputs and the state, so that cuDNN's choice of
+    algorithm, the cuBLAS workspace, the allocator's blocks and any
+    constants ``fn`` caches on the device are settled; then the cache is
+    emptied (its blocks back to the card, where the pool can take them)
+    and ``fn`` is captured into ``pool``.  A capture that fails raises:
+    nothing falls back to eager dispatch.
+
+    K1's and K2's launch counters count what runs: the warm-up and the
+    capture add nothing, and each :meth:`replay` adds the launches the
+    graph holds."""
+
+    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], pool,
+                 state: Sequence[torch.Tensor] = ()):
+        self.inputs, self.state = tuple(inputs), tuple(state)
+        dev = self.device = self.inputs[0].device
+        k1, k2 = _launch_counters()
+        counts = k1.launches, k2.launches
+        cur = torch.cuda.current_stream(dev)
+        side = side_stream(dev)
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(side), torch.no_grad():
+                fn(*(x.clone() for x in self.inputs), *(x.clone() for x in self.state))
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
+                t0 = time.perf_counter()
+                before = k1.launches, k2.launches
+                self.graph = torch.cuda.CUDAGraph()
+                out = self._capture(fn, pool)
+                self.outputs = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+                self.k1_per_replay = k1.launches - before[0]
+                self.k2_per_replay = k2.launches - before[1]
+                self.capture_s = time.perf_counter() - t0
+                # what this capture added to the device's shared pool
+                self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            cur.wait_stream(side)
+        finally:
+            k1.launches, k2.launches = counts
+
+    def _capture(self, fn: Callable, pool):
+        """``fn`` on the static tensors, captured on the current stream."""
+        self.graph.capture_begin(pool=pool)
+        try:
+            out = fn(*self.inputs, *self.state)
+        except BaseException:
+            try:
+                self.graph.capture_end()
+            except RuntimeError:
+                pass  # the capture is already invalid; the first error is the one to see
+            raise
+        self.graph.capture_end()
+        return out
+
+    def replay(self) -> Tuple[torch.Tensor, ...]:
+        """Queue one run on the current stream (the inputs already in
+        place); returns :attr:`outputs`."""
+        self.graph.replay()
+        k1, k2 = _launch_counters()
+        k1.count_replayed(self.k1_per_replay)
+        k2.count_replayed(self.k2_per_replay)
+        return self.outputs
+
+
+class GraphCache:
+    """Graphs by key (whose first entry is the indexed device), the
+    ``limit`` most recently used kept (None: all)."""
+
+    def __init__(self, limit: Optional[int] = 4):
+        self.limit = limit
+        self._graphs: "OrderedDict[tuple, object]" = OrderedDict()
+
+    def find(self, key: tuple):
+        """The graph of ``key``, or None."""
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+        return graph
+
+    def get(self, key: tuple, build: Callable[[object], object]):
+        """The graph of ``key``, built by ``build(pool)`` into the device's
+        shared pool when absent."""
+        graph = self.find(key)
+        if graph is not None:
+            return graph
+        dev = key[0]
+        if dev not in _POOLS or not _POOLS[dev][1]:
+            _POOLS[dev] = (_new_pool(), weakref.WeakSet())
+        pool, users = _POOLS[dev]
+        graph = self._graphs[key] = build(pool)
+        users.add(graph)
+        while self.limit is not None and len(self._graphs) > self.limit:
+            self._graphs.popitem(last=False)
+        return graph
+
+    def clear(self) -> None:
+        self._graphs.clear()
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def __iter__(self):
+        return iter(self._graphs.items())
+
+
+def replay(cache: GraphCache, key: tuple, fn: Callable, args: Sequence, staging: "HostStaging",
+           state: Sequence[torch.Tensor] = ()) -> Tuple[torch.Tensor, ...]:
+    """``fn(*args, *state)`` as the graph of ``key`` in ``cache``.  A
+    device tensor among ``args`` is a static input at the key's first call
+    (the graph reads that tensor from then on, so it must be one the
+    caller keeps for the purpose, such as ``DeviceEngine``'s static frame
+    inputs, never a tensor its own caller handed in) and is copied into
+    the input at a later call unless it is that input; a host array goes up through
+    ``staging``'s pinned buffers, into a new static input at the first
+    call.  The first call captures (:class:`CapturedCall`) on these
+    values.  Returns the graph's static outputs."""
+    dev = key[0]
+    graph = cache.find(key)
+    if graph is None:
+        inputs = [a if isinstance(a, torch.Tensor) else staging.upload(a, dev) for a in args]
+        graph = cache.get(key, lambda pool: CapturedCall(fn, inputs, pool, state))
+    else:
+        for dst, a in zip(graph.inputs, args):
+            if not isinstance(a, torch.Tensor):
+                staging.upload(a, dev, out=dst)
+            elif a is not dst:
+                dst.copy_(a)
+    return graph.replay()
+
+
+class HostStaging:
+    """Host arrays on their way to a device.  To a card, each (slot,
+    shape, dtype) goes through one of two pinned buffers and up
+    asynchronously, so an upload waits only for the copy out of the same
+    buffer two uploads before; elsewhere it is a plain copy."""
+
+    def __init__(self):
+        self._rings: Dict[tuple, list] = {}
+
+    def upload(self, x, device, slot: int = 0, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """``x`` (a host array or tensor) on ``device``, in ``out`` when
+        given (a graph's static input)."""
+        device = torch.device(device)
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        if device.type != "cuda" or x.device.type != "cpu":
+            return x.to(device) if out is None else out.copy_(x)
+        key = (slot, tuple(x.shape), x.dtype)
+        ring = self._rings.get(key)
+        if ring is None:
+            ring = self._rings[key] = [
+                [torch.empty(x.shape, dtype=x.dtype, pin_memory=True), None] for _ in range(2)]
+        entry = ring.pop(0)
+        ring.append(entry)
+        buf, done = entry
+        if done is not None:
+            done.synchronize()  # the upload out of this buffer, two uploads ago, has left it
+        buf.copy_(x)
+        if out is None:
+            out = buf.to(device, non_blocking=True)
+        else:
+            out.copy_(buf, non_blocking=True)
+        entry[1] = torch.cuda.Event()
+        entry[1].record(torch.cuda.current_stream(device))
+        return out

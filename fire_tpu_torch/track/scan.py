@@ -45,7 +45,7 @@ import torch
 from fire_tpu_torch.config import TrackerConfig
 from fire_tpu_torch.device import raw_stream
 from fire_tpu_torch.runtime.build import build_cuda, cuda_library_path
-from fire_tpu_torch.track.sort import TrackOutputs, TrackTable, sort_step
+from fire_tpu_torch.track.sort import TrackOutputs, TrackTable, copy_into, sort_step
 
 NAME = "track_scan"
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
@@ -407,11 +407,6 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _copy_into(dst, src) -> None:
-    for d, s in zip(dst, src):
-        d.copy_(s)
-
-
 def sort_scan(table: TrackTable, boxes: torch.Tensor, mask: torch.Tensor, cfg: TrackerConfig,
               stats: Optional[torch.Tensor] = None) -> Tuple[TrackTable, TrackOutputs]:
     """``sort_step`` over the B frames of ``boxes`` (B, K, 4) float32 and
@@ -427,7 +422,7 @@ def sort_scan(table: TrackTable, boxes: torch.Tensor, mask: torch.Tensor, cfg: T
         if stats is not None:
             raise ValueError("track_scan: stats are counted by the kernel, on a CUDA device")
         new, out = sort_scan_plain(table, boxes, mask, cfg)
-        _copy_into(table, new)
+        copy_into(table, new)
         return table, out
     out, _ = _launch(table, boxes, mask, cfg, stats=stats)
     return table, out
@@ -449,8 +444,8 @@ def track_scan(table: TrackTable, ident: IdentityState, boxes: torch.Tensor, mas
             raise ValueError("track_scan: stats are counted by the kernel, on a CUDA device")
         new, new_ident, out, iout = track_scan_plain(table, ident, boxes, mask, *det, cfg,
                                                      similarity_threshold, unknown_trigger)
-        _copy_into(table, new)
-        _copy_into(ident, new_ident)
+        copy_into(table, new)
+        copy_into(ident, new_ident)
         return table, ident, out, iout
     out, iout = _launch(table, boxes, mask, cfg, ident, det, similarity_threshold,
                         unknown_trigger, stats)

@@ -11,6 +11,7 @@ pairing and clamps, so ids, masks and provenance match it exactly.
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 
 from fire_tpu_torch.config import TrackerConfig
 from fire_tpu_torch.device import DeviceLike, resolve_device
+from fire_tpu_torch.runtime.graphs import GraphCache, HostStaging, indexed, replay
 from fire_tpu_torch.track import assignment as assign
 from fire_tpu_torch.track.ukf import kf_predict, kf_update_tracker, tracker_f_matrix
 
@@ -62,11 +64,21 @@ def make_table(cfg: TrackerConfig, device=None) -> TrackTable:
     )
 
 
+@functools.lru_cache(maxsize=16)
 def _q_matrix(cfg: TrackerConfig, device=None) -> torch.Tensor:
+    """The process noise on ``device``, made once: a captured graph
+    cannot copy from host memory."""
     return torch.diag(torch.tensor(
         [cfg.q_pos, cfg.q_pos, cfg.q_acc, cfg.q_acc, cfg.q_vel, cfg.q_vel,
          cfg.q_acc, cfg.q_acc, cfg.q_acc, cfg.q_acc],
         dtype=torch.float32, device=device))
+
+
+@functools.lru_cache(maxsize=16)
+def _f_matrix(device=None) -> torch.Tensor:
+    """The transition on ``device``, made once: a captured graph cannot
+    copy from host memory, and its element writes copy host scalars."""
+    return tracker_f_matrix(device=device)
 
 
 def _clamp_state(x: torch.Tensor, cfg: TrackerConfig) -> torch.Tensor:
@@ -108,7 +120,7 @@ def predict_tracks(table: TrackTable, cfg: TrackerConfig) -> Tuple[TrackTable, t
     """KF predict over active tracks; returns the table and the
     predicted boxes used for association."""
     dev = table.x.device
-    xp, pp = kf_predict(table.x, table.p, tracker_f_matrix(device=dev), _q_matrix(cfg, dev))
+    xp, pp = kf_predict(table.x, table.p, _f_matrix(dev), _q_matrix(cfg, dev))
     xp = _clamp_state(xp, cfg)
     act = table.active
     x = torch.where(act[:, None], xp, table.x)
@@ -192,6 +204,13 @@ def sort_step(table: TrackTable, det_boxes: torch.Tensor, det_mask: torch.Tensor
     return apply_assignment(table, det_boxes, det_mask, match, cfg)
 
 
+def copy_into(dst, src) -> None:
+    """Write each tensor of ``src`` into the one of ``dst`` (a table or
+    state updated in place)."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
 def _pack_outputs(out: TrackOutputs) -> torch.Tensor:
     """(8T,) int32: tid ‖ boxes(4) ‖ age ‖ mask ‖ src_det, one readback."""
     return torch.cat([out.tid, out.boxes.reshape(-1).to(torch.int32), out.age,
@@ -211,7 +230,18 @@ class Sort:
     (:mod:`fire_tpu_torch.track.scan`) at B = 1, one K2 launch on the
     card, and one packed int32 readback (plus one of cost ‖ active under
     ``assignment="hungarian_host"``, which solves the LAP on the host by
-    design)."""
+    design).
+
+    On a card a frame runs the way JAX's jitted pieces run
+    (``sort.py:297-325``): one CUDA graph of K2 and ``_pack_outputs`` per
+    ``(device, cfg, max_dets)``, captured at the first frame, its static
+    inputs the (max_dets, 4) boxes and (max_dets,) mask, uploaded from
+    pinned memory; under ``hungarian_host`` two graphs around the host
+    solve (predict, cost and ``_pack_cost_active``; then apply and
+    ``_pack_outputs``).  The table is the graphs' static state: every
+    frame updates its tensors in place, on either path, and
+    :meth:`reset` writes a fresh table into them.  The eager frame is the
+    graphs' plain version."""
 
     def __init__(self, cfg: Optional[TrackerConfig] = None, max_dets: int = 32,
                  device: DeviceLike = None):
@@ -219,9 +249,50 @@ class Sort:
         self.max_dets = max_dets
         self.device = resolve_device(device)
         self.table = make_table(self.cfg, self.device)
+        self.graphs = GraphCache(limit=None)  # one or two graphs, for the one key
+        self._staging = HostStaging()
 
     def reset(self) -> None:
-        self.table = make_table(self.cfg, self.device)
+        """A fresh table, written into the table's own tensors (the
+        graphs hold them)."""
+        copy_into(self.table, make_table(self.cfg, self.device))
+
+    def release_graphs(self) -> None:
+        """Drop the captured graphs; the next frame on a card captures
+        again."""
+        self.graphs.clear()
+
+    def _graphed(self, device: torch.device) -> bool:
+        """Whether a frame replays captured graphs: on a CUDA device."""
+        return torch.device(device).type == "cuda"
+
+    def _host_match(self, packed: np.ndarray, det_mask: np.ndarray) -> np.ndarray:
+        """The exact LAP on the host from one (cost ‖ active) readback."""
+        d_cap, t_cap = self.max_dets, self.table.x.shape[0]
+        cost = packed[: d_cap * t_cap].reshape(d_cap, t_cap)
+        active = packed[d_cap * t_cap :] > 0.5
+        gate = (1.0 - self.cfg.iou_threshold) + 1.0
+        return assign.hungarian_assign(cost, det_mask, active, gate)
+
+    # the frame's pieces, as functions of their device operands; each
+    # writes the new table into ``table``'s tensors
+
+    def _step(self, boxes, mask, *table):
+        from fire_tpu_torch.track.scan import sort_scan  # scan imports this module
+
+        _, outs = sort_scan(TrackTable(*table), boxes[None], mask[None], self.cfg)
+        return _pack_outputs(TrackOutputs(*(x[0] for x in outs)))
+
+    def _predict_cost(self, boxes, *table):
+        new, trk_boxes = predict_tracks(TrackTable(*table), self.cfg)
+        copy_into(table, new)
+        return _pack_cost_active(
+            assign.cost_matrix(boxes, trk_boxes, max_distance=self.cfg.max_distance), new.active)
+
+    def _apply(self, boxes, mask, match, *table):
+        new, out = apply_assignment(TrackTable(*table), boxes, mask, match, self.cfg)
+        copy_into(table, new)
+        return _pack_outputs(out)
 
     @torch.no_grad()
     def update(self, detections: List[dict]) -> List[dict]:
@@ -232,29 +303,25 @@ class Sort:
         for i, det in enumerate(detections[:d_cap]):
             det_boxes[i] = np.asarray(det["bbox"], np.float32)
             det_mask[i] = True
-        tb = torch.from_numpy(det_boxes).to(self.device)
-        tm = torch.from_numpy(det_mask).to(self.device)
+
+        if self._graphed(self.device):
+            key = (indexed(self.device), cfg, d_cap)
+
+            def run(name, fn, *args):
+                return replay(self.graphs, (*key, name), fn, args, self._staging,
+                              state=self.table)[0]
+        else:
+            def run(name, fn, *args):
+                return fn(*(torch.from_numpy(a).to(self.device) for a in args), *self.table)
 
         if cfg.assignment == "hungarian_host":
             # exact LAP solved on the host (SciPy): one packed readback
-            self.table, trk_boxes = predict_tracks(self.table, cfg)
-            packed = _pack_cost_active(
-                assign.cost_matrix(tb, trk_boxes, max_distance=cfg.max_distance),
-                self.table.active).cpu().numpy()
-            t_cap = self.table.x.shape[0]
-            cost = packed[: d_cap * t_cap].reshape(d_cap, t_cap)
-            active = packed[d_cap * t_cap :] > 0.5
-            gate = (1.0 - cfg.iou_threshold) + 1.0
-            match = assign.hungarian_assign(cost, det_mask, active, gate)
-            self.table, out = apply_assignment(
-                self.table, tb, tm, torch.from_numpy(match).to(self.device), cfg)
+            packed = run("predict", self._predict_cost, det_boxes).cpu().numpy()
+            buf = run("apply", self._apply, det_boxes, det_mask,
+                      self._host_match(packed, det_mask))
         else:
-            from fire_tpu_torch.track.scan import sort_scan  # scan imports this module
-
-            self.table, outs = sort_scan(self.table, tb[None], tm[None], cfg)
-            out = TrackOutputs(*(x[0] for x in outs))
-
-        buf = _pack_outputs(out).cpu().numpy()
+            buf = run("step", self._step, det_boxes, det_mask)
+        buf = buf.cpu().numpy()
         t = buf.shape[0] // 8
         tids, boxes, ages = buf[:t], buf[t : 5 * t].reshape(t, 4), buf[5 * t : 6 * t]
         mask = buf[6 * t : 7 * t] > 0
