@@ -134,7 +134,8 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    (FaceNet-512, B = 64, 160², bf16), its file loaded into a
    ``DeviceEngine`` that embeds; then the step alone memorises one batch
    (the loss falls below half in 30 steps): ms a step, images/s, peak
-   memory, share of the bf16 peak.
+   memory, share of the bf16 peak.  Both replay the step's CUDA graph,
+   captured at its first call (capture seconds and pool recorded).
 21. ``train_sharded``: the dp×mp-sharded ArcFace step on a (2, 2) mesh
    (four distinct cards where there are four, else this card repeated):
    FaceNet-512, B = 64, 160².  (a) One step's loss, gradients and
@@ -143,7 +144,8 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    one batch as ``train_encoder``'s step does, beside that step's
    numbers.  (c) At C = 100,000 identities, the one-device and the
    (2, 2) step: ms a step, the peak memory of each device, and each
-   ``mp`` block's columns and bytes on its own device.
+   ``mp`` block's columns and bytes on its own device.  The sharded step
+   runs eagerly; the one-device step replays its graph.
 22. ``dryrun``: ``fire_tpu_torch.dryrun``, the counterpart of
    ``__graft_entry__.py``.  ``entry()``: FaceNet-512 in bf16 at full
    width on 8 × 160², ms a call, and unit rows at cosine ≥ 0.999 to the
@@ -163,27 +165,39 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    pool step memorises one batch as above, then the trainer's ``main``
    runs a few dozen steps on a small pool; BlazeFace and RetinaFace
    fine-tune the committed weights, and their held-out P/R stays within
-   0.15 of the starting weights'.
-24. ``bench``: the measurement plane, ``fire_tpu_torch.bench``, through
+   0.15 of the starting weights'.  Each step replays its graph, the
+   device scene pool bound to it.
+24. ``train_graph`` (``train graph vs eager``): each of the four
+   one-device training steps at the full width above, its graph against
+   the eager step (the graph's plain version) from one state: 5 steps in
+   float32 with TF32 off and cuDNN deterministic, losses, parameters,
+   BatchNorm statistics, moments and counts bitwise equal after every
+   step (the detectors' cosine schedule ends within them), the build
+   leaving the state as it was and the caller's tensors unwritten; then
+   at bf16, ms a step eager and graphed, build and capture seconds and
+   the pool the capture took.
+25. ``bench``: the measurement plane, ``fire_tpu_torch.bench``, through
    its functions at cut trials: the gallery A/B with K1 held to its plain
    version on the bench's inputs, the headline's legs at B = 128 and 256
    (1 warm-up, 2 trials of 2 steps), one trial each of full cost, frame
    skip and in RAM, the tracker A/B and the crowd curve at 1 and 16 faces
    a frame; K1's and K2's launches per bench (K2: one a batch).
-25. ``trace``: one more batch of the batched path and 16 frames of the
+26. ``trace``: one more batch of the batched path and 16 frames of the
    per-frame path under ``torch.profiler``, with YuNet and with
    RetinaFace (the per-frame frames twice: first sight, with its
    enrolments, then again after their tracks died), then one full-width
-   ArcFace step on one device and one on the (2, 2) mesh, for the
-   device's busy time, its idle share of the traced wall time and the
-   host's launch calls (eight ``trace`` lines).  It runs after every timed phase: the profiler leaves
+   ArcFace step on one device, eager and replaying its graph (at most 10
+   host launch calls), and one on the (2, 2) mesh, for the device's busy
+   time, its idle share of the traced wall time and the host's launch
+   calls (nine ``trace`` lines).  It runs after every timed phase: the profiler leaves
    launches slower.
-26. ``cross_device``: one 8-frame batched step, a 2-stream step, the
+27. ``cross_device``: one 8-frame batched step, a 2-stream step, the
    per-frame engine calls (``detect_faces``, ``encode_boxes``,
    ``encode_landmarks``, ``extract_faces``, BlazeFace and RetinaFace
    ``detect``), the random-init FaceNet-128, the ONNX executor on a
-   YuNet graph, and one ArcFace and one YuNet training step (loss and
-   gradients), on the card and on the CPU in float32, compared.
+   YuNet graph, and one ArcFace and one YuNet pool training step (loss
+   and gradients; the card's replaying its graph), on the card and on
+   the CPU in float32, compared.
 
 The recognizer logs an error and goes on where a frame, an image or an
 enrolment fails, as JAX's does; every phase therefore runs with a
@@ -215,8 +229,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main_path", "retina_path", "frame_path", "retina_frame",
           "image_mode", "default_command", "encrypted", "multistream", "sharded_gallery",
           "importers", "native", "label_text", "eval_detect", "calibrate", "eval_auc",
-          "eval_e2e", "train_encoder", "train_sharded", "dryrun", "train_detectors", "bench",
-          "trace", "cross_device")
+          "eval_e2e", "train_encoder", "train_sharded", "dryrun", "train_detectors",
+          "train_graph", "bench", "trace", "cross_device")
 
 N_GALLERY = 99_900
 PADDED_ROWS = 100_352  # DeviceGallery pads 100,000 to 49 × 2048
@@ -1245,12 +1259,11 @@ def phase_bench(ctx) -> None:
 def phase_trace(ctx) -> None:
     """One more batch of the batched path, then 16 frames of the
     per-frame path, under ``torch.profiler``, with YuNet and with
-    RetinaFace; then one full-width ArcFace step, on one device and on
-    the (2, 2) mesh of ``train_sharded``.  The profiler leaves
+    RetinaFace; then one full-width ArcFace step on one device, eager
+    and then replaying its graph (captured before the trace), and on the
+    (2, 2) mesh of ``train_sharded``.  The profiler leaves
     launches slower for the rest of the process, so this phase comes
     after every phase that reports a time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for key, detector in (("fr", "yunet-640"), ("fr_retina", "retinaface-512")):
         fr = ctx.pop(key)
@@ -1269,18 +1282,40 @@ def phase_trace(ctx) -> None:
                   "window": "steady: the frames seen before"})
         finally:
             fr.close()
-    for key, path in (("arcface", "arcface train step"),
-                      ("arcface_sharded", "arcface train step, (2, 2) mesh")):
-        step, state, images, labels = ctx.pop(key)
+    step, state, images, labels = ctx.pop("arcface")
+    step._graphed = lambda device: False  # the eager step first, then its graph
+    state = trace_train_step(step, state, images, labels, "arcface train step, eager")
+    del step._graphed
+    state, _ = step(state, images, labels)  # the capture, outside the trace
+    state = trace_train_step(step, state, images, labels, "arcface train step, graph",
+                             max_launch_calls=10)
+    step.release_graphs()
+    step, state, images, labels = ctx.pop("arcface_sharded")
+    trace_train_step(step, state, images, labels, "arcface train step, (2, 2) mesh")
+
+
+def trace_train_step(step, state, images, labels, path: str, max_launch_calls=None):
+    """One ArcFace step under ``torch.profiler``, summed up by
+    :func:`device_summary`; a graphed step's host launch calls (graph
+    launches and copies) at most ``max_launch_calls``.  Returns the state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step(state, images, labels)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, loss = step(state, images, labels)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        emit({"phase": "trace", "path": path, "model": "facenet-512",
-              "batch": int(images.shape[0]), **device_summary(prof, wall_ms)})
-        check(bool(torch.isfinite(loss)), f"trace: the traced {path}'s loss is not finite")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    summary = device_summary(prof, wall_ms)
+    calls = sum(summary["host_launch_calls"].values())
+    emit({"phase": "trace", "path": path, "model": "facenet-512",
+          "batch": int(images.shape[0]), **summary, "host_launch_calls_total": calls})
+    check(bool(torch.isfinite(loss)), f"trace: the traced {path}'s loss is not finite")
+    if max_launch_calls is not None:
+        check(calls <= max_launch_calls,
+              f"trace: the {path} made {calls} host launch calls: {summary['host_launch_calls']}")
+    return state
 
 
 def trace_frames(fr, frames, batch_size: int = BATCH) -> dict:
@@ -2800,7 +2835,15 @@ def phase_eval_e2e(ctx) -> None:
 # ---------------------------------------------------------------- training --
 
 MEMO_STEPS = 30  # steps of each fixed-batch memorisation
-MEMO_WARMUP = 5  # of them, untimed (first-use allocations, cuDNN's choices)
+MEMO_WARMUP = 5  # of them, untimed (first-use allocations, cuDNN's choices, the capture)
+
+
+def step_graphs(step) -> dict:
+    """A one-device training step's CUDA graphs (``GraphedStep.graphs``):
+    keys, capture seconds and what each capture added to the pool."""
+    calls = [g for _, g in step.graphs]
+    return {"keys": len(calls), "capture_s": [g.capture_s for g in calls],
+            "pool_gb": sum(g.pool_bytes for g in calls) / 1e9}
 
 
 def memorise(step, state, args, batch: int, macs: int, base_bytes: int) -> tuple:
@@ -2841,7 +2884,8 @@ def phase_train_encoder(ctx) -> None:
     FaceNet-512, B = 64, 160², bf16; its file loads into a
     ``DeviceEngine`` that embeds.  Then the step alone memorises one
     fixed batch: the loss falls below half in ``MEMO_STEPS`` steps; ms
-    a step, images/s, peak memory, share of the bf16 peak."""
+    a step, images/s, peak memory, share of the bf16 peak.  Both run
+    through the step's CUDA graph (one key), released at the end."""
     import numpy as np
     import torch
 
@@ -2876,6 +2920,9 @@ def phase_train_encoder(ctx) -> None:
     labels_t = torch.from_numpy(labels).cuda()
     macs = forward_macs(model, images)
     state, memo = memorise(step, state, (images, labels_t), BATCH, macs, base)
+    memo["graphs"] = step_graphs(step)
+    check(memo["graphs"]["keys"] == 1, f"train_encoder: the step's graphs {memo['graphs']}")
+    step.release_graphs()  # the trace phase captures again
     ctx["arcface"] = (step, state, images, labels_t)  # traced by the trace phase
     ctx["arcface_memo"] = memo  # beside the sharded step's (train_sharded)
 
@@ -3027,7 +3074,10 @@ def _big_classifier_steps(mesh, images, labels) -> dict:
         check(all(math.isfinite(v) for v in losses), f"train_sharded: {name} losses {losses}")
         rec = {"ms_per_step": median(times), "ms_steps": times, "loss_first": losses[0],
                "loss_last": losses[-1], "peak_mem_gb": _peaks_gb(base)}
-        if m is not None:
+        if m is None:  # the one-device step replays its CUDA graph
+            rec["graphs"] = step_graphs(step)
+            step.release_graphs()
+        else:
             n = len(state.params)
             adam = state.opt_state[0]
             blocks = []
@@ -3298,7 +3348,8 @@ def _scene_pool(hw, n: int, max_faces: int, face_px, seed: int):
 def _detector_run(name: str, model, make_step, hw, scene_hw, batch: int, max_faces: int,
                   face_px, lr: float, default_steps: int, with_stats: bool) -> dict:
     """Fixed-batch memorisation of one detector trainer's pool step at its
-    default batch and size, with the trainer's own optimiser."""
+    default batch and size, with the trainer's own optimiser, through the
+    step's CUDA graph (the pool bound), released at the end."""
     import torch
 
     from fire_tpu_torch.bench.common import forward_macs
@@ -3321,6 +3372,9 @@ def _detector_run(name: str, model, make_step, hw, scene_hw, batch: int, max_fac
     x = torch.zeros((1, *hw, 3), device="cuda")
     macs = forward_macs(model, x) * batch
     _, memo = memorise(step, state, (*pool, idx), batch, macs, base)
+    memo["graphs"] = step_graphs(step)
+    check(memo["graphs"]["keys"] == 1, f"train_detectors {name}: graphs {memo['graphs']}")
+    step.release_graphs()
     check(memo["loss_last"] < 0.5 * memo["loss_first"],
           f"train_detectors {name}: the loss went {memo['loss_first']:.3f} → "
           f"{memo['loss_last']:.3f}")
@@ -3403,6 +3457,231 @@ def phase_train_detectors(ctx) -> None:
     emit({"phase": "train_detectors", "compute": "bf16, float32 masters", **rec})
 
 
+TRAIN_GRAPH_STEPS = 5  # steps of each graph-vs-eager comparison
+TRAIN_TIMED = 5  # timed steps of each side, after 3 untimed
+
+
+@contextlib.contextmanager
+def _train_builds():
+    """While active, every training graph built records its build's wall
+    seconds (warm-up and capture), its capture seconds and pool bytes,
+    and whether building it left the tensors it writes bitwise as they
+    were."""
+    import torch
+
+    from fire_tpu_torch.runtime import graphs
+
+    real, builds = graphs.CapturedCall, []
+
+    class Recording(real):
+        def __init__(self, fn, inputs, pool, state=(), writes=None):
+            before = [t.detach().clone() for t in writes or ()]
+            t0 = time.perf_counter()
+            super().__init__(fn, inputs, pool, state, writes)
+            torch.cuda.synchronize()
+            builds.append({"build_s": time.perf_counter() - t0, "capture_s": self.capture_s,
+                           "pool_gb": self.pool_bytes / 1e9,
+                           "kept_state": all(torch.equal(a, b)
+                                             for a, b in zip(before, writes or ()))})
+
+    graphs.CapturedCall = Recording
+    try:
+        yield builds
+    finally:
+        graphs.CapturedCall = real
+
+
+def _full_width_trainers() -> dict:
+    """The four one-device training steps at the JAX command lines'
+    defaults: name → ``build(compute_dtype)`` giving a fresh ``(step,
+    state, args_of)`` (the same state at every call), ``args_of(i)`` the
+    arguments of step i after the state.  The detectors' cosine schedule
+    ends after 4 steps, so that each step's learning rate differs and a
+    value frozen at the capture would show."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.models.blazeface import BlazeFace
+    from fire_tpu_torch.models.facenet import facenet_512
+    from fire_tpu_torch.models.retinaface import RetinaFace
+    from fire_tpu_torch.models.yunet import YuNet
+    from fire_tpu_torch.train import detect, detect_blaze, detect_retina, optim
+    from fire_tpu_torch.train.trainer import (JAX_INIT_SEED, init_state, make_train_step,
+                                              model_batch_stats)
+    from fire_tpu_torch.weights import flax_shapes, load_flax, materialize
+
+    rng = np.random.default_rng(41)
+    faces = rng.random((BATCH, 160, 160, 3)).astype(np.float32)
+    perms = [rng.permutation(BATCH) for _ in range(TRAIN_GRAPH_STEPS)]
+
+    def arcface(dtype):
+        model = facenet_512().cuda()
+        opt = optim.adamw(1e-3)
+        state = init_state(model, JAX_INIT_SEED, 32, opt)
+        images = torch.tensor(faces, device="cuda")
+        labels = torch.tensor(np.arange(BATCH) % 32, dtype=torch.int32, device="cuda")
+        batches = [(images[p], labels[p]) for p in perms]
+        return (make_train_step(model, opt, compute_dtype=dtype), state,
+                lambda i: batches[i % TRAIN_GRAPH_STEPS])
+
+    def detector(model_fn, make_step, scene_hw, batch, max_faces, face_px, lr, with_stats):
+        host = []
+
+        def build(dtype):
+            model = model_fn().cuda()
+            load_flax(model, materialize(flax_shapes(model), seed=0))
+            opt = optim.chain(optim.clip_by_global_norm(5.0),
+                              optim.adamw(optim.cosine_decay_schedule(lr, 4, 0.05)))
+            params = list(model.parameters())
+            state = ((params, model_batch_stats(model), opt.init(params)) if with_stats
+                     else (params, opt.init(params)))
+            if not host:
+                host.extend(t.cpu() for t in _scene_pool(scene_hw, batch, max_faces, face_px,
+                                                         seed=12))
+            pool = [t.cuda() for t in host]
+            idx = [torch.tensor(np.random.default_rng(42 + i).permutation(batch), device="cuda")
+                   for i in range(TRAIN_GRAPH_STEPS)]
+            return (make_step(model, opt, dtype), state,
+                    lambda i: (*pool, idx[i % TRAIN_GRAPH_STEPS]))
+
+        return build
+
+    return {
+        "arcface": arcface,
+        "yunet": detector(YuNet, lambda m, o, d: detect.make_pool_train_step(
+            m, o, (320, 320), compute_dtype=d), (320, 320), 32, 3, (24, 192), 2e-3, True),
+        "blazeface": detector(BlazeFace, lambda m, o, d: detect_blaze.make_blaze_pool_train_step(
+            m, o, input_px=192, compute_dtype=d), (480, 640), 64, 2, (140, 480), 2e-3, False),
+        "retinaface": detector(RetinaFace, lambda m, o, d: detect_retina.make_retina_pool_train_step(
+            m, o, (512, 512), compute_dtype=d), (480, 640), 8, 3, (40, 360), 1e-3, True),
+    }
+
+
+def _state_tensors(state) -> list:
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
+
+
+def _graph_vs_eager_bitwise(build) -> dict:
+    """``TRAIN_GRAPH_STEPS`` steps of the eager step, then of a graph,
+    from one state, float32: losses, parameters, BatchNorm statistics,
+    moments and counts bitwise equal after every step (the eager side's
+    kept as copies on the card, and its model freed before the graph is
+    built); the build left the state as it was; the caller's tensors
+    unchanged.  Peak memory of an eager step beside the graph's pool."""
+    import torch
+
+    ms = {"eager": [], "graph": []}
+
+    def run(step, state, args, side):
+        after = []
+        for i in range(TRAIN_GRAPH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss, *_ = step(state, *args(i))
+            torch.cuda.synchronize()
+            ms[side].append((time.perf_counter() - t0) * 1e3)
+            after.append([loss.clone()] + [t.detach().clone() for t in _state_tensors(state)])
+        return state, after
+
+    eager, state, args = build(None)
+    eager._graphed = lambda device: False
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, want = run(eager, state, args, "eager")
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    del eager, state, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _train_builds() as builds:
+        graphed, state, args = build(None)
+        callers = [t.clone() for i in range(TRAIN_GRAPH_STEPS) for t in args(i)]
+        state, got = run(graphed, state, args, "graph")
+        for i, (a, b) in enumerate(zip(want, got)):
+            check(torch.equal(a[0], b[0]),
+                  f"train graph vs eager: step {i} loss {float(b[0])} vs {float(a[0])}")
+            same = [torch.equal(x, y) for x, y in zip(a[1:], b[1:])]
+            check(all(same), f"train graph vs eager: step {i}: {same.count(False)} of "
+                             f"{len(same)} state tensors differ")
+        counts = [int(t) for t in _state_tensors(state) if t.dtype == torch.int32]
+        check(counts and set(counts) == {TRAIN_GRAPH_STEPS}, f"train graph: counts {counts}")
+        kept = all(torch.equal(a, b) for a, b in zip(
+            callers, [t for i in range(TRAIN_GRAPH_STEPS) for t in args(i)]))
+        check(kept, "train graph vs eager: a replay wrote a caller's tensor")
+        graphs = step_graphs(graphed)
+        graphed.release_graphs()
+    check(len(builds) == 1 and builds[0]["kept_state"],
+          f"train graph vs eager: building moved the state ({builds})")
+    return {"steps": TRAIN_GRAPH_STEPS, "bitwise_equal": True, "counts": counts[0],
+            "build": builds[0], "graphs": graphs, "eager_peak_gb": eager_peak / 1e9,
+            "ms_per_step_f32": {k: median(v[1:]) for k, v in ms.items()}}
+
+
+def _timed_sides(build) -> dict:
+    """At the command line's bf16: ms a step of the eager step, then of
+    the graph on the same step and state (3 untimed steps, the capture
+    among them, then ``TRAIN_TIMED`` timed by the host clock around
+    synchronised steps), the build's seconds and pool."""
+    import torch
+
+    with _train_builds() as builds:
+        step, state, args = build(torch.bfloat16)
+        out = {}
+        for side in ("eager", "graph"):
+            if side == "eager":
+                step._graphed = lambda device: False
+            else:
+                del step._graphed
+            times = []
+            for i in range(3 + TRAIN_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss, *_ = step(state, *args(i))
+                torch.cuda.synchronize()
+                if i >= 3:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            check(bool(torch.isfinite(loss)), f"train graph: {side} bf16 loss {float(loss)}")
+            out[side] = {"ms_per_step": median(times), "ms_steps": times}
+        step.release_graphs()
+    out["build"] = builds[0]
+    out["graph_over_eager"] = out["graph"]["ms_per_step"] / out["eager"]["ms_per_step"]
+    return out
+
+
+def phase_train_graph(ctx) -> None:
+    """``train graph vs eager``: each one-device training step at full
+    width (ArcFace FaceNet-512 B = 64 at 160²; YuNet-64 at 320², B = 32;
+    BlazeFace 192² from 480×640, B = 64; RetinaFace 512² from 480×640,
+    B = 8): the graph against the eager step, bitwise over 5 steps in
+    float32 with TF32 off and cuDNN deterministic (the card tests'
+    comparison); then at bf16, ms a step eager and graphed, the build's
+    and the capture's seconds and the pool the capture took.  Every
+    graph is released at the end of its check."""
+    import torch
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    rec = {"phase": "train_graph", "check": "train graph vs eager", "card": ctx["smi"]}
+    for name, build in _full_width_trainers().items():
+        t0 = time.perf_counter()
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            exact = _graph_vs_eager_bitwise(build)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec[name] = {"float32_bitwise": exact, "bf16": _timed_sides(build),
+                     "seconds": time.perf_counter() - t0}
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(rec)
+
+
 def _one_face_scene(seed: int):
     """A rendered short-range 1080p scene with one face (420–700 px)."""
     import numpy as np
@@ -3472,28 +3751,31 @@ def phase_cross_device(ctx) -> None:
 
 def _cross_device_training() -> dict:
     """One ArcFace step (FaceNet-512, B = 8, 160²) and one YuNet pool
-    step (YuNet-64, B = 4, 320²) from one state on the card and on the
-    CPU, float32 with TF32 off: the losses at rtol 1e-4, and each
-    gradient tensor within 5e-2 of the CPU's in relative L2 norm.  Tensors
-    whose largest gradient is under 1e-4 of the model's are left out: a
-    bias just before a BatchNorm has a gradient of zero but for rounding
-    (3.9e-6 of the largest at most on the CPU in this step, every other
-    tensor's 1.7e-3 at least).  The gradients of this step are
-    ill-conditioned in float32: BatchNorm's fast variance ``E[x²] −
-    E[x]²`` cancels where activations have a large mean, so the CPU's own
-    float32 gradients of this ArcFace step are up to 1.5e-2 (relative L2)
-    from JAX's in float64, and single elements up to 0.12 of the tensor's
-    largest gradient (``tools/torch_train_precision.py``); the card sums
-    in another order and lands as far on the other side.  The largest
-    element error is reported too."""
+    step (YuNet-64, B = 4, 320²) from one state, Adam 1e-3, on the card
+    through the step's CUDA graph and on the CPU eagerly, float32 with
+    TF32 off: the losses at rtol 1e-4, and each gradient tensor within
+    5e-2 of the CPU's in relative L2 norm.  A step's gradient is read
+    from Adam's first moment after it, ``(1 − b1)·g`` (one rounding of
+    ``0.1·g``).  Tensors whose largest gradient is under 1e-4 of the
+    model's are left out: a bias just before a BatchNorm has a gradient
+    of zero but for rounding (3.9e-6 of the largest at most on the CPU in
+    this step, every other tensor's 1.7e-3 at least).  The gradients of
+    this step are ill-conditioned in float32: BatchNorm's fast variance
+    ``E[x²] − E[x]²`` cancels where activations have a large mean, so the
+    CPU's own float32 gradients of this ArcFace step are up to 1.5e-2
+    (relative L2) from JAX's in float64, and single elements up to 0.12
+    of the tensor's largest gradient (``tools/torch_train_precision.py``);
+    the card sums in another order and lands as far on the other side.
+    The largest element error is reported too."""
     import numpy as np
     import torch
 
     from fire_tpu_torch.models.facenet import facenet_512
     from fire_tpu_torch.models.yunet import YuNet
-    from fire_tpu_torch.train.detect import build_targets_device, detection_loss, pad_gt
+    from fire_tpu_torch.train import optim
+    from fire_tpu_torch.train.detect import make_pool_train_step, pad_gt
     from fire_tpu_torch.train.scenes import compose_scene, make_identities
-    from fire_tpu_torch.train.trainer import arcface_loss
+    from fire_tpu_torch.train.trainer import TrainState, make_train_step, model_batch_stats
     from fire_tpu_torch.weights import flax_shapes, load_flax, materialize
 
     rng = np.random.default_rng(21)
@@ -3503,39 +3785,50 @@ def _cross_device_training() -> dict:
     idents = make_identities(4, seed=22)
     scenes = [compose_scene(np.random.default_rng(s), idents, hw=(320, 320), n_faces=(1, 3),
                             face_px=(24, 192)) for s in range(4)]
-    frames = np.stack([sc[0] for sc in scenes]).astype(np.float32) / 255.0
-    gt = [np.stack([pad_gt(b, l, 3)[i] for _, b, l in scenes]) for i in range(3)]
+    pool = [np.stack([sc[0] for sc in scenes]).astype(np.uint8)] + [
+        np.stack([pad_gt(b, l, 3)[i] for _, b, l in scenes]) for i in range(3)]
     variables = {"facenet": materialize(flax_shapes(facenet_512()), seed=23),
                  "yunet": materialize(flax_shapes(YuNet()), seed=24)}
+    b1 = 0.9
 
-    def grads(dev):
+    def grads(opt_state):  # Adam's first moment after one step: (1 − b1)·g
+        return [(t / (1.0 - b1)).double().cpu().numpy() for t in opt_state[0].mu]
+
+    def steps(dev):
         out = {}
         model = facenet_512()
         load_flax(model, variables["facenet"])
         model.to(dev)
+        opt = optim.adam(1e-3)
         cls = torch.tensor(classifier, device=dev, requires_grad=True)
-        loss = arcface_loss(model, cls, torch.tensor(faces, device=dev),
-                            torch.tensor(labels, device=dev))
-        g = torch.autograd.grad(loss, list(model.parameters()) + [cls])
-        out["arcface"] = (loss.item(), [t.double().cpu().numpy() for t in g])
+        params = list(model.parameters())
+        state = TrainState(params, model_batch_stats(model), cls, opt.init(params + [cls]), 0)
+        step = make_train_step(model, opt)
+        state, loss = step(state, torch.tensor(faces, device=dev),
+                           torch.tensor(labels, device=dev))
+        out["arcface"] = (loss.item(), grads(state.opt_state), len(step.graphs))
+        step.release_graphs()
         model = YuNet()
         load_flax(model, variables["yunet"])
         model.to(dev)
-        targets = build_targets_device(*(torch.tensor(a, device=dev) for a in gt), (320, 320))
-        loss, _ = detection_loss(model(torch.tensor(frames, device=dev), train=True), targets)
-        g = torch.autograd.grad(loss, list(model.parameters()))
-        out["yunet"] = (loss.item(), [t.double().cpu().numpy() for t in g])
+        params = list(model.parameters())
+        step = make_pool_train_step(model, opt, (320, 320))
+        state, loss, _ = step((params, model_batch_stats(model), opt.init(params)),
+                              *(torch.tensor(a, device=dev) for a in pool), np.arange(4))
+        out["yunet"] = (loss.item(), grads(state[2]), len(step.graphs))
+        step.release_graphs()
         return out
 
-    card, cpu = grads("cuda"), grads("cpu")
+    card, cpu = steps("cuda"), steps("cpu")
     rec = {}
     for name in card:
-        (la, ga), (lb, gb) = card[name], cpu[name]
+        (la, ga, keys), (lb, gb, _) = card[name], cpu[name]
+        check(keys == 1, f"cross_device: the card's {name} step did not replay a graph")
         scale = max(float(np.abs(b).max()) for b in gb)
         live = [(a, b) for a, b in zip(ga, gb) if np.abs(b).max() > 1e-4 * scale]
         rel_l2 = max(float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in live)
         worst = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in live)
-        rec[name] = {"loss_card": la, "loss_cpu": lb, "tensors": len(live),
+        rec[name] = {"card": "graph", "loss_card": la, "loss_cpu": lb, "tensors": len(live),
                      "worst_rel_l2": rel_l2, "worst_element_of_max": worst}
         check(abs(la - lb) <= 1e-4 * abs(lb), f"cross_device: {name} loss {la} vs {lb}")
         check(rel_l2 <= 5e-2, f"cross_device: {name} gradients differ by {rel_l2} (relative L2)")

@@ -6,7 +6,10 @@ port captures the same function once per key into a CUDA graph and
 replays it:
 
 * :class:`CapturedCall`: one function of fixed-shape device tensors as
-  one plain CUDA graph with static inputs and outputs;
+  one plain CUDA graph with static inputs and outputs, or (its training
+  form) a step that differentiates and updates its state in place;
+* :class:`GraphedStep`: a training step replayed per key, the
+  counterpart of a jitted ``step(state, *args)``;
 * :func:`replay`: a call through a :class:`GraphCache` (the graph of the
   key, captured at the key's first call), copying the call's arguments
   into the graph's static inputs;
@@ -30,6 +33,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 
 def check_graph_runtime() -> None:
@@ -84,6 +88,25 @@ def _launch_counters():
     return k1, k2
 
 
+def warm_up(fn: Callable, inputs: Sequence[torch.Tensor], state: Sequence[torch.Tensor] = (),
+            writes: Optional[Sequence[torch.Tensor]] = None) -> None:
+    """The eager run of ``fn`` before its capture (:class:`CapturedCall`):
+    on clones of ``inputs`` and ``state``; or, in the training form
+    (``writes`` given), with grad enabled on the tensors themselves, each
+    tensor of ``writes`` copied before and copied back after, bitwise."""
+    if writes is None:
+        with torch.no_grad():
+            fn(*(x.clone() for x in inputs), *(x.clone() for x in state))
+        return
+    with torch.no_grad():
+        saved = [t.clone() for t in writes]
+    with torch.enable_grad():
+        fn(*inputs, *state)
+    with torch.no_grad():
+        for t, v in zip(writes, saved):
+            t.copy_(v)
+
+
 class CapturedCall:
     """``fn`` over fixed-shape device tensors as one CUDA graph, replayed
     per call: the counterpart of ``jax.jit(fn)`` for one key.
@@ -102,12 +125,28 @@ class CapturedCall:
     and ``fn`` is captured into ``pool``.  A capture that fails raises:
     nothing falls back to eager dispatch.
 
+    The training form (``writes`` given) captures a step that
+    differentiates and updates tensors it reaches itself: ``writes`` are
+    those tensors (a model's parameters and BatchNorm statistics, an
+    optimizer's moments and counts).  Its warm-up and capture run with
+    grad enabled, and its warm-up runs on the static inputs themselves
+    (``fn`` only reads them; a bound scene pool is too large to clone),
+    each tensor of ``writes`` copied before it and copied back after it,
+    so that building the graph leaves the training state bitwise as it
+    was.  No autograd graph of those tensors made on another stream may
+    be alive then (a loss not detached, a clone taken with grad): its
+    gradient accumulators keep that stream, and the capture fails.  One warm-up is enough for ``torch.autograd.grad``: the
+    autograd engine's device thread, its cuBLAS handle and workspace and
+    cuDNN's choices are settled by it, and the backward runs on the
+    stream of its forward, the side stream of the capture.
+
     K1's and K2's launch counters count what runs: the warm-up and the
     capture add nothing, and each :meth:`replay` adds the launches the
     graph holds."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], pool,
-                 state: Sequence[torch.Tensor] = ()):
+                 state: Sequence[torch.Tensor] = (),
+                 writes: Optional[Sequence[torch.Tensor]] = None):
         self.inputs, self.state = tuple(inputs), tuple(state)
         dev = self.device = self.inputs[0].device
         k1, k2 = _launch_counters()
@@ -116,8 +155,9 @@ class CapturedCall:
         side = side_stream(dev)
         side.wait_stream(cur)
         try:
-            with torch.cuda.device(dev), torch.cuda.stream(side), torch.no_grad():
-                fn(*(x.clone() for x in self.inputs), *(x.clone() for x in self.state))
+            with torch.cuda.device(dev), torch.cuda.stream(side), \
+                    torch.set_grad_enabled(writes is not None):
+                warm_up(fn, self.inputs, self.state, writes)
                 torch.cuda.synchronize(dev)
                 torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved(dev)
@@ -143,8 +183,12 @@ class CapturedCall:
         except BaseException:
             try:
                 self.graph.capture_end()
-            except RuntimeError:
-                pass  # the capture is already invalid; the first error is the one to see
+            except RuntimeError:  # the capture is already invalid; the first error is the one to see
+                # torch then left this stream's allocations going to the pool
+                try:
+                    torch._C._cuda_endAllocateToPool(self.device.index, pool)
+                except RuntimeError:
+                    pass  # it had ended that
             raise
         self.graph.capture_end()
         return out
@@ -184,7 +228,13 @@ class GraphCache:
         if dev not in _POOLS or not _POOLS[dev][1]:
             _POOLS[dev] = (_new_pool(), weakref.WeakSet())
         pool, users = _POOLS[dev]
-        graph = self._graphs[key] = build(pool)
+        try:
+            graph = self._graphs[key] = build(pool)
+        except BaseException:
+            # a capture that failed leaves its pool refusing captures: the
+            # next graph of the device takes a new one
+            _POOLS.pop(dev, None)
+            raise
         users.add(graph)
         while self.limit is not None and len(self._graphs) > self.limit:
             self._graphs.popitem(last=False)
@@ -223,6 +273,87 @@ def replay(cache: GraphCache, key: tuple, fn: Callable, args: Sequence, staging:
             elif a is not dst:
                 dst.copy_(a)
     return graph.replay()
+
+
+class GraphedStep:
+    """A training step that updates its state in place, run as JAX runs
+    its jitted ``step(state, *args)``.
+
+    ``body(state, *args)`` returns a tuple of tensors and updates the
+    tensors of ``state`` (a tree of NamedTuples, tuples and lists whose
+    other leaves, such as a host step count, it leaves alone) in place;
+    a call returns ``finish(state, outputs)`` (the state with its host
+    fields advanced, and the outputs as the trainer hands them out).
+    The first ``bound`` arguments are device tensors the step reads as
+    they are (a trainer's scene pool); the rest, arrays or trees of
+    arrays (numpy or tensors), are the batch.
+
+    On a CUDA device each key replays a graph, :class:`CapturedCall`'s
+    training form captured at the key's first call.  The key is what
+    ``jax.jit`` retraces on, the shapes and dtypes of the batch's arrays
+    and the tree they form, plus what the graph binds: the bound tensors
+    and the state's tensors, by identity (a step handed another pool or
+    another state gets a key of its own, and never writes a caller's
+    tensor).  The static configuration (model, optimizer, compute
+    dtype) is the body's own.  A call copies the batch into the static
+    inputs of its key, a host array through :class:`HostStaging`'s
+    pinned buffers, replays, and returns clones of the graph's outputs
+    (the next replay overwrites them).  Every key is kept until
+    :meth:`release_graphs`.  On another device ``body`` runs eagerly: the
+    eager step is the graph's plain version, and ``_graphed`` set off on
+    an instance runs it on a card."""
+
+    def __init__(self, body: Callable, finish: Callable, bound: int = 0):
+        self.body, self.finish, self.bound = body, finish, bound
+        self.graphs = GraphCache(limit=None)
+        self._staging = HostStaging()
+
+    def _graphed(self, device: torch.device) -> bool:
+        """Whether calls replay captured graphs: on a CUDA device."""
+        return torch.device(device).type == "cuda"
+
+    def release_graphs(self) -> None:
+        """Drop every graph, its static inputs and the pinned buffers; the
+        next call on a card captures again."""
+        self.graphs.clear()
+        self._staging = HostStaging()
+
+    def __call__(self, state, *args):
+        return self.finish(state, self._outputs(state, *args))
+
+    def _outputs(self, state, *args) -> Tuple[torch.Tensor, ...]:
+        writes = [t for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
+        dev = writes[0].device
+        bound = args[:self.bound]
+        leaves, spec = tree_flatten(args[self.bound:])
+        leaves = [torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray)
+                  else torch.as_tensor(a) for a in leaves]
+        if not self._graphed(dev):
+            batch = [self._staging.upload(a, dev, slot=i) for i, a in enumerate(leaves)]
+            return self.body(state, *bound, *tree_unflatten(batch, spec))
+        for t in bound:
+            if not isinstance(t, torch.Tensor) or t.device != dev:
+                raise ValueError(f"a bound argument of the step is a tensor on {dev}")
+        key = (indexed(dev), tuple(map(id, bound)), str(spec),
+               tuple((tuple(a.shape), a.dtype) for a in leaves), tuple(map(id, writes)))
+        graph = self.graphs.find(key)
+        if graph is None:
+            statics = [torch.empty(a.shape, dtype=a.dtype, device=dev) for a in leaves]
+            self._fill(statics, leaves, dev)
+            body, n = self.body, len(bound)
+
+            def fn(*ins):  # holds no reference to self: the graphs go with the step
+                return body(state, *ins[:n], *tree_unflatten(list(ins[n:]), spec))
+
+            graph = self.graphs.get(
+                key, lambda pool: CapturedCall(fn, [*bound, *statics], pool, writes=writes))
+        else:
+            self._fill(graph.inputs[len(bound):], leaves, dev)
+        return tuple(o.clone() for o in graph.replay())
+
+    def _fill(self, statics, leaves, dev) -> None:
+        for i, (dst, a) in enumerate(zip(statics, leaves)):
+            self._staging.upload(a, dev, slot=i, out=dst)
 
 
 class HostStaging:

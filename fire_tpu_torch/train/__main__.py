@@ -19,6 +19,11 @@ bf16 with float32 master weights, as the JAX CLI's ``dtype=bf16``
 model.  ``--checkpoint_dir`` resumes from its newest ``step_<N>``
 checkpoint and saves one at every log step.  ``--device`` defaults to
 ``cuda``; without a card pass ``--device cpu``.
+
+On one card the step replays a CUDA graph (``make_train_step``) and the
+loop (:func:`train_loop`) reads the device only for the loss of a
+logging step, as JAX's loop does; the sharded step of several cards
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -34,6 +39,23 @@ def mesh_shape(n_devices: int) -> Tuple[int, int]:
     even, else 1, and ``(n / mp, mp)``."""
     mp = 2 if n_devices % 2 == 0 else 1
     return n_devices // mp, mp
+
+
+def train_loop(step_fn, state, batch_iter, log_every: int, on_log):
+    """JAX's loop over ``batch_iter``'s ``(images_u8, labels)`` numpy
+    batches: each becomes float32 in [0, 1] on the host and goes to
+    ``step_fn``, which copies it up through pinned memory into its
+    graph's static inputs; the step count stays on the host.
+    ``on_log(state, loss)`` runs every ``log_every`` steps, the one place
+    the device is read.  Returns the state."""
+    import torch
+
+    for images_u8, labels in batch_iter:
+        images = torch.from_numpy(images_u8).float() / 255.0
+        state, loss = step_fn(state, images, torch.from_numpy(labels))
+        if state.step % log_every == 0:
+            on_log(state, loss)
+    return state
 
 
 def main(argv=None) -> None:
@@ -94,15 +116,16 @@ def main(argv=None) -> None:
                               scale=args.scale, compute_dtype=cli_compute_dtype(device))
 
     t0 = time.time()
-    for images_u8, labels in batches(ds, args.batch, hw, epochs=args.epochs):
-        images = torch.from_numpy(images_u8).to(device).float() / 255.0
-        state, loss = step_fn(state, images, torch.from_numpy(labels).to(device))
+
+    def on_log(state, loss):
         step = state.step
-        if step % args.log_every == 0:
-            log.info("step %d  loss %.4f  (%.1f img/s)", step, float(loss),
-                     step * args.batch / (time.time() - t0))
-            if args.checkpoint_dir:
-                save_checkpoint(os.path.join(args.checkpoint_dir, f"step_{step}"), state)
+        log.info("step %d  loss %.4f  (%.1f img/s)", step, float(loss),
+                 step * args.batch / (time.time() - t0))
+        if args.checkpoint_dir:
+            save_checkpoint(os.path.join(args.checkpoint_dir, f"step_{step}"), state)
+
+    train_loop(step_fn, state, batches(ds, args.batch, hw, epochs=args.epochs), args.log_every,
+               on_log)
 
     with open(args.out, "wb") as f:
         f.write(msgpack_serialize(to_flax(model)))

@@ -19,6 +19,8 @@
 * The trainers sample batches from scenes resident on the device
   (:func:`train_on_pool`): the step gathers, casts and builds targets on
   the device, so a step's host-to-device copy is the (B,) index vector;
+  on a card each step replays a CUDA graph captured at its key's first
+  call, as JAX jits it (:func:`detector_step`);
   :class:`ScenePool` threads synthesise a fresh scene for each one
   sampled, and a block of the device pool is overwritten every few steps
   (:func:`update_pool_rows`).
@@ -36,6 +38,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from fire_tpu_torch.runtime.graphs import GraphedStep, HostStaging
 
 STRIDES = (8, 16, 32)
 # geometric size bands: stride s owns faces around 4·s px
@@ -240,17 +244,35 @@ def detection_loss(heads, targets, box_weight: float = 2.0, kps_weight: float = 
 
 # ------------------------------------------------------------- steps ---
 
+METRICS = ("cls", "obj", "box", "kps", "n_pos")
+
+
+def detector_step(body, names: Sequence[str], bound: int = 0):
+    """``body(state, *args) → (loss, metrics)``, which updates ``state``
+    in place, as a :class:`~fire_tpu_torch.runtime.graphs.GraphedStep`
+    (a CUDA graph per key on a card) whose result is ``(state, loss,
+    metrics)``.  The loss and the metrics ``names`` leave the step as one
+    vector, one output of the graph."""
+
+    def packed(state, *args):
+        loss, metrics = body(state, *args)
+        return (torch.stack([loss, *(metrics[k] for k in names)]).detach(),)
+
+    def finish(state, out):
+        return state, out[0][0], dict(zip(names, out[0][1:]))
+
+    return GraphedStep(packed, finish, bound)
+
 
 def _step(model, optimizer, state, images, targets, box_weight, kps_weight, compute_dtype):
     from fire_tpu_torch.train.trainer import compute_context, optimizer_step
 
-    params, batch_stats, opt_state = state
+    params, _, opt_state = state
     with compute_context(images.device, compute_dtype):
         heads = model(images, train=True)
     loss, metrics = detection_loss(heads, targets, box_weight=box_weight, kps_weight=kps_weight)
-    opt_state = optimizer_step(optimizer, params, opt_state, loss)
-    return (params, batch_stats, opt_state), loss.detach(), {k: v.detach()
-                                                              for k, v in metrics.items()}
+    optimizer_step(optimizer, params, opt_state, loss)
+    return loss, metrics
 
 
 def make_detect_train_step(model, optimizer, strides=STRIDES, box_weight: float = 2.0,
@@ -259,13 +281,14 @@ def make_detect_train_step(model, optimizer, strides=STRIDES, box_weight: float 
     (state, loss, metrics)``; ``params`` / ``batch_stats`` are the
     model's own tensors (``list(model.parameters())``,
     :func:`~fire_tpu_torch.train.trainer.model_batch_stats`), updated in
-    place."""
+    place.  On a card a graph per key (the shapes of the images and
+    targets, the state's tensors), as JAX jits the step."""
 
-    def step(state, images, targets):
+    def body(state, images, targets):
         return _step(model, optimizer, state, images, targets, box_weight, kps_weight,
                      compute_dtype)
 
-    return step
+    return detector_step(body, METRICS)
 
 
 def make_pool_train_step(model, optimizer, hw: Tuple[int, int], strides=STRIDES,
@@ -274,23 +297,31 @@ def make_pool_train_step(model, optimizer, hw: Tuple[int, int], strides=STRIDES,
     """``step(state, pool_imgs u8 (N,H,W,3), pool_boxes (N,F,4),
     pool_lms, pool_valid, idx (B,)) → (state, loss, metrics)`` on scenes
     resident on the device: the batch gather, the uint8 → float cast and
-    the targets (:func:`build_targets_device`) run there."""
+    the targets (:func:`build_targets_device`) run there.  On a card the
+    four pool tensors are bound to the graph of their key (read as they
+    are, rewritten in place between steps by :func:`update_pool_rows`;
+    other pool tensors get a key of their own) and only ``idx`` is
+    copied in."""
 
-    def step(state, pool_imgs, pool_boxes, pool_lms, pool_valid, idx):
+    def body(state, pool_imgs, pool_boxes, pool_lms, pool_valid, idx):
         images = pool_imgs[idx].float() / 255.0
         targets = build_targets_device(pool_boxes[idx], pool_lms[idx], pool_valid[idx], hw,
                                        strides)
         return _step(model, optimizer, state, images, targets, box_weight, kps_weight,
                      compute_dtype)
 
-    return step
+    return detector_step(body, METRICS, bound=4)
 
 
-def update_pool_rows(arr: torch.Tensor, block: np.ndarray, start: int) -> torch.Tensor:
+def update_pool_rows(arr: torch.Tensor, block: np.ndarray, start: int,
+                     staging=None) -> torch.Tensor:
     """Overwrite rows ``start : start + len(block)`` of the device pool
-    array ``arr`` in place (the rolling refresh); returns ``arr``."""
-    arr[start : start + block.shape[0]] = torch.from_numpy(np.ascontiguousarray(block)).to(
-        arr.device)
+    array ``arr`` in place (the rolling refresh); returns ``arr``.  The
+    block goes up through ``staging``'s pinned buffers (a loop's own
+    :class:`~fire_tpu_torch.runtime.graphs.HostStaging`, reused across
+    refreshes), without waiting for the card."""
+    rows = arr[start : start + block.shape[0]]
+    (staging or HostStaging()).upload(block, arr.device, out=rows)
     return arr
 
 
@@ -396,8 +427,14 @@ def train_on_pool(pool: ScenePool, step_fn, state, args, device: torch.device, l
     ``args.steps`` steps of ``args.batch`` scenes drawn with replacement,
     overwrite the next ``args.refresh_block`` rows every
     ``args.refresh_every`` steps, log every ``args.log_every``;
-    ``on_step(state, step)`` runs after each step.  Returns the state."""
+    ``on_step(state, step)`` runs after each step.  Returns the state.
+
+    As JAX's loop: the index vector and the refreshed rows go up through
+    pinned buffers (the step's own and the loop's
+    :class:`~fire_tpu_torch.runtime.graphs.HostStaging`), and the only
+    read of the device is the loss and metrics of a logging step."""
     rng = np.random.default_rng(args.seed + 7)
+    staging = HostStaging()
 
     def block(n):
         ex = pool.sample(n, rng)
@@ -412,16 +449,16 @@ def train_on_pool(pool: ScenePool, step_fn, state, args, device: torch.device, l
     refresh_at = 0
     t0 = time.time()
     for step in range(1, args.steps + 1):
-        idx = torch.from_numpy(rng.integers(0, n_pool, args.batch)).to(device)
+        idx = rng.integers(0, n_pool, args.batch)
         state, loss, metrics = step_fn(state, *pool_dev, idx)
         if args.refresh_every and step % args.refresh_every == 0:
             fresh = block(min(args.refresh_block, n_pool))
             start = refresh_at
             refresh_at = (refresh_at + fresh[0].shape[0]) % max(n_pool - fresh[0].shape[0] + 1, 1)
-            pool_dev = [update_pool_rows(d, b, start) for d, b in zip(pool_dev, fresh)]
+            pool_dev = [update_pool_rows(d, b, start, staging) for d, b in zip(pool_dev, fresh)]
         if step % args.log_every == 0:
-            log.info(fmt, step, float(loss), *(float(metrics[k]) for k in metric_names),
-                     step * args.batch / (time.time() - t0), pool.generated)
+            values = torch.stack([loss, *(metrics[k] for k in metric_names)]).tolist()
+            log.info(fmt, step, *values, step * args.batch / (time.time() - t0), pool.generated)
         if on_step is not None:
             on_step(state, step)
     return state

@@ -27,12 +27,15 @@ is ``(params, opt_state)``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from fire_tpu_torch.train.detect import focal_bce, gather_faces, smooth_l1
+from fire_tpu_torch.train.detect import detector_step, focal_bce, gather_faces, smooth_l1
 
 INPUT_PX = 128
+METRICS = ("cls", "box", "kps", "n_pos")
 
 
 def _cell_px(input_px: int) -> np.ndarray:
@@ -43,6 +46,18 @@ def _cell_px(input_px: int) -> np.ndarray:
                            np.full(g16 * g16 * 6, 16.0, np.float32)])
 
 
+@functools.lru_cache(maxsize=16)
+def _target_constants(input_px: int, device: torch.device):
+    """The anchors in pixels (A, 2), each anchor's cell size (A,) and the
+    regression mask (16,) on ``device``, made once: a captured graph
+    cannot copy from host memory."""
+    from fire_tpu_torch.models.blazeface import blaze_anchors
+
+    return (torch.from_numpy(blaze_anchors(input_px)).to(device) * input_px,
+            torch.from_numpy(_cell_px(input_px)).to(device),
+            torch.tensor([1.0] * 12 + [0.0] * 4, device=device))
+
+
 def blaze_targets(boxes: torch.Tensor, lms: torch.Tensor, valid: torch.Tensor,
                   input_px: int = INPUT_PX):
     """Batched SSD targets for the A anchors (896 at 128², 2016 at 192²).
@@ -50,11 +65,7 @@ def blaze_targets(boxes: torch.Tensor, lms: torch.Tensor, valid: torch.Tensor,
     ``boxes`` (B, F, 4) xywh pixels of the ``input_px``² image, ``lms``
     (B, F, 5, 2), ``valid`` (B, F) bool.  Returns ``(cls_t (B, A), reg_t
     (B, A, 16), wgt (B, A), reg_mask (16,))``."""
-    from fire_tpu_torch.models.blazeface import blaze_anchors
-
-    dev = boxes.device
-    anc = torch.from_numpy(blaze_anchors(input_px)).to(dev) * input_px  # (A, 2)
-    cell = torch.from_numpy(_cell_px(input_px)).to(dev)  # (A,)
+    anc, cell, reg_mask = _target_constants(input_px, boxes.device)  # (A, 2), (A,), (16,)
     ax, ay = anc[:, 0], anc[:, 1]
     x, y, bw, bh = boxes.unbind(-1)
     cx, cy = x + bw / 2.0, y + bh / 2.0
@@ -88,7 +99,6 @@ def blaze_targets(boxes: torch.Tensor, lms: torch.Tensor, valid: torch.Tensor,
     kp6 = torch.cat([lms[..., :3, :], mouth, torch.zeros_like(lms[..., :2, :])], dim=-2)
     kp = g(kp6) - anc[:, None, :]  # (B, A, 6, 2)
     reg_t = torch.cat([t, kp.reshape(*owner.shape, 12)], dim=-1) * cls_t[..., None]
-    reg_mask = torch.tensor([1.0] * 12 + [0.0] * 4, device=dev)
     return cls_t, reg_t, wgt, reg_mask
 
 
@@ -145,11 +155,14 @@ def make_blaze_pool_train_step(model, optimizer, loss_kwargs=None, input_px: int
     """``step((params, opt_state), pool_imgs u8, pool_boxes, pool_lms,
     pool_valid, idx) → (state, loss, metrics)`` on an on-device scene
     pool; the scenes go through :func:`deploy_transform` (RGB / 255
-    after it), and the GT through its scale."""
+    after it), and the GT through its scale.  On a card a graph per key,
+    the pool bound as :func:`~fire_tpu_torch.train.detect.make_pool_train_step`
+    binds it; the letterbox and its scale are fixed by the pool's frame
+    size, part of the key."""
     from fire_tpu_torch.ops.image import bgr_to_rgb
     from fire_tpu_torch.train.trainer import compute_context, optimizer_step
 
-    def step(state, pool_imgs, pool_boxes, pool_lms, pool_valid, idx):
+    def body(state, pool_imgs, pool_boxes, pool_lms, pool_valid, idx):
         canvas, scale = deploy_transform(pool_imgs[idx], (input_px, input_px))
         images = bgr_to_rgb(canvas) / 255.0
         targets = blaze_targets(pool_boxes[idx] * scale, pool_lms[idx] * scale,
@@ -158,10 +171,10 @@ def make_blaze_pool_train_step(model, optimizer, loss_kwargs=None, input_px: int
         with compute_context(images.device, compute_dtype):
             scores, regs = model(images)
         loss, metrics = blaze_detection_loss(scores, regs, targets, **(loss_kwargs or {}))
-        opt_state = optimizer_step(optimizer, params, opt_state, loss)
-        return (params, opt_state), loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        optimizer_step(optimizer, params, opt_state, loss)
+        return loss, metrics
 
-    return step
+    return detector_step(body, METRICS, bound=4)
 
 
 def engine_config(input_px: int):

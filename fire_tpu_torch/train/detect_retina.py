@@ -26,14 +26,15 @@ letterbox, BGR → RGB, raw pixels.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from fire_tpu_torch.ops.anchors import RETINAFACE_ANCHORS, RETINAFACE_STRIDES
-from fire_tpu_torch.train.detect import focal_bce, gather_faces, smooth_l1
-from fire_tpu_torch.train.detect_blaze import deploy_transform, ohem_bce
+from fire_tpu_torch.train.detect import detector_step, focal_bce, gather_faces, smooth_l1
+from fire_tpu_torch.train.detect_blaze import METRICS, deploy_transform, ohem_bce
 
 
 def _anchor_geometry():
@@ -55,6 +56,13 @@ _GEO = _anchor_geometry()
 _SIZE_BAND = 0.6
 
 
+@functools.lru_cache(maxsize=16)
+def _geometry_on(stride: int, device: torch.device):
+    """:data:`_GEO`'s entry for ``stride`` on ``device``, made once: a
+    captured graph cannot copy from host memory."""
+    return tuple(torch.from_numpy(v).to(device) for v in _GEO[stride])
+
+
 def retina_targets(boxes: torch.Tensor, lms: torch.Tensor, valid: torch.Tensor,
                    hw: Tuple[int, int]):
     """Batched targets for the three FPN heads.  ``boxes`` (B, F, 4) xywh
@@ -69,7 +77,7 @@ def retina_targets(boxes: torch.Tensor, lms: torch.Tensor, valid: torch.Tensor,
     out = {}
     for st in RETINAFACE_STRIDES:
         gh, gw = H // st, W // st
-        aw, ah, acx, acy = (torch.from_numpy(v).to(dev) for v in _GEO[st])
+        aw, ah, acx, acy = _geometry_on(st, dev)
         # anchor centres (gh, gw, A)
         gx = (torch.arange(gw, dtype=torch.float32, device=dev)[None, :, None] * st + acx
               ).expand(gh, gw, -1)
@@ -149,24 +157,24 @@ def make_retina_pool_train_step(model, optimizer, hw: Tuple[int, int],
     pool_lms, pool_valid, idx) → (state, loss, metrics)`` on an
     on-device scene pool; the scenes go through
     :func:`~fire_tpu_torch.train.detect_blaze.deploy_transform` (RGB, raw
-    pixels, after it), the GT through its scale."""
+    pixels, after it), the GT through its scale.  On a card a graph per
+    key, the pool bound, as the BlazeFace step."""
     from fire_tpu_torch.ops.image import bgr_to_rgb
     from fire_tpu_torch.train.trainer import compute_context, optimizer_step
 
-    def step(state, pool_imgs, pool_boxes, pool_lms, pool_valid, idx):
+    def body(state, pool_imgs, pool_boxes, pool_lms, pool_valid, idx):
         canvas, scale = deploy_transform(pool_imgs[idx], hw)
         images = bgr_to_rgb(canvas)
         targets = retina_targets(pool_boxes[idx] * scale, pool_lms[idx] * scale,
                                  pool_valid[idx], hw)
-        params, batch_stats, opt_state = state
+        params, _, opt_state = state
         with compute_context(images.device, compute_dtype):
             heads = model(images, train=True)
         loss, metrics = retina_detection_loss(heads, targets, **(loss_kwargs or {}))
-        opt_state = optimizer_step(optimizer, params, opt_state, loss)
-        return ((params, batch_stats, opt_state), loss.detach(),
-                {k: v.detach() for k, v in metrics.items()})
+        optimizer_step(optimizer, params, opt_state, loss)
+        return loss, metrics
 
-    return step
+    return detector_step(body, METRICS, bound=4)
 
 
 def engine_config(hw: Tuple[int, int]):

@@ -14,6 +14,13 @@ forward's convolutions and matmuls in bf16 under ``torch.autocast``
 (BatchNorm normalises in float32 and the ArcFace product is float32
 either way).  ``None`` computes in float32, as the parity tests do.
 
+JAX jits the step; on a card the one-device step replays a CUDA graph
+per key (:class:`~fire_tpu_torch.runtime.graphs.GraphedStep`), captured
+at the key's first call: the batch is copied into the graph's static
+inputs, the state is updated in place by the replay, and the loss comes
+back as a clone of the graph's output.  On the CPU the step runs
+eagerly, and the eager step is the graph's plain version.
+
 With a mesh of more than one device the step is JAX's dp×mp-sharded
 one (:func:`state_shardings`), driven by this one process as JAX's
 single controller drives its mesh:
@@ -35,7 +42,8 @@ single controller drives its mesh:
   its own device.
 
 It computes the one-device step's arithmetic, the order of the sums
-aside.
+aside.  It runs eagerly: a CUDA graph is captured on one device's
+stream, and this step spans several.
 
 Checkpoints are the port's own: ``<dir>/step_<N>/state.msgpack``, the
 whole state through :func:`fire_tpu_torch.weights.msgpack_serialize`,
@@ -59,6 +67,7 @@ from fire_tpu_torch.models.layers import BatchNorm
 from fire_tpu_torch.parallel.mesh import (Mesh, broadcast, canonical_device, column_devices,
                                           split_columns, sum_to)
 from fire_tpu_torch.parallel.shards import ShardList
+from fire_tpu_torch.runtime.graphs import GraphedStep
 from fire_tpu_torch.train.losses import arcface_logits, column_sharded_cross_entropy
 from fire_tpu_torch.train.optim import GradientTransformation, apply_updates
 from fire_tpu_torch.weights import (flax_shapes, load_flax, materialize, msgpack_serialize,
@@ -105,10 +114,13 @@ def cli_compute_dtype(device: torch.device) -> Optional[torch.dtype]:
 
 
 def compute_context(device: torch.device, compute_dtype: Optional[torch.dtype]):
-    """``torch.autocast`` to ``compute_dtype`` (None or float32: none)."""
+    """``torch.autocast`` to ``compute_dtype`` (None or float32: none).
+    Inside a CUDA graph capture its cache of cast weights is off: a
+    cached cast would be captured once and replayed stale."""
     if compute_dtype in (None, torch.float32):
         return contextlib.nullcontext()
-    return torch.autocast(device.type, dtype=compute_dtype)
+    capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    return torch.autocast(device.type, dtype=compute_dtype, cache_enabled=not capturing)
 
 
 def init_state(model: torch.nn.Module, seed: int, num_classes: int,
@@ -164,7 +176,7 @@ def state_shardings(mesh: Mesh, state: TrainState) -> TrainState:
     model's parameters and statistics replicated (on the mesh's first
     device, in the model), the classifier's columns over ``mp``, and so
     the classifier's Adam moments; the step replicated.  The optimizer's
-    counts, host ints, are left as they are."""
+    counts stay where they are, on the mesh's first device."""
     first = canonical_device(mesh.devices.flat[0])
     rep = Sharding((first,))
     cols = Sharding(tuple(canonical_device(d) for d in column_devices(mesh)), 1)
@@ -267,21 +279,27 @@ def make_train_step(model: torch.nn.Module, optimizer: GradientTransformation,
                     compute_dtype: Optional[torch.dtype] = None):
     """``step(state, images (B,H,W,3) [0,1], labels (B,)) → (state,
     loss)``: one ArcFace step, the optimizer's target the tuple (params,
-    classifier) as in JAX.  With a ``mesh`` of more than one device the
-    step is the dp×mp-sharded one (:func:`sharded_arcface_loss`; the
-    model on the mesh's first device, B divisible by ``dp``); it lays
+    classifier) as in JAX.  The batch is tensors or numpy arrays.
+
+    Without a mesh, or with a mesh of one device, the step is a
+    :class:`~fire_tpu_torch.runtime.graphs.GraphedStep`: on a card it
+    replays the CUDA graph of its key,
+    the batch's shapes and dtypes and the state's tensors (the step count
+    a host int, incremented without a device read; ``release_graphs()``
+    drops the graphs).  With a ``mesh`` of more than one device the step
+    is the dp×mp-sharded one (:func:`sharded_arcface_loss`; the model on
+    the mesh's first device, B divisible by ``dp``), run eagerly; it lays
     out an unsharded state first (:func:`shard_state`)."""
     if _sharded_mesh(mesh):
         return _make_sharded_step(model, optimizer, mesh, margin, scale, compute_dtype)
 
-    def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
+    def body(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         loss = arcface_loss(model, state.classifier, images, labels, margin, scale,
                             compute_dtype)
-        opt_state = optimizer_step(optimizer, state.params + [state.classifier],
-                                   state.opt_state, loss)
-        return state._replace(opt_state=opt_state, step=state.step + 1), loss.detach()
+        optimizer_step(optimizer, state.params + [state.classifier], state.opt_state, loss)
+        return (loss.detach(),)
 
-    return step
+    return GraphedStep(body, lambda state, out: (state._replace(step=state.step + 1), out[0]))
 
 
 def _make_sharded_step(model, optimizer, mesh, margin, scale, compute_dtype):
@@ -308,7 +326,8 @@ def _make_sharded_step(model, optimizer, mesh, margin, scale, compute_dtype):
 def optimizer_step(optimizer: GradientTransformation, target: List[torch.Tensor],
                    opt_state: Any, loss: torch.Tensor) -> Any:
     """Differentiate ``loss`` by ``target``, update ``target`` in place
-    with ``optimizer`` and return its new state."""
+    with ``optimizer`` and return its new state (``opt_state``'s tensors,
+    updated in place)."""
     grads = torch.autograd.grad(loss, target)
     with torch.no_grad():
         updates, opt_state = optimizer.update(list(grads), opt_state, target)
@@ -322,8 +341,8 @@ def optimizer_step(optimizer: GradientTransformation, target: List[torch.Tensor]
 def state_tree(x: Any) -> Any:
     """A state (tensors, ints, lists, tuples, NamedTuples) as msgpack-able
     numpy trees: NamedTuples become dicts of their fields."""
-    if isinstance(x, torch.Tensor):
-        return np.ascontiguousarray(x.detach().cpu().numpy())
+    if isinstance(x, torch.Tensor):  # 0-d stays 0-d (np.ascontiguousarray would give 1-d)
+        return x.detach().cpu().contiguous().numpy()
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return {f: state_tree(v) for f, v in zip(x._fields, x)}
     if isinstance(x, (list, tuple)):
@@ -335,7 +354,9 @@ def state_tree(x: Any) -> Any:
 
 def restore_tree(target: Any, tree: Any) -> Any:
     """The inverse of :func:`state_tree` into ``target``'s structure:
-    tensors are overwritten in place (shapes must agree), ints replaced."""
+    tensors are overwritten in place (shapes must agree), ints replaced.
+    An optimizer count saved as an int (before counts were tensors) goes
+    into the count tensor, in place."""
     if isinstance(target, torch.Tensor):
         arr = np.asarray(tree)
         if tuple(arr.shape) != tuple(target.shape):

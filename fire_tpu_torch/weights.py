@@ -456,7 +456,9 @@ def carry_state(module: torch.nn.Module, variables: Dict[str, Any], opt_state: A
     optax NamedTuple becomes the port's of the same name; its ``mu`` and
     ``nu`` trees, shaped as the optimizer's target (the params tree, or
     ``(params, classifier, …)``), become the port's tensor lists
-    (:func:`params_list`, then the extra arrays); counts become ints.
+    (:func:`params_list`, then the extra arrays); each count becomes what
+    optax's is, a 0-d int32 tensor, on the module's device (a sharded
+    state's first device).
 
     With a ``mesh`` (of the sharded ArcFace step) the extra arrays, the
     classifier's moments as global arrays, are split over ``mp`` into
@@ -482,7 +484,8 @@ def carry_state(module: torch.nn.Module, variables: Dict[str, Any], opt_state: A
     def carry(x):
         if isinstance(x, tuple) and hasattr(x, "_fields"):
             fields = {f: (target_list(v) if f in ("mu", "nu") else
-                          int(v) if f == "count" else carry(v))
+                          torch.tensor(int(v), dtype=torch.int32, device=dev) if f == "count"
+                          else carry(v))
                       for f, v in zip(x._fields, x)}
             return getattr(optim, type(x).__name__)(**fields)
         if isinstance(x, tuple):
