@@ -1260,8 +1260,9 @@ def phase_trace(ctx) -> None:
     """One more batch of the batched path, then 16 frames of the
     per-frame path, under ``torch.profiler``, with YuNet and with
     RetinaFace; then one full-width ArcFace step on one device, eager
-    and then replaying its graph (captured before the trace), and on the
-    (2, 2) mesh of ``train_sharded``.  The profiler leaves
+    and then replaying its graph (captured before the trace), and the
+    same two on the (2, 2) mesh of ``train_sharded`` (its graph captured
+    there).  The profiler leaves
     launches slower for the rest of the process, so this phase comes
     after every phase that reports a time."""
 
@@ -1290,8 +1291,16 @@ def phase_trace(ctx) -> None:
     state = trace_train_step(step, state, images, labels, "arcface train step, graph",
                              max_launch_calls=10)
     step.release_graphs()
-    step, state, images, labels = ctx.pop("arcface_sharded")
-    trace_train_step(step, state, images, labels, "arcface train step, (2, 2) mesh")
+    step, state, images, labels = ctx.pop("arcface_sharded")  # its graph captured there
+    captured = len(step.graphs) == 1  # none over distinct cards: the state spans several
+    step._graphed = lambda device: False
+    state = trace_train_step(step, state, images, labels, "arcface train step, (2, 2) mesh, eager")
+    del step._graphed
+    if captured:
+        state = trace_train_step(step, state, images, labels,
+                                 "arcface train step, (2, 2) mesh, graph", max_launch_calls=10)
+        check(len(step.graphs) == 1, f"trace: the sharded step captured again ({len(step.graphs)})")
+    step.release_graphs()
 
 
 def trace_train_step(step, state, images, labels, path: str, max_launch_calls=None):
@@ -1301,11 +1310,11 @@ def trace_train_step(step, state, images, labels, path: str, max_launch_calls=No
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    _sync_all()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, loss = step(state, images, labels)
-        torch.cuda.synchronize()
+        _sync_all()
         wall_ms = (time.perf_counter() - t0) * 1e3
     summary = device_summary(prof, wall_ms)
     calls = sum(summary["host_launch_calls"].values())
@@ -2839,11 +2848,24 @@ MEMO_WARMUP = 5  # of them, untimed (first-use allocations, cuDNN's choices, the
 
 
 def step_graphs(step) -> dict:
-    """A one-device training step's CUDA graphs (``GraphedStep.graphs``):
-    keys, capture seconds and what each capture added to the pool."""
+    """A training step's CUDA graphs (``GraphedStep.graphs``): keys,
+    capture seconds and what the captures added to the pools, in all
+    and by device."""
     calls = [g for _, g in step.graphs]
+    by_device = {}
+    for g in calls:
+        by_device[str(g.device)] = by_device.get(str(g.device), 0) + g.pool_bytes / 1e9
     return {"keys": len(calls), "capture_s": [g.capture_s for g in calls],
-            "pool_gb": sum(g.pool_bytes for g in calls) / 1e9}
+            "pool_gb": sum(g.pool_bytes for g in calls) / 1e9, "pool_gb_by_device": by_device}
+
+
+def _sync_all() -> None:
+    """Wait for every card of the machine: a sharded step's blocks and
+    updates live on each card of its mesh."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def memorise(step, state, args, batch: int, macs: int, base_bytes: int) -> tuple:
@@ -2857,16 +2879,16 @@ def memorise(step, state, args, batch: int, macs: int, base_bytes: int) -> tuple
 
     from fire_tpu_torch.bench.common import BF16_FLOP_PER_S
 
-    torch.cuda.synchronize()
+    _sync_all()
     torch.cuda.reset_peak_memory_stats()
     losses = []
     for i in range(MEMO_STEPS):
         if i == MEMO_WARMUP:
-            torch.cuda.synchronize()
+            _sync_all()
             t0 = time.perf_counter()
         state, loss, *_ = step(state, *args)
         losses.append(loss)
-    torch.cuda.synchronize()
+    _sync_all()
     ms = (time.perf_counter() - t0) * 1e3 / (MEMO_STEPS - MEMO_WARMUP)
     losses = [float(v) for v in losses]
     check(all(math.isfinite(v) for v in losses), f"memorise: non-finite losses {losses}")
@@ -3039,13 +3061,63 @@ def _sharded_parity(mesh) -> dict:
     return rec
 
 
+def _eager_twice(build) -> dict:
+    """Over distinct cards, where the sharded step stays eager: two eager
+    runs of ``TRAIN_GRAPH_STEPS`` float32 steps from one state, and the
+    loss and state tensors in which they differ after each step.  The
+    autograd engine runs each card's backward on its own thread, so a
+    tensor whose gradient gathers three or more terms from several cards
+    adds them in the order they arrive."""
+    import torch
+
+    runs = []
+    for _ in range(2):
+        step, state, args = build(None)
+        after = []
+        for i in range(TRAIN_GRAPH_STEPS):
+            state, loss = step(state, *args(i))
+            _sync_all()
+            after.append([loss.clone()] + [t.detach().clone() for t in _state_tensors(state)])
+        check(not step.graphs, "train_sharded: distinct cards captured a graph")
+        runs.append(after)
+        del step, state
+        gc.collect()
+    differ = [sum(not torch.equal(a, b) for a, b in zip(x, y)) for x, y in zip(*runs)]
+    return {"steps": TRAIN_GRAPH_STEPS, "tensors": len(runs[0][0]),
+            "tensors_differing_by_step": differ, "bitwise_equal": not any(differ)}
+
+
+def _eager_ms(step, state, args, timed: int) -> tuple:
+    """ms a step of a graphed training step run eagerly on ``state``
+    (``_graphed`` off on the instance): one untimed step, then ``timed``
+    by the host clock around steps synchronised on every card.  Returns
+    the state and the record."""
+    import torch
+
+    step._graphed = lambda device: False
+    try:
+        times = []
+        for i in range(1 + timed):
+            _sync_all()
+            t0 = time.perf_counter()
+            state, loss = step(state, *args)
+            _sync_all()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        del step._graphed
+    check(bool(torch.isfinite(loss)), f"train_sharded: eager loss {float(loss)}")
+    return state, {"ms_per_step": median(times), "ms_steps": times}
+
+
 def _big_classifier_steps(mesh, images, labels) -> dict:
-    """(c): the one-device and the sharded step at ``BIG_CLASSES``
-    identities, bf16 with AdamW: ms a step (median of ``BIG_TIMED``
-    after two untimed), each device's peak memory above what it held
-    before, and each ``mp`` block of the sharded state: its columns, its
-    bytes and its moments' bytes, on its own device."""
-    import numpy as np
+    """(d): the one-device and the sharded step at ``BIG_CLASSES``
+    identities, bf16 with AdamW, each replaying its graph: ms a step
+    (median of ``BIG_TIMED`` after two untimed, the capture among them),
+    the graphs' capture seconds and pool by device, each device's peak
+    memory above what it held before, and each ``mp`` block of the
+    sharded state: its columns, its bytes and its moments' bytes, on its
+    own device; then the sharded step run eagerly on the same state."""
     import torch
 
     from fire_tpu_torch.models.facenet import facenet_512
@@ -3063,21 +3135,21 @@ def _big_classifier_steps(mesh, images, labels) -> dict:
         step = make_train_step(model, opt, mesh=m, compute_dtype=torch.bfloat16)
         times, losses = [], []
         for i in range(2 + BIG_TIMED):
-            torch.cuda.synchronize()
+            _sync_all()
             t0 = time.perf_counter()
             state, loss = step(state, images, labels)
-            for d in devices:
-                torch.cuda.synchronize(d)
+            _sync_all()
             if i >= 2:
                 times.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss.item())
         check(all(math.isfinite(v) for v in losses), f"train_sharded: {name} losses {losses}")
         rec = {"ms_per_step": median(times), "ms_steps": times, "loss_first": losses[0],
-               "loss_last": losses[-1], "peak_mem_gb": _peaks_gb(base)}
-        if m is None:  # the one-device step replays its CUDA graph
-            rec["graphs"] = step_graphs(step)
-            step.release_graphs()
-        else:
+               "loss_last": losses[-1], "peak_mem_gb": _peaks_gb(base),
+               "graphs": step_graphs(step)}
+        captured = m is None or len(devices) == 1
+        check(rec["graphs"]["keys"] == int(captured),
+              f"train_sharded: {name} graphs {rec['graphs']}")
+        if m is not None:
             n = len(state.params)
             adam = state.opt_state[0]
             blocks = []
@@ -3092,6 +3164,10 @@ def _big_classifier_steps(mesh, images, labels) -> dict:
             check(sum(r["columns"] for r in blocks) == BIG_CLASSES,
                   f"train_sharded: the blocks hold {[r['columns'] for r in blocks]} columns")
             rec["blocks"] = blocks
+            if captured:
+                state, rec["eager"] = _eager_ms(step, state, (images, labels), BIG_TIMED)
+                rec["graph_over_eager"] = rec["ms_per_step"] / rec["eager"]["ms_per_step"]
+        step.release_graphs()
         out[name] = rec
         del model, state, step
         torch.cuda.empty_cache()
@@ -3100,9 +3176,13 @@ def _big_classifier_steps(mesh, images, labels) -> dict:
 
 def phase_train_sharded(ctx) -> None:
     """The dp×mp-sharded ArcFace step at full width (FaceNet-512, B = 64,
-    160²) on a (2, 2) mesh: (a) parity with the one-device step, (b) a
-    bf16 AdamW memorisation beside ``train_encoder``'s, (c) C = 100,000
-    identities.  K1's launches over the phase (training has no gallery)."""
+    160²) on a (2, 2) mesh, four distinct cards where there are four,
+    else this card repeated: (a) parity with the one-device step, (b) its
+    graph against its eager step, bitwise over 5 float32 steps with TF32
+    off and cuDNN deterministic, (c) a bf16 AdamW memorisation through
+    the graph beside ``train_encoder``'s, then the eager step's ms on the
+    same state, (d) C = 100,000 identities, graphed and eager.  K1's
+    launches over the phase (training has no gallery)."""
     import numpy as np
     import torch
 
@@ -3119,6 +3199,15 @@ def phase_train_sharded(ctx) -> None:
     parity = _sharded_parity(mesh)
     t_parity = time.perf_counter() - t0
 
+    captured = len(devices) == 1  # distinct cards keep the eager step (make_train_step)
+    t0 = time.perf_counter()
+    with _exact_float32():
+        build = _arcface_build(mesh)
+        exact = _graph_vs_eager_bitwise(build) if captured else _eager_twice(build)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_exact = time.perf_counter() - t0
+
     _, _, images, labels = ctx["arcface"]
     classes = int(labels.max().item()) + 1
     base = _reset_peaks(devices)
@@ -3130,6 +3219,12 @@ def phase_train_sharded(ctx) -> None:
     state, memo = memorise(step, state, (images, labels), BATCH, forward_macs(model, images),
                            base[str(mesh.devices[0, 0])])
     memo["peak_mem_gb_by_device"] = _peaks_gb(base)
+    memo["graphs"] = step_graphs(step)
+    check(memo["graphs"]["keys"] == int(captured),
+          f"train_sharded: the step's graphs {memo['graphs']}")
+    if captured:
+        state, memo["eager"] = _eager_ms(step, state, (images, labels), 5)
+        memo["graph_over_eager"] = memo["ms_per_step"] / memo["eager"]["ms_per_step"]
     t_memo = time.perf_counter() - t0
     ctx["arcface_sharded"] = (step, state, images, labels)  # traced by the trace phase
     del model, state, step
@@ -3142,14 +3237,18 @@ def phase_train_sharded(ctx) -> None:
     ctx["k1_launches_train_sharded"] = k1.launches
     one = ctx["arcface_memo"]
     emit({"phase": "train_sharded", "card": ctx["smi"], "mesh": mesh.shape,
+          "cards": "one card repeated" if captured else "distinct",
+          "step": "CUDA graph" if captured else "eager (distinct cards)",
           "devices": [str(d) for d in mesh.devices.reshape(-1)],
           "model": "facenet-512 (5/10/5, stem 32)", "hw": [160, 160], "batch": BATCH,
           "parity": parity,
+          "graph_vs_eager_float32" if captured else "eager_twice_float32": exact,
           "memorise": {"sharded": memo, "one_device": one, "classes": classes,
                        "compute": "bf16, float32 masters, adamw(1e-3)",
                        "ms_ratio": memo["ms_per_step"] / one["ms_per_step"]},
           "classes_100k": big, "k1_launches": k1.launches,
-          "seconds": {"parity": t_parity, "memorise": t_memo, "classes_100k": t_big}})
+          "seconds": {"parity": t_parity, "graph_vs_eager": t_exact, "memorise": t_memo,
+                      "classes_100k": t_big}})
     check(memo["loss_last"] < 0.5 * memo["loss_first"],
           f"train_sharded: the loss went {memo['loss_first']:.3f} → {memo['loss_last']:.3f}")
 
@@ -3478,9 +3577,10 @@ def _train_builds():
             before = [t.detach().clone() for t in writes or ()]
             t0 = time.perf_counter()
             super().__init__(fn, inputs, pool, state, writes)
-            torch.cuda.synchronize()
+            _sync_all()
             builds.append({"build_s": time.perf_counter() - t0, "capture_s": self.capture_s,
                            "pool_gb": self.pool_bytes / 1e9,
+                           "device": str(self.device),
                            "kept_state": all(torch.equal(a, b)
                                              for a, b in zip(before, writes or ()))})
 
@@ -3502,27 +3602,11 @@ def _full_width_trainers() -> dict:
     import torch
 
     from fire_tpu_torch.models.blazeface import BlazeFace
-    from fire_tpu_torch.models.facenet import facenet_512
     from fire_tpu_torch.models.retinaface import RetinaFace
     from fire_tpu_torch.models.yunet import YuNet
     from fire_tpu_torch.train import detect, detect_blaze, detect_retina, optim
-    from fire_tpu_torch.train.trainer import (JAX_INIT_SEED, init_state, make_train_step,
-                                              model_batch_stats)
+    from fire_tpu_torch.train.trainer import model_batch_stats
     from fire_tpu_torch.weights import flax_shapes, load_flax, materialize
-
-    rng = np.random.default_rng(41)
-    faces = rng.random((BATCH, 160, 160, 3)).astype(np.float32)
-    perms = [rng.permutation(BATCH) for _ in range(TRAIN_GRAPH_STEPS)]
-
-    def arcface(dtype):
-        model = facenet_512().cuda()
-        opt = optim.adamw(1e-3)
-        state = init_state(model, JAX_INIT_SEED, 32, opt)
-        images = torch.tensor(faces, device="cuda")
-        labels = torch.tensor(np.arange(BATCH) % 32, dtype=torch.int32, device="cuda")
-        batches = [(images[p], labels[p]) for p in perms]
-        return (make_train_step(model, opt, compute_dtype=dtype), state,
-                lambda i: batches[i % TRAIN_GRAPH_STEPS])
 
     def detector(model_fn, make_step, scene_hw, batch, max_faces, face_px, lr, with_stats):
         host = []
@@ -3547,7 +3631,7 @@ def _full_width_trainers() -> dict:
         return build
 
     return {
-        "arcface": arcface,
+        "arcface": _arcface_build(),
         "yunet": detector(YuNet, lambda m, o, d: detect.make_pool_train_step(
             m, o, (320, 320), compute_dtype=d), (320, 320), 32, 3, (24, 192), 2e-3, True),
         "blazeface": detector(BlazeFace, lambda m, o, d: detect_blaze.make_blaze_pool_train_step(
@@ -3555,6 +3639,53 @@ def _full_width_trainers() -> dict:
         "retinaface": detector(RetinaFace, lambda m, o, d: detect_retina.make_retina_pool_train_step(
             m, o, (512, 512), compute_dtype=d), (480, 640), 8, 3, (40, 360), 1e-3, True),
     }
+
+
+def _arcface_build(mesh=None):
+    """``build(compute_dtype)`` of the ArcFace step at full width
+    (FaceNet-512, B = 64, 160², C = 32): a fresh ``(step, state,
+    args_of)`` on one card, or on ``mesh`` (the model on its first
+    device, the state laid out on it), the same state at every call."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch.models.facenet import facenet_512
+    from fire_tpu_torch.train import optim
+    from fire_tpu_torch.train.trainer import JAX_INIT_SEED, init_state, make_train_step
+
+    home = "cuda" if mesh is None else mesh.devices[0, 0]
+    rng = np.random.default_rng(41)
+    faces = rng.random((BATCH, 160, 160, 3)).astype(np.float32)
+    perms = [rng.permutation(BATCH) for _ in range(TRAIN_GRAPH_STEPS)]
+
+    def build(dtype):
+        model = facenet_512().to(home)
+        opt = optim.adamw(1e-3)
+        state = init_state(model, JAX_INIT_SEED, 32, opt, mesh=mesh)
+        images = torch.tensor(faces, device=home)
+        labels = torch.tensor(np.arange(BATCH) % 32, dtype=torch.int32, device=home)
+        batches = [(images[p], labels[p]) for p in perms]
+        return (make_train_step(model, opt, mesh=mesh, compute_dtype=dtype), state,
+                lambda i: batches[i % TRAIN_GRAPH_STEPS])
+
+    return build
+
+
+@contextlib.contextmanager
+def _exact_float32():
+    """float32 kept float32 (TF32 off) and cuDNN deterministic, as the
+    card tests compare a graph with its eager step."""
+    import torch
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
 
 
 def _state_tensors(state) -> list:
@@ -3578,10 +3709,10 @@ def _graph_vs_eager_bitwise(build) -> dict:
     def run(step, state, args, side):
         after = []
         for i in range(TRAIN_GRAPH_STEPS):
-            torch.cuda.synchronize()
+            _sync_all()
             t0 = time.perf_counter()
             state, loss, *_ = step(state, *args(i))
-            torch.cuda.synchronize()
+            _sync_all()
             ms[side].append((time.perf_counter() - t0) * 1e3)
             after.append([loss.clone()] + [t.detach().clone() for t in _state_tensors(state)])
         return state, after
@@ -3636,10 +3767,10 @@ def _timed_sides(build) -> dict:
                 del step._graphed
             times = []
             for i in range(3 + TRAIN_TIMED):
-                torch.cuda.synchronize()
+                _sync_all()
                 t0 = time.perf_counter()
                 state, loss, *_ = step(state, *args(i))
-                torch.cuda.synchronize()
+                _sync_all()
                 if i >= 3:
                     times.append((time.perf_counter() - t0) * 1e3)
             check(bool(torch.isfinite(loss)), f"train graph: {side} bf16 loss {float(loss)}")
@@ -3661,18 +3792,11 @@ def phase_train_graph(ctx) -> None:
     graph is released at the end of its check."""
     import torch
 
-    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     rec = {"phase": "train_graph", "check": "train graph vs eager", "card": ctx["smi"]}
     for name, build in _full_width_trainers().items():
         t0 = time.perf_counter()
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-        try:
+        with _exact_float32():
             exact = _graph_vs_eager_bitwise(build)
-        finally:
-            (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
         gc.collect()
         torch.cuda.empty_cache()
         rec[name] = {"float32_bitwise": exact, "bf16": _timed_sides(build),

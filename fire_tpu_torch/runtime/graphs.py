@@ -286,7 +286,11 @@ class GraphedStep:
     fields advanced, and the outputs as the trainer hands them out).
     The first ``bound`` arguments are device tensors the step reads as
     they are (a trainer's scene pool); the rest, arrays or trees of
-    arrays (numpy or tensors), are the batch.
+    arrays (numpy or tensors), are the batch.  ``prepare(state)``, when
+    given, runs first, outside any graph, and its result is the state
+    the step runs on and returns (the sharded ArcFace step lays out an
+    unsharded state on its mesh there, and refuses one laid out for
+    another mesh).
 
     On a CUDA device each key replays a graph, :class:`CapturedCall`'s
     training form captured at the key's first call.  The key is what
@@ -295,16 +299,20 @@ class GraphedStep:
     and the state's tensors, by identity (a step handed another pool or
     another state gets a key of its own, and never writes a caller's
     tensor).  The static configuration (model, optimizer, compute
-    dtype) is the body's own.  A call copies the batch into the static
-    inputs of its key, a host array through :class:`HostStaging`'s
-    pinned buffers, replays, and returns clones of the graph's outputs
-    (the next replay overwrites them).  Every key is kept until
-    :meth:`release_graphs`.  On another device ``body`` runs eagerly: the
-    eager step is the graph's plain version, and ``_graphed`` set off on
-    an instance runs it on a card."""
+    dtype, mesh) is the body's own.  A state whose tensors lie on more
+    than one device (the sharded step over distinct cards) runs eagerly:
+    the choice is read from where the state lies, never from a failed
+    capture.  A call copies the batch into the static inputs of its key,
+    a host array through :class:`HostStaging`'s pinned buffers,
+    replays, and returns clones of the graph's outputs (the next replay
+    overwrites them).  Every key is kept until :meth:`release_graphs`.
+    On another device ``body`` runs eagerly: the eager step is the
+    graph's plain version, and ``_graphed`` set off on an instance runs
+    it on a card."""
 
-    def __init__(self, body: Callable, finish: Callable, bound: int = 0):
-        self.body, self.finish, self.bound = body, finish, bound
+    def __init__(self, body: Callable, finish: Callable, bound: int = 0,
+                 prepare: Optional[Callable] = None):
+        self.body, self.finish, self.bound, self.prepare = body, finish, bound, prepare
         self.graphs = GraphCache(limit=None)
         self._staging = HostStaging()
 
@@ -319,6 +327,8 @@ class GraphedStep:
         self._staging = HostStaging()
 
     def __call__(self, state, *args):
+        if self.prepare is not None:
+            state = self.prepare(state)
         return self.finish(state, self._outputs(state, *args))
 
     def _outputs(self, state, *args) -> Tuple[torch.Tensor, ...]:
@@ -328,7 +338,7 @@ class GraphedStep:
         leaves, spec = tree_flatten(args[self.bound:])
         leaves = [torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray)
                   else torch.as_tensor(a) for a in leaves]
-        if not self._graphed(dev):
+        if not self._graphed(dev) or any(t.device != dev for t in writes):
             batch = [self._staging.upload(a, dev, slot=i) for i, a in enumerate(leaves)]
             return self.body(state, *bound, *tree_unflatten(batch, spec))
         for t in bound:

@@ -42,8 +42,30 @@ single controller drives its mesh:
   its own device.
 
 It computes the one-device step's arithmetic, the order of the sums
-aside.  It runs eagerly: a CUDA graph is captured on one device's
-stream, and this step spans several.
+aside.  JAX jits it as one program (``in_shardings`` over the mesh);
+the port runs it as a :class:`~fire_tpu_torch.runtime.graphs.GraphedStep`
+too.  An unsharded state is laid out on the mesh first
+(:func:`shard_state`, outside any graph; the same unsharded state
+passed again is laid out into the same tensors, and a state laid out
+for another mesh raises), then the key is taken: the batch's shapes and
+dtypes and the laid-out state's tensors by identity.
+
+* On a mesh that repeats one card (``["cuda:0"] * 4``: every tensor on
+  one device) the key's graph holds the whole step: every shard's
+  forward, the BatchNorms' sums over the shards, the column-sharded
+  softmax, the backward and the AdamW update, replayed with no host
+  read.
+* Over distinct cards the step runs eagerly, by design: the state's
+  tensors lie on several devices, and ``GraphedStep`` reads that from
+  the state, never from a failed capture.  A graph of this step cannot
+  be shown bitwise equal to its eager step there: the autograd engine
+  runs each card's backward on its own thread and sums a gradient's
+  terms from several cards in the order they arrive, so two eager runs
+  from one state already differ after the first update (on four H100s;
+  ``ROADMAP.md`` lists this as an open fault).
+
+On the CPU the step runs eagerly, and the eager step is the graph's
+plain version.
 
 Checkpoints are the port's own: ``<dir>/step_<N>/state.msgpack``, the
 whole state through :func:`fire_tpu_torch.weights.msgpack_serialize`,
@@ -57,11 +79,13 @@ from __future__ import annotations
 
 import contextlib
 import os
+import weakref
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_leaves
 
 from fire_tpu_torch.models.layers import BatchNorm
 from fire_tpu_torch.parallel.mesh import (Mesh, broadcast, canonical_device, column_devices,
@@ -281,15 +305,16 @@ def make_train_step(model: torch.nn.Module, optimizer: GradientTransformation,
     loss)``: one ArcFace step, the optimizer's target the tuple (params,
     classifier) as in JAX.  The batch is tensors or numpy arrays.
 
-    Without a mesh, or with a mesh of one device, the step is a
-    :class:`~fire_tpu_torch.runtime.graphs.GraphedStep`: on a card it
-    replays the CUDA graph of its key,
-    the batch's shapes and dtypes and the state's tensors (the step count
-    a host int, incremented without a device read; ``release_graphs()``
-    drops the graphs).  With a ``mesh`` of more than one device the step
-    is the dp×mp-sharded one (:func:`sharded_arcface_loss`; the model on
-    the mesh's first device, B divisible by ``dp``), run eagerly; it lays
-    out an unsharded state first (:func:`shard_state`)."""
+    The step is a :class:`~fire_tpu_torch.runtime.graphs.GraphedStep`:
+    on a card it replays the CUDA graph of its key, the batch's shapes
+    and dtypes and the state's tensors (the step count a host int,
+    incremented without a device read; ``release_graphs()`` drops the
+    graphs).  With a ``mesh`` of more than one position the step is the
+    dp×mp-sharded one (:func:`sharded_arcface_loss`; the model on the
+    mesh's first device, B divisible by ``dp``): it lays out an
+    unsharded state first (:func:`shard_state`); it replays a graph on a
+    mesh that repeats one card and runs eagerly over distinct cards (see
+    the module's docstring)."""
     if _sharded_mesh(mesh):
         return _make_sharded_step(model, optimizer, mesh, margin, scale, compute_dtype)
 
@@ -299,7 +324,12 @@ def make_train_step(model: torch.nn.Module, optimizer: GradientTransformation,
         optimizer_step(optimizer, state.params + [state.classifier], state.opt_state, loss)
         return (loss.detach(),)
 
-    return GraphedStep(body, lambda state, out: (state._replace(step=state.step + 1), out[0]))
+    return GraphedStep(body, _advance)
+
+
+def _advance(state: TrainState, out: Tuple[torch.Tensor, ...]):
+    """The state after a step (its host count advanced) and the step's loss."""
+    return state._replace(step=state.step + 1), out[0]
 
 
 def _make_sharded_step(model, optimizer, mesh, margin, scale, compute_dtype):
@@ -309,18 +339,39 @@ def _make_sharded_step(model, optimizer, mesh, margin, scale, compute_dtype):
                          f"step keeps it on the mesh's first device, {home}")
     blocks = [canonical_device(d) for d in column_devices(mesh)]
 
-    def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
+    last = []  # the last unsharded state laid out: weak references to its tensors, its layout
+
+    def lay_out(state: TrainState) -> TrainState:
         if not is_sharded(state):
-            state = shard_state(mesh, state)
+            tensors = _tensors(state)
+            fresh = shard_state(mesh, state)
+            if last and len(last[0]) == len(tensors) and all(
+                    r() is t for r, t in zip(last[0], tensors)):
+                # the same state again: into the same tensors, so the step keeps its key
+                kept = last[1]
+                with torch.no_grad():
+                    for dst, src in zip(_tensors(kept), _tensors(fresh)):
+                        if dst is not src:
+                            dst.copy_(src)
+                fresh = kept._replace(step=state.step)
+            else:
+                last[:] = [weakref.ref(t) for t in tensors], fresh
+            state = fresh
         if [b.device for b in state.classifier] != blocks[:len(state.classifier)]:
             raise ValueError("the state's classifier blocks are laid out for another mesh")
+        return state
+
+    def body(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         loss = sharded_arcface_loss(model, state.classifier, images, labels, mesh, margin,
                                     scale, compute_dtype)
-        opt_state = optimizer_step(optimizer, state.params + list(state.classifier),
-                                   state.opt_state, loss)
-        return state._replace(opt_state=opt_state, step=state.step + 1), loss.detach()
+        optimizer_step(optimizer, state.params + list(state.classifier), state.opt_state, loss)
+        return (loss.detach(),)
 
-    return step
+    return GraphedStep(body, _advance, prepare=lay_out)
+
+
+def _tensors(state: TrainState) -> List[torch.Tensor]:
+    return [t for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
 
 
 def optimizer_step(optimizer: GradientTransformation, target: List[torch.Tensor],

@@ -1,6 +1,7 @@
-"""The one-device training steps' CUDA graphs on the card
-(``runtime/graphs.py`` ``GraphedStep``) against their plain version, the
-same step run eagerly.
+"""The training steps' CUDA graphs on the card (``runtime/graphs.py``
+``GraphedStep``) against their plain version, the same step run
+eagerly: the one-device steps, and the dp×mp-sharded ArcFace step on a
+(2, 2) mesh of the card repeated.
 
 Needs an NVIDIA card, and skips without one.  This file imports no JAX,
 so it runs on the machine with the card, where tests/conftest.py (which
@@ -19,9 +20,12 @@ bitwise as it was, and the caller's tensors are read, never written.
 Each trainer's own loop (``train_loop`` of the ArcFace command line,
 ``train_on_pool`` of the detector command lines) makes no synchronising
 call after its first step, refreshes of the pool included, under
-``torch.cuda.set_sync_debug_mode("error")``.  A capture that fails
-raises, nothing runs eagerly in its place, and the next capture into
-the device's pool works.
+``torch.cuda.set_sync_debug_mode("error")``, the sharded ``train_loop``
+too.  A capture that fails raises, nothing runs eagerly in its place,
+and the next capture into the device's pool works, a sharded one's
+too.  The sharded step is held to the same bitwise comparison (C = 7
+over two column blocks); with two cards or more, a sharded step over
+distinct cards captures nothing and trains eagerly.
 """
 
 import contextlib
@@ -37,7 +41,9 @@ from fire_tpu_torch.models.blazeface import BlazeFace
 from fire_tpu_torch.models.facenet import tiny_facenet
 from fire_tpu_torch.models.retinaface import RetinaFace
 from fire_tpu_torch.models.yunet import YuNet
+from fire_tpu_torch.parallel.mesh import make_mesh
 from fire_tpu_torch.runtime import graphs
+from fire_tpu_torch.train import trainer
 from fire_tpu_torch.train import __main__ as arcface_cli
 from fire_tpu_torch.train import detect, detect_blaze, detect_retina, optim
 from fire_tpu_torch.train.scenes import compose_scene, make_identities
@@ -171,10 +177,19 @@ def test_arcface_loop_synchronises_only_to_log(exact_cuda):
     """``train_loop`` as the command line runs it, on host batches: after
     the first step (the capture), a non-logging step makes no
     synchronising call; a logging step reads the loss."""
-    model = tiny_facenet(32).to(exact_cuda)
+    _arcface_loop(exact_cuda, None)
+
+
+def test_sharded_arcface_loop_synchronises_only_to_log(exact_cuda):
+    """The same with the command line's (2, 2) mesh, the card repeated."""
+    _arcface_loop(exact_cuda, make_mesh((2, 2), devices=[exact_cuda] * 4))
+
+
+def _arcface_loop(dev, mesh):
+    model = tiny_facenet(32).to(dev)
     opt = optim.adamw(1e-3)
-    state = init_state(model, JAX_INIT_SEED, 8, opt)
-    step = make_train_step(model, opt)
+    state = init_state(model, JAX_INIT_SEED, 8, opt, mesh=mesh)
+    step = make_train_step(model, opt, mesh=mesh)
     rng = np.random.default_rng(3)
     batches = [(rng.integers(0, 256, (8, 96, 96, 3), dtype=np.uint8),
                 (np.arange(8) % 8).astype(np.int32)) for _ in range(7)]
@@ -250,3 +265,123 @@ def test_a_failed_capture_raises(exact_cuda):
     good, state, pool, batches = _make("yunet", exact_cuda)
     good(state, *pool, *batches[0])
     assert len(good.graphs) == 1
+
+
+# ------------------------------------------------------- the sharded step --
+
+
+def _distinct_mesh():
+    """The command line's mesh over distinct cards: four where there are
+    four, else two."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs at least two cards for a mesh of distinct cards; this machine has {n}")
+    n = 4 if n >= 4 else 2
+    return make_mesh(arcface_cli.mesh_shape(n), devices=[f"cuda:{i}" for i in range(n)])
+
+
+def _sharded(mesh, seed=5):
+    """A fresh sharded ArcFace step of ``tiny_facenet(32)`` at 96² on
+    ``mesh`` (the same each call), its state and 5 batches on the
+    mesh's first device."""
+    home = mesh.devices[0, 0]
+    rng = np.random.default_rng(seed)
+    model = tiny_facenet(32).to(home)
+    opt = optim.adamw(1e-3)
+    state = init_state(model, JAX_INIT_SEED, 7, opt, mesh=mesh)
+    batches = [(torch.tensor(rng.random((8, 96, 96, 3)), dtype=torch.float32, device=home),
+                torch.tensor(rng.integers(0, 7, 8), dtype=torch.int32, device=home))
+               for _ in range(STEPS)]
+    return make_train_step(model, opt, mesh=mesh), state, batches
+
+
+def _synchronize(mesh):
+    for d in mesh.distinct_devices():
+        torch.cuda.synchronize(d)
+
+
+def test_sharded_graph_equals_eager_bitwise(exact_cuda, monkeypatch):
+    """The sharded step on the (2, 2) mesh of the card repeated: a graph
+    and the eager step from one state, 5 float32 steps (C = 7 splits
+    4 + 3 over ``mp``): loss, parameters, BatchNorm statistics,
+    classifier blocks, Adam moments and counts bitwise equal after every
+    step; building the graph left the state as it was; one key
+    replayed."""
+    mesh = make_mesh((2, 2), devices=[exact_cuda] * 4)
+    built = []
+    real = graphs.CapturedCall
+
+    class Recording(real):
+        def __init__(self, fn, inputs, pool, state=(), writes=None):
+            super().__init__(fn, inputs, pool, state, writes)
+            _synchronize(mesh)
+            built.append((self, [t.detach().clone() for t in writes]))
+
+    monkeypatch.setattr(graphs, "CapturedCall", Recording)
+    eager, state_e, batches_e = _sharded(mesh)
+    eager._graphed = lambda device: False
+    graphed, state_g, batches_g = _sharded(mesh)
+    start = [t.detach().clone() for t in _tensors(state_g)]
+    for i in range(STEPS):
+        state_e, loss_e = eager(state_e, *batches_e[i])
+        state_g, loss_g = graphed(state_g, *batches_g[i])
+        _synchronize(mesh)
+        assert torch.equal(loss_e, loss_g), (i, float(loss_e), float(loss_g))
+        for a, b in zip(_tensors(state_e), _tensors(state_g)):
+            assert a.device == b.device and torch.equal(a, b), i
+    assert len(graphed.graphs) == 1 and len(eager.graphs) == 0
+    ((call, after_build),) = built
+    assert all(torch.equal(a, b) for a, b in zip(after_build, start)), "the build moved the state"
+    counts = [t for t in _tensors(state_g) if t.dtype == torch.int32]
+    assert counts and all(int(t) == STEPS for t in counts)
+    assert {b.device for b in state_g.classifier} == set(mesh.devices[0, :])
+    graphed.release_graphs()
+
+
+def test_sharded_step_over_distinct_cards_stays_eager(exact_cuda, monkeypatch):
+    """Over distinct cards the sharded step runs eagerly by design (its
+    eager step is not bitwise reproducible there, so no graph can be
+    shown equal to it): nothing is captured, each classifier block and
+    its moments stay on their card, and the steps train."""
+    mesh = _distinct_mesh()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("captured over distinct cards")
+
+    monkeypatch.setattr(graphs, "CapturedCall", refuse)
+    step, state, batches = _sharded(mesh)
+    losses = []
+    for i in range(STEPS):
+        state, loss = step(state, *batches[i])
+        losses.append(float(loss))
+    assert len(step.graphs) == 0 and state.step == STEPS
+    assert all(np.isfinite(v) for v in losses)
+    n = len(state.params)
+    adam = state.opt_state[0]
+    for j, dev in enumerate(mesh.devices[0, :]):
+        assert state.classifier[j].device == adam.mu[n + j].device == adam.nu[n + j].device == dev
+
+
+def test_failed_sharded_capture_raises(exact_cuda, monkeypatch):
+    """A sharded step that reads the card back cannot be captured: it
+    raises, nothing runs eagerly in its place (no key kept, the state as
+    it was), and the next sharded capture into the device's pool works."""
+    mesh = make_mesh((2, 2), devices=[exact_cuda] * 4)
+    real = trainer.sharded_arcface_loss
+
+    def reading(*args, **kwargs):
+        loss = real(*args, **kwargs)
+        loss.item()  # a host read: refused inside a capture
+        return loss
+
+    monkeypatch.setattr(trainer, "sharded_arcface_loss", reading)
+    step, state, batches = _sharded(mesh)
+    before = [t.detach().clone() for t in _tensors(state)]
+    with pytest.raises(RuntimeError):
+        step(state, *batches[0])
+    assert len(step.graphs) == 0
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(state), before))
+    monkeypatch.setattr(trainer, "sharded_arcface_loss", real)
+    good, state, batches = _sharded(mesh)
+    state, loss = good(state, *batches[0])
+    assert len(good.graphs) == 1 and bool(torch.isfinite(loss)) and state.step == 1

@@ -6,6 +6,14 @@ The port's meshes are ``["cpu"] * 4`` (one process drives every entry,
 as on a card repeated); JAX's are ``jax.devices()[:4]`` of the 8-device
 virtual CPU mesh.  JAX's sharded step is compiled once for the module.
 
+The sharded step is a ``GraphedStep``: its graph path runs here with
+the capture faked (``FakeTrainCall`` of ``tests/test_torch_train_graph.py``),
+bitwise equal to the eager step on four meshes, against JAX's jitted
+sharded step at case 1's tolerances, its keys (the state laid out
+first, JAX's retrace for another batch size, another mesh's state
+refused), its body under ``NoHostReads``, and the dry run's
+``train_plane`` through it.
+
 Tolerances.  Against JAX: the loss at rtol 1e-4 over three steps; one
 step's parameters and classifier by the Adam-direction bound of
 ``tests/test_torch_train_arcface.py`` (1e-6 where both directions are
@@ -49,6 +57,7 @@ from fire_tpu_torch.train.trainer import (JAX_INIT_SEED, Sharding, TrainState, g
                                           sharded_arcface_loss)
 from fire_tpu_torch.weights import carry_state, flatten, params_list, to_flax
 from tests.test_torch_train_arcface import _grad_lists, _jax_loss_and_grads
+from tests.test_torch_train_graph import NoHostReads, _graph_path, fake_capture  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 HW = (96, 96)
@@ -69,8 +78,9 @@ def _batch(classes=8, seed=0):
 @pytest.fixture(scope="module")
 def jax_sharded():
     """JAX's (2, 2)-sharded run from its own initial state: the start
-    and each step's state as numpy, the losses, the batch; and the
-    losses of JAX's one-device run from the same state."""
+    and each step's state as numpy, the losses, the batch; the losses
+    of JAX's one-device run from the same state; JAX's jitted (2, 2)
+    step and its last state."""
     opt = optax.adamw(LR)
     model = jax_tiny_facenet(32, dtype=jnp.float32)
     start_state = jax_init_state(model, jax.random.PRNGKey(0), 8, opt, image_hw=HW)
@@ -84,8 +94,9 @@ def jax_sharded():
             state, loss = step(state, jnp.asarray(images), jnp.asarray(labels))
             losses.append(float(loss))
             states.append(jax.tree.map(np.asarray, state))
-        runs[name] = states, losses
-    return start, runs["2x2"][0], runs["2x2"][1], runs["one"][1], images, labels
+        runs[name] = states, losses, (step, state)
+    return (start, runs["2x2"][0], runs["2x2"][1], runs["one"][1], images, labels,
+            runs["2x2"][2])
 
 
 def _port_sharded(start, mesh):
@@ -130,10 +141,26 @@ def test_sharded_step_matches_jax_sharded_step(jax_sharded):
     own (2, 2) and one-device runs differ by 2.1e-3 (relative) in the
     second loss and 6.3e-2 in the third.  The port is held to twice that
     spread of JAX's against itself, or 1e-4, whichever is larger."""
-    start, jstates, jlosses, jlosses_one, images, labels = jax_sharded
+    _against_jax_sharded(jax_sharded, graphed=False)
+
+
+def test_sharded_graph_path_matches_jax_sharded_step(jax_sharded, fake_capture):
+    """Case 1 through the sharded step's graph path (the capture faked
+    by ``FakeTrainCall``): one key, built without moving the state and
+    replayed three times, against JAX's jitted (2, 2) step at case 1's
+    tolerances."""
+    _against_jax_sharded(jax_sharded, graphed=True)
+    (call,) = fake_capture
+    assert call.build_kept_state and call.replays == STEPS
+
+
+def _against_jax_sharded(jax_sharded, graphed: bool):
+    start, jstates, jlosses, jlosses_one, images, labels, _ = jax_sharded
     mesh = _mesh()
     model, state = _port_sharded(start, mesh)
     step = make_train_step(model, optim.adamw(LR), mesh=mesh)
+    if graphed:
+        _graph_path(step)
     before = _numpy(params_list(model, start.params)) + [start.classifier]
     losses = []
     for i in range(STEPS):
@@ -157,7 +184,7 @@ def test_sharded_step_matches_jax_sharded_step(jax_sharded):
 def test_sharded_gradients_match_jax_float64(jax_sharded):
     """Case 2: the sharded loss's gradients (the loss the step
     differentiates) against JAX's one-device step in float64."""
-    start, _, _, _, images, labels = jax_sharded
+    start, _, _, _, images, labels, _ = jax_sharded
     mesh = _mesh()
     model, state = _port_sharded(start, mesh)
     loss = sharded_arcface_loss(model, state.classifier, torch.tensor(images),
@@ -203,6 +230,156 @@ def test_sharded_step_equals_one_device_step(shape, classes):
         scale = max(np.abs(r).max() for r in ref)
         worst = max(np.abs(a - r).max() for a, r in zip(ours, ref))
         assert worst <= 1e-3 * scale, (field, worst / scale)
+
+
+def _tensors(state):
+    return [t for t in jax.tree.leaves(state) if isinstance(t, torch.Tensor)]
+
+
+@pytest.mark.parametrize("shape,classes", [((4, 1), 8), ((1, 4), 8), ((2, 2), 8), ((2, 2), 7)],
+                         ids=["dp4", "mp4", "dp2xmp2", "dp2xmp2-C7"])
+def test_sharded_graph_path_equals_eager_bitwise(shape, classes, fake_capture):
+    """The sharded step's graph path (the capture faked by
+    ``FakeTrainCall``) against the eager step from one state, over
+    three batches: the loss and every tensor of the state (parameters,
+    BatchNorm statistics, classifier blocks, moments, counts) bitwise
+    equal after each step; one key, built without moving the state and
+    replayed three times."""
+    runs = {}
+    for name in ("eager", "graph"):
+        mesh = _mesh(shape)
+        model = tiny_facenet(32)
+        opt = optim.adamw(LR)
+        state = init_state(model, JAX_INIT_SEED, classes, opt, mesh=mesh)
+        step = make_train_step(model, opt, mesh=mesh)
+        if name == "graph":
+            _graph_path(step)
+        after = []
+        for i in range(STEPS):
+            images, labels = _batch(classes, seed=i)
+            state, loss = step(state, torch.tensor(images), torch.tensor(labels))
+            after.append([loss.clone()] + [t.detach().clone() for t in _tensors(state)])
+        runs[name] = step, after
+    for i, (a, b) in enumerate(zip(runs["eager"][1], runs["graph"][1])):
+        same = [torch.equal(x, y) for x, y in zip(a, b)]
+        assert len(a) == len(b) and all(same), (shape, classes, i, same.count(False))
+    assert len(runs["eager"][0].graphs) == 0 and len(runs["graph"][0].graphs) == 1
+    (call,) = fake_capture
+    assert call.build_kept_state and call.replays == STEPS
+
+
+def test_sharded_graph_keys_lay_out_first_and_follow_retraces(jax_sharded, fake_capture):
+    """An unsharded state is laid out before the key is taken: the first
+    call's key holds the laid-out blocks, and the state it returns gets
+    the same key at the next call.  Fixed-shape batches keep one key, a
+    batch of another size takes a second, as JAX's jitted (2, 2) step
+    compiles once more for it; a state laid out for another mesh raises
+    before anything runs."""
+    jstep, jstate = jax_sharded[-1]
+    mesh = _mesh()
+    model = tiny_facenet(32)
+    opt = optim.adamw(LR)
+    state = init_state(model, JAX_INIT_SEED, 8, opt)
+    assert not is_sharded(state)
+    step = _graph_path(make_train_step(model, opt, mesh=mesh))
+    images, labels = _batch()
+    for _ in range(2):
+        state, _ = step(state, torch.tensor(images), torch.tensor(labels))
+    assert is_sharded(state) and len(step.graphs) == 1
+    ((key, _),) = step.graphs
+    assert set(map(id, _tensors(state))) == set(key[-1])
+    assert [c.replays for c in fake_capture] == [2]
+    compiled = jstep._cache_size()
+    step(state, torch.tensor(images[:4]), torch.tensor(labels[:4]))
+    jstep(jstate, jnp.asarray(images[:4]), jnp.asarray(labels[:4]))
+    assert len(step.graphs) == 2 and jstep._cache_size() == compiled + 1
+    assert [c.replays for c in fake_capture] == [2, 1]
+    other = shard_state(_mesh((1, 4)), gather_state(state))
+    with pytest.raises(ValueError, match="another mesh"):
+        step(other, torch.tensor(images), torch.tensor(labels))
+    assert len(step.graphs) == 2 and len(fake_capture) == 2
+
+
+def test_unsharded_state_passed_twice_keeps_one_key(fake_capture):
+    """One unsharded state passed twice, the returned state not threaded:
+    the second call lays it out into the tensors of the first layout, so
+    one key is captured and replayed twice, and the graph path gives the
+    eager step's loss and state bitwise (the classifier and its moments
+    laid out afresh, the tensors shared with the unsharded state
+    advanced in place, as the eager step does)."""
+    runs = {}
+    images, labels = map(torch.tensor, _batch())
+    for name in ("eager", "graph"):
+        mesh = _mesh()
+        model = tiny_facenet(32)
+        opt = optim.adamw(LR)
+        start = init_state(model, JAX_INIT_SEED, 8, opt)
+        step = make_train_step(model, opt, mesh=mesh)
+        if name == "graph":
+            _graph_path(step)
+        outs = []
+        for _ in range(2):
+            state, loss = step(start, images, labels)
+            outs.append([loss.clone()] + [t.detach().clone() for t in _tensors(state)])
+        assert state.step == 1
+        runs[name] = step, outs
+    assert len(runs["graph"][0].graphs) == 1 and [c.replays for c in fake_capture] == [2]
+    for a, b in zip(runs["eager"][1], runs["graph"][1]):
+        assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(runs["graph"][1][0][0], runs["graph"][1][1][0])
+
+
+def test_sharded_step_captures_only_on_one_card(fake_capture):
+    """The choice between the graph and the eager step is read from
+    where the state lies: a state on one device is captured (the
+    sharded step on a mesh that repeats one card, as the CPU meshes
+    here do), a state whose tensors lie on two devices runs eagerly (the
+    sharded step over distinct cards; here a second tensor on the
+    ``meta`` device, which the body leaves alone)."""
+    from fire_tpu_torch.runtime.graphs import GraphedStep
+
+    def body(state, x):
+        return (state[0].add_(x).sum(),)
+
+    def finish(state, out):
+        return state, out[0]
+
+    for other, captured in (("cpu", 1), ("meta", 0)):
+        step = _graph_path(GraphedStep(body, finish))
+        state = [torch.zeros(3), torch.zeros(3, device=other)]
+        for _ in range(2):
+            _, total = step(state, torch.ones(3))
+        assert float(total) == 6.0 and len(step.graphs) == captured, other
+    assert [c.replays for c in fake_capture] == [2]
+
+
+def test_sharded_body_makes_no_host_reads():
+    """After its first call, the sharded step, fed tensors as the
+    graph's static inputs are, reads nothing back to the host and makes
+    no host constant (``NoHostReads``, the CPU proxy for capturable)."""
+    mesh = _mesh()
+    model = tiny_facenet(32)
+    opt = optim.adamw(LR)
+    state = init_state(model, JAX_INIT_SEED, 7, opt, mesh=mesh)
+    step = make_train_step(model, opt, mesh=mesh)
+    batches = [tuple(map(torch.tensor, _batch(7, seed=i))) for i in range(2)]
+    state, _ = step(state, *batches[0])
+    with NoHostReads():
+        step(state, *batches[1])
+
+
+def test_dryrun_train_plane_through_the_graph_path(fake_capture, monkeypatch):
+    """``dryrun.train_plane`` on the dry run's (4, 2) CPU mesh: through
+    the sharded step's graph path, one capture replayed once, its loss
+    equals the eager step's."""
+    from fire_tpu_torch import dryrun
+    from fire_tpu_torch.runtime import graphs
+
+    mesh = dryrun.dryrun_mesh(8, ["cpu"] * 8)
+    eager = dryrun.train_plane(mesh)
+    monkeypatch.setattr(graphs.GraphedStep, "_graphed", lambda self, device: True)
+    assert dryrun.train_plane(mesh) == eager
+    assert [c.replays for c in fake_capture] == [1]
 
 
 def test_batch_norm_takes_the_whole_batchs_statistics():
