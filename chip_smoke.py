@@ -144,8 +144,10 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    one batch as ``train_encoder``'s step does, beside that step's
    numbers.  (c) At C = 100,000 identities, the one-device and the
    (2, 2) step: ms a step, the peak memory of each device, and each
-   ``mp`` block's columns and bytes on its own device.  The sharded step
-   runs eagerly; the one-device step replays its graph.
+   ``mp`` block's columns and bytes on its own device.  Both steps
+   replay their graphs (over distinct cards one graph spans the four),
+   the eager step's ms beside them.  Two eager runs from one state, and
+   the graph against the eager step, bitwise over 5 float32 steps.
 22. ``dryrun``: ``fire_tpu_torch.dryrun``, the counterpart of
    ``__graft_entry__.py``.  ``entry()``: FaceNet-512 in bf16 at full
    width on 8 × 160², ms a call, and unit rows at cosine ≥ 0.999 to the
@@ -159,7 +161,8 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    ``["cpu"] * 8``: masks, track and gallery ids equal, similarities
    within 1e-3, boxes within 1e-3 of the card's plain run and within 1 px
    of the CPU's (the CPU's ``exp`` may round a box edge a pixel apart).
-   With four cards, ``dryrun_multichip(4)`` on four distinct ones.
+   With four cards, ``dryrun_multichip(4)`` on four distinct ones, its
+   train plane one graph over the four.
 23. ``train_detectors``: YuNet-64 (320², B = 32), BlazeFace (192² from
    480×640, B = 64) and RetinaFace (512² from 480×640, B = 8): each
    pool step memorises one batch as above, then the trainer's ``main``
@@ -187,9 +190,10 @@ It takes no arguments.  Phases, in order, each printing one JSON line:
    RetinaFace (the per-frame frames twice: first sight, with its
    enrolments, then again after their tracks died), then one full-width
    ArcFace step on one device, eager and replaying its graph (at most 10
-   host launch calls), and one on the (2, 2) mesh, for the device's busy
+   host launch calls), and the same two on the (2, 2) mesh (over four
+   distinct cards one graph spans them), for the device's busy
    time, its idle share of the traced wall time and the host's launch
-   calls (nine ``trace`` lines).  It runs after every timed phase: the profiler leaves
+   calls (ten ``trace`` lines).  It runs after every timed phase: the profiler leaves
    launches slower.
 27. ``cross_device``: one 8-frame batched step, a 2-stream step, the
    per-frame engine calls (``detect_faces``, ``encode_boxes``,
@@ -1262,7 +1266,7 @@ def phase_trace(ctx) -> None:
     RetinaFace; then one full-width ArcFace step on one device, eager
     and then replaying its graph (captured before the trace), and the
     same two on the (2, 2) mesh of ``train_sharded`` (its graph captured
-    there).  The profiler leaves
+    there; over four distinct cards one graph spans them).  The profiler leaves
     launches slower for the rest of the process, so this phase comes
     after every phase that reports a time."""
 
@@ -1291,15 +1295,20 @@ def phase_trace(ctx) -> None:
     state = trace_train_step(step, state, images, labels, "arcface train step, graph",
                              max_launch_calls=10)
     step.release_graphs()
-    step, state, images, labels = ctx.pop("arcface_sharded")  # its graph captured there
-    captured = len(step.graphs) == 1  # none over distinct cards: the state spans several
+    trace_sharded_step(ctx)
+
+
+def trace_sharded_step(ctx) -> None:
+    """The sharded ArcFace step of ``train_sharded`` (its graph captured
+    there) under ``torch.profiler``, eager and then replaying its graph."""
+    step, state, images, labels = ctx.pop("arcface_sharded")
+    check(len(step.graphs) == 1, f"trace: the sharded step holds {len(step.graphs)} graphs")
     step._graphed = lambda device: False
     state = trace_train_step(step, state, images, labels, "arcface train step, (2, 2) mesh, eager")
     del step._graphed
-    if captured:
-        state = trace_train_step(step, state, images, labels,
-                                 "arcface train step, (2, 2) mesh, graph", max_launch_calls=10)
-        check(len(step.graphs) == 1, f"trace: the sharded step captured again ({len(step.graphs)})")
+    state = trace_train_step(step, state, images, labels,
+                             "arcface train step, (2, 2) mesh, graph", max_launch_calls=10)
+    check(len(step.graphs) == 1, f"trace: the sharded step captured again ({len(step.graphs)})")
     step.release_graphs()
 
 
@@ -1417,9 +1426,9 @@ class _frame_graphs:
                 kind_of[id(graph)] = _graph_kind(key)
         self._real = get, replay = graphs.GraphCache.get, graphs.CapturedCall.replay
 
-        def noting_get(cache, key, build):
+        def noting_get(cache, key, build, *devices):
             fresh = cache.find(key) is None
-            graph = get(cache, key, build)
+            graph = get(cache, key, build, *devices)
             if fresh and isinstance(graph, graphs.CapturedCall):
                 keys = seen.setdefault(cache, set())
                 owner.recaptures += key in keys
@@ -2854,8 +2863,10 @@ def step_graphs(step) -> dict:
     calls = [g for _, g in step.graphs]
     by_device = {}
     for g in calls:
-        by_device[str(g.device)] = by_device.get(str(g.device), 0) + g.pool_bytes / 1e9
+        for d, b in g.pool_bytes_by_device.items():
+            by_device[d] = by_device.get(d, 0) + b / 1e9
     return {"keys": len(calls), "capture_s": [g.capture_s for g in calls],
+            "cards": [[str(d) for d in g.devices] for g in calls],
             "pool_gb": sum(g.pool_bytes for g in calls) / 1e9, "pool_gb_by_device": by_device}
 
 
@@ -3062,27 +3073,28 @@ def _sharded_parity(mesh) -> dict:
 
 
 def _eager_twice(build) -> dict:
-    """Over distinct cards, where the sharded step stays eager: two eager
-    runs of ``TRAIN_GRAPH_STEPS`` float32 steps from one state, and the
-    loss and state tensors in which they differ after each step.  The
-    autograd engine runs each card's backward on its own thread, so a
-    tensor whose gradient gathers three or more terms from several cards
-    adds them in the order they arrive."""
+    """Two eager runs of ``TRAIN_GRAPH_STEPS`` float32 steps from one
+    state: the loss and every state tensor bitwise equal after each step
+    (gated), and the count that differ by step.  Over distinct cards the
+    backward's gradient terms from several cards must add in one order
+    (the step runs its backward on the calling thread)."""
     import torch
 
     runs = []
     for _ in range(2):
         step, state, args = build(None)
+        step._graphed = lambda device: False
         after = []
         for i in range(TRAIN_GRAPH_STEPS):
             state, loss = step(state, *args(i))
             _sync_all()
             after.append([loss.clone()] + [t.detach().clone() for t in _state_tensors(state)])
-        check(not step.graphs, "train_sharded: distinct cards captured a graph")
         runs.append(after)
         del step, state
         gc.collect()
     differ = [sum(not torch.equal(a, b) for a, b in zip(x, y)) for x, y in zip(*runs)]
+    check(not any(differ), f"train_sharded: two eager runs from one state differ in "
+                           f"{differ} of {len(runs[0][0])} tensors after each step")
     return {"steps": TRAIN_GRAPH_STEPS, "tensors": len(runs[0][0]),
             "tensors_differing_by_step": differ, "bitwise_equal": not any(differ)}
 
@@ -3112,12 +3124,13 @@ def _eager_ms(step, state, args, timed: int) -> tuple:
 
 def _big_classifier_steps(mesh, images, labels) -> dict:
     """(d): the one-device and the sharded step at ``BIG_CLASSES``
-    identities, bf16 with AdamW, each replaying its graph: ms a step
-    (median of ``BIG_TIMED`` after two untimed, the capture among them),
-    the graphs' capture seconds and pool by device, each device's peak
-    memory above what it held before, and each ``mp`` block of the
-    sharded state: its columns, its bytes and its moments' bytes, on its
-    own device; then the sharded step run eagerly on the same state."""
+    identities, bf16 with AdamW, each replaying its graph (the sharded
+    one over every card of the mesh): ms a step (median of ``BIG_TIMED``
+    after two untimed, the capture among them), the graphs' capture
+    seconds and pool by device, each device's peak memory above what it
+    held before, and each ``mp`` block of the sharded state: its
+    columns, its bytes and its moments' bytes, on its own device; then
+    the sharded step run eagerly on the same state."""
     import torch
 
     from fire_tpu_torch.models.facenet import facenet_512
@@ -3146,9 +3159,7 @@ def _big_classifier_steps(mesh, images, labels) -> dict:
         rec = {"ms_per_step": median(times), "ms_steps": times, "loss_first": losses[0],
                "loss_last": losses[-1], "peak_mem_gb": _peaks_gb(base),
                "graphs": step_graphs(step)}
-        captured = m is None or len(devices) == 1
-        check(rec["graphs"]["keys"] == int(captured),
-              f"train_sharded: {name} graphs {rec['graphs']}")
+        check(rec["graphs"]["keys"] == 1, f"train_sharded: {name} graphs {rec['graphs']}")
         if m is not None:
             n = len(state.params)
             adam = state.opt_state[0]
@@ -3164,9 +3175,8 @@ def _big_classifier_steps(mesh, images, labels) -> dict:
             check(sum(r["columns"] for r in blocks) == BIG_CLASSES,
                   f"train_sharded: the blocks hold {[r['columns'] for r in blocks]} columns")
             rec["blocks"] = blocks
-            if captured:
-                state, rec["eager"] = _eager_ms(step, state, (images, labels), BIG_TIMED)
-                rec["graph_over_eager"] = rec["ms_per_step"] / rec["eager"]["ms_per_step"]
+            state, rec["eager"] = _eager_ms(step, state, (images, labels), BIG_TIMED)
+            rec["graph_over_eager"] = rec["ms_per_step"] / rec["eager"]["ms_per_step"]
         step.release_graphs()
         out[name] = rec
         del model, state, step
@@ -3177,12 +3187,14 @@ def _big_classifier_steps(mesh, images, labels) -> dict:
 def phase_train_sharded(ctx) -> None:
     """The dp×mp-sharded ArcFace step at full width (FaceNet-512, B = 64,
     160²) on a (2, 2) mesh, four distinct cards where there are four,
-    else this card repeated: (a) parity with the one-device step, (b) its
-    graph against its eager step, bitwise over 5 float32 steps with TF32
+    else this card repeated: (a) parity with the one-device step, (b)
+    two eager runs from one state against each other, and its graph
+    against its eager step, each bitwise over 5 float32 steps with TF32
     off and cuDNN deterministic, (c) a bf16 AdamW memorisation through
     the graph beside ``train_encoder``'s, then the eager step's ms on the
-    same state, (d) C = 100,000 identities, graphed and eager.  K1's
-    launches over the phase (training has no gallery)."""
+    same state, (d) C = 100,000 identities, graphed and eager.  Over
+    distinct cards each graph spans the four.  K1's launches over the
+    phase (training has no gallery)."""
     import numpy as np
     import torch
 
@@ -3199,11 +3211,13 @@ def phase_train_sharded(ctx) -> None:
     parity = _sharded_parity(mesh)
     t_parity = time.perf_counter() - t0
 
-    captured = len(devices) == 1  # distinct cards keep the eager step (make_train_step)
+    distinct = len(devices) > 1
     t0 = time.perf_counter()
     with _exact_float32():
         build = _arcface_build(mesh)
-        exact = _graph_vs_eager_bitwise(build) if captured else _eager_twice(build)
+        twice = _eager_twice(build)
+        gc.collect()
+        exact = _graph_vs_eager_bitwise(build)
     gc.collect()
     torch.cuda.empty_cache()
     t_exact = time.perf_counter() - t0
@@ -3220,11 +3234,9 @@ def phase_train_sharded(ctx) -> None:
                            base[str(mesh.devices[0, 0])])
     memo["peak_mem_gb_by_device"] = _peaks_gb(base)
     memo["graphs"] = step_graphs(step)
-    check(memo["graphs"]["keys"] == int(captured),
-          f"train_sharded: the step's graphs {memo['graphs']}")
-    if captured:
-        state, memo["eager"] = _eager_ms(step, state, (images, labels), 5)
-        memo["graph_over_eager"] = memo["ms_per_step"] / memo["eager"]["ms_per_step"]
+    check(memo["graphs"]["keys"] == 1, f"train_sharded: the step's graphs {memo['graphs']}")
+    state, memo["eager"] = _eager_ms(step, state, (images, labels), 5)
+    memo["graph_over_eager"] = memo["ms_per_step"] / memo["eager"]["ms_per_step"]
     t_memo = time.perf_counter() - t0
     ctx["arcface_sharded"] = (step, state, images, labels)  # traced by the trace phase
     del model, state, step
@@ -3237,12 +3249,12 @@ def phase_train_sharded(ctx) -> None:
     ctx["k1_launches_train_sharded"] = k1.launches
     one = ctx["arcface_memo"]
     emit({"phase": "train_sharded", "card": ctx["smi"], "mesh": mesh.shape,
-          "cards": "one card repeated" if captured else "distinct",
-          "step": "CUDA graph" if captured else "eager (distinct cards)",
+          "cards": "distinct" if distinct else "one card repeated",
+          "step": "one CUDA graph over the four cards" if distinct else "CUDA graph",
           "devices": [str(d) for d in mesh.devices.reshape(-1)],
           "model": "facenet-512 (5/10/5, stem 32)", "hw": [160, 160], "batch": BATCH,
           "parity": parity,
-          "graph_vs_eager_float32" if captured else "eager_twice_float32": exact,
+          "graph_vs_eager_float32": exact, "eager_twice_float32": twice,
           "memorise": {"sharded": memo, "one_device": one, "classes": classes,
                        "compute": "bf16, float32 masters, adamw(1e-3)",
                        "ms_ratio": memo["ms_per_step"] / one["ms_per_step"]},
@@ -3406,10 +3418,14 @@ def phase_dryrun(ctx) -> None:
                                            "cpu": torch.exp(log_area).item()}
         if torch.cuda.device_count() >= 4:
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
+            with contextlib.redirect_stdout(io.StringIO()), _train_builds() as builds:
                 four = dryrun.dryrun_multichip(4)
+            builds = [b for b in builds if b["training"]]
+            check(len(builds) == 1 and len(builds[0]["cards"]) == 4,
+                  f"dryrun: the four-card train plane's graphs {builds}")
             rec["four_cards"] = {"devices": [f"cuda:{i}" for i in range(4)],
                                  "mesh": four["mesh"], "loss": four["loss"],
+                                 "train_plane_graphs": builds,
                                  "seconds_by_plane": four["seconds"],
                                  "wall_s": time.perf_counter() - t0}
         else:
@@ -3573,14 +3589,18 @@ def _train_builds():
     real, builds = graphs.CapturedCall, []
 
     class Recording(real):
-        def __init__(self, fn, inputs, pool, state=(), writes=None):
+        def __init__(self, fn, inputs, pool, state=(), writes=None, others=()):
             before = [t.detach().clone() for t in writes or ()]
             t0 = time.perf_counter()
-            super().__init__(fn, inputs, pool, state, writes)
+            super().__init__(fn, inputs, pool, state, writes, others)
             _sync_all()
             builds.append({"build_s": time.perf_counter() - t0, "capture_s": self.capture_s,
                            "pool_gb": self.pool_bytes / 1e9,
+                           "pool_gb_by_device": {d: b / 1e9 for d, b in
+                                                 self.pool_bytes_by_device.items()},
                            "device": str(self.device),
+                           "cards": [str(d) for d in self.devices],
+                           "training": writes is not None,
                            "kept_state": all(torch.equal(a, b)
                                              for a, b in zip(before, writes or ()))})
 

@@ -14,7 +14,8 @@ replays it:
   key, captured at the key's first call), copying the call's arguments
   into the graph's static inputs;
 * :class:`GraphCache`: graphs by key, all of a device in one memory pool
-  (``_POOLS``), warmed up and captured on one side stream a device;
+  (``_POOLS``), warmed up and captured on one side stream a device (a
+  graph over several cards takes each card's pool and side stream);
 * :class:`HostStaging`: two pinned buffers for each shape of host array
   going up to a card, so that an upload does not wait for the card.
 
@@ -26,6 +27,7 @@ captures at import.
 
 from __future__ import annotations
 
+import contextlib
 import time
 import weakref
 from collections import OrderedDict
@@ -140,27 +142,53 @@ class CapturedCall:
     cuDNN's choices are settled by it, and the backward runs on the
     stream of its forward, the side stream of the capture.
 
+    A graph over several cards: ``others`` are ``(device, pool)`` of each
+    card ``fn`` computes on besides the first (:attr:`device`, the
+    inputs' card, where the capture begins and the graph is launched).
+    Each other card's side stream is forked from the first card's by an
+    event and is that card's current stream for the warm-up and the
+    capture (a copy between two cards runs on the current streams of
+    both, and the autograd engine keeps each node's forward stream on
+    its own card); it is joined back before the capture ends, so one
+    graph holds every card's work.  Each other card's allocations go to
+    its own pool while the capture runs.  ``fn`` must run its backward
+    on this thread (``torch.autograd.set_multithreading_enabled(False)``):
+    the engine's device threads would issue another card's work on that
+    card's default stream, outside the capture.  A replay waits for
+    every card's current stream and makes each wait for the replay, as
+    an eager step over the cards would order them.
+
     K1's and K2's launch counters count what runs: the warm-up and the
     capture add nothing, and each :meth:`replay` adds the launches the
     graph holds."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], pool,
                  state: Sequence[torch.Tensor] = (),
-                 writes: Optional[Sequence[torch.Tensor]] = None):
-        self.inputs, self.state = tuple(inputs), tuple(state)
+                 writes: Optional[Sequence[torch.Tensor]] = None,
+                 others: Sequence[Tuple[torch.device, object]] = ()):
+        self.inputs, self.state, self.others = tuple(inputs), tuple(state), tuple(others)
         dev = self.device = self.inputs[0].device
+        self.devices = (dev, *(d for d, _ in self.others))
         k1, k2 = _launch_counters()
         counts = k1.launches, k2.launches
-        cur = torch.cuda.current_stream(dev)
-        side = side_stream(dev)
-        side.wait_stream(cur)
+        curs = [torch.cuda.current_stream(d) for d in self.devices]
+        sides = [side_stream(d) for d in self.devices]
+        for side, cur in zip(sides, curs):
+            side.wait_stream(cur)
+        for side in sides[1:]:
+            side.wait_stream(sides[0])
         try:
-            with torch.cuda.device(dev), torch.cuda.stream(side), \
-                    torch.set_grad_enabled(writes is not None):
+            with contextlib.ExitStack() as on:
+                for side in sides[1:]:  # each sets its card current: the first card's last
+                    on.enter_context(torch.cuda.stream(side))
+                on.enter_context(torch.cuda.device(dev))
+                on.enter_context(torch.cuda.stream(sides[0]))
+                on.enter_context(torch.set_grad_enabled(writes is not None))
                 warm_up(fn, self.inputs, self.state, writes)
-                torch.cuda.synchronize(dev)
+                for d in self.devices:
+                    torch.cuda.synchronize(d)
                 torch.cuda.empty_cache()
-                reserved = torch.cuda.memory_reserved(dev)
+                reserved = [torch.cuda.memory_reserved(d) for d in self.devices]
                 t0 = time.perf_counter()
                 before = k1.launches, k2.launches
                 self.graph = torch.cuda.CUDAGraph()
@@ -169,38 +197,92 @@ class CapturedCall:
                 self.k1_per_replay = k1.launches - before[0]
                 self.k2_per_replay = k2.launches - before[1]
                 self.capture_s = time.perf_counter() - t0
-                # what this capture added to the device's shared pool
-                self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-            cur.wait_stream(side)
+                # what this capture added to each card's shared pool
+                self.pool_bytes_by_device = {
+                    str(d): torch.cuda.memory_reserved(d) - r
+                    for d, r in zip(self.devices, reserved)}
+                self.pool_bytes = sum(self.pool_bytes_by_device.values())
+            for cur, side in zip(curs, sides):
+                cur.wait_stream(side)
         finally:
             k1.launches, k2.launches = counts
+        if self.others:
+            # the graph gives back the first card's pool when it goes; the
+            # other cards' were taken by _cuda_beginAllocateToPool
+            weakref.finalize(self, _release_pools,
+                             [(d.index, p) for d, p in self.others]).atexit = False
 
     def _capture(self, fn: Callable, pool):
-        """``fn`` on the static tensors, captured on the current stream."""
+        """``fn`` on the static tensors, captured on the current stream
+        (the first card's side stream), the other cards' side streams
+        forked from it and joined back."""
+        sides = [side_stream(d) for d in self.devices]
         self.graph.capture_begin(pool=pool)
+        routed = []
         try:
+            for d, p in self.others:
+                torch._C._cuda_beginAllocateToPool(d.index, p)
+                routed.append((d.index, p))
+            for side in sides[1:]:
+                side.wait_stream(sides[0])
             out = fn(*self.inputs, *self.state)
+            for side in sides[1:]:
+                sides[0].wait_stream(side)
         except BaseException:
-            try:
-                self.graph.capture_end()
-            except RuntimeError:  # the capture is already invalid; the first error is the one to see
-                # torch then left this stream's allocations going to the pool
-                try:
-                    torch._C._cuda_endAllocateToPool(self.device.index, pool)
-                except RuntimeError:
-                    pass  # it had ended that
+            for side in sides[1:]:  # a fork left unjoined keeps its stream capturing
+                with contextlib.suppress(RuntimeError):
+                    sides[0].wait_stream(side)
+            self._end(pool, routed, failed=True)
             raise
-        self.graph.capture_end()
+        self._end(pool, routed, failed=False)
         return out
+
+    def _end(self, pool, routed, failed: bool) -> None:
+        """End the capture and the other cards' routing to their pools
+        (``routed``); a capture that failed, or that ``capture_end``
+        refuses, gives those pools back and leaves no card routing."""
+        try:
+            self.graph.capture_end()
+        except RuntimeError:
+            # torch then left this stream's allocations going to the pool,
+            # unless it had ended that
+            with contextlib.suppress(RuntimeError):
+                torch._C._cuda_endAllocateToPool(self.device.index, pool)
+            _release_pools(routed, end=True)
+            if not failed:
+                raise
+            return  # the capture was invalid already: the first error is the one to see
+        _release_pools(routed, end=True, release=failed)
 
     def replay(self) -> Tuple[torch.Tensor, ...]:
         """Queue one run on the current stream (the inputs already in
-        place); returns :attr:`outputs`."""
-        self.graph.replay()
+        place); returns :attr:`outputs`.  Over several cards the run
+        waits for each card's current stream, and each waits for it."""
+        if self.others:
+            home = torch.cuda.current_stream(self.device)
+            curs = [torch.cuda.current_stream(d) for d, _ in self.others]
+            for cur in curs:
+                home.wait_stream(cur)
+            self.graph.replay()
+            for cur in curs:
+                cur.wait_stream(home)
+        else:
+            self.graph.replay()
         k1, k2 = _launch_counters()
         k1.count_replayed(self.k1_per_replay)
         k2.count_replayed(self.k2_per_replay)
         return self.outputs
+
+
+def _release_pools(routed, end: bool = False, release: bool = True) -> None:
+    """For each ``(card index, pool)`` of ``routed``: end the routing of
+    the card's allocations to the pool (``end``), and give back the
+    reference to the pool that starting it took (``release``)."""
+    for index, pool in routed:
+        if end:
+            torch._C._cuda_endAllocateToPool(index, pool)
+        if release:
+            torch._C._cuda_releasePool(index, pool)
 
 
 class GraphCache:
@@ -218,24 +300,27 @@ class GraphCache:
             self._graphs.move_to_end(key)
         return graph
 
-    def get(self, key: tuple, build: Callable[[object], object]):
-        """The graph of ``key``, built by ``build(pool)`` into the device's
-        shared pool when absent."""
+    def get(self, key: tuple, build: Callable[..., object], devices: Sequence = ()):
+        """The graph of ``key``, built when absent by ``build(pool,
+        *pools)``: the shared pool of the device ``key[0]``, then that of
+        each of ``devices`` (the graph's other cards)."""
         graph = self.find(key)
         if graph is not None:
             return graph
-        dev = key[0]
-        if dev not in _POOLS or not _POOLS[dev][1]:
-            _POOLS[dev] = (_new_pool(), weakref.WeakSet())
-        pool, users = _POOLS[dev]
+        cards = (key[0], *devices)
+        for dev in cards:
+            if dev not in _POOLS or not _POOLS[dev][1]:
+                _POOLS[dev] = (_new_pool(), weakref.WeakSet())
         try:
-            graph = self._graphs[key] = build(pool)
+            graph = self._graphs[key] = build(*(_POOLS[dev][0] for dev in cards))
         except BaseException:
-            # a capture that failed leaves its pool refusing captures: the
-            # next graph of the device takes a new one
-            _POOLS.pop(dev, None)
+            # a capture that failed leaves its pools refusing captures: the
+            # next graph of each of its cards takes a new one
+            for dev in cards:
+                _POOLS.pop(dev, None)
             raise
-        users.add(graph)
+        for dev in cards:
+            _POOLS[dev][1].add(graph)
         while self.limit is not None and len(self._graphs) > self.limit:
             self._graphs.popitem(last=False)
         return graph
@@ -290,7 +375,9 @@ class GraphedStep:
     given, runs first, outside any graph, and its result is the state
     the step runs on and returns (the sharded ArcFace step lays out an
     unsharded state on its mesh there, and refuses one laid out for
-    another mesh).
+    another mesh).  ``devices`` are cards the body computes on besides
+    those its state lies on (a mesh's: a (2, 2) mesh's second row holds
+    no state but computes a ``dp`` shard).
 
     On a CUDA device each key replays a graph, :class:`CapturedCall`'s
     training form captured at the key's first call.  The key is what
@@ -299,20 +386,23 @@ class GraphedStep:
     and the state's tensors, by identity (a step handed another pool or
     another state gets a key of its own, and never writes a caller's
     tensor).  The static configuration (model, optimizer, compute
-    dtype, mesh) is the body's own.  A state whose tensors lie on more
-    than one device (the sharded step over distinct cards) runs eagerly:
-    the choice is read from where the state lies, never from a failed
-    capture.  A call copies the batch into the static inputs of its key,
-    a host array through :class:`HostStaging`'s pinned buffers,
-    replays, and returns clones of the graph's outputs (the next replay
-    overwrites them).  Every key is kept until :meth:`release_graphs`.
-    On another device ``body`` runs eagerly: the eager step is the
-    graph's plain version, and ``_graphed`` set off on an instance runs
-    it on a card."""
+    dtype, mesh) is the body's own.  The cards of a graph are the device
+    of the batch and the state's first tensor, then, in the order first
+    seen, the other devices of the state and of ``devices``: a state
+    whose tensors lie on several cards (the sharded step over distinct
+    cards) replays one graph over all of them, whose body must run its
+    backward on the calling thread (:class:`CapturedCall`).  A call
+    copies the batch into the static inputs of its key, a host array
+    through :class:`HostStaging`'s pinned buffers, replays, and returns
+    clones of the graph's outputs (the next replay overwrites them).
+    Every key is kept until :meth:`release_graphs`.  On another device
+    ``body`` runs eagerly: the eager step is the graph's plain version,
+    and ``_graphed`` set off on an instance runs it on a card."""
 
     def __init__(self, body: Callable, finish: Callable, bound: int = 0,
-                 prepare: Optional[Callable] = None):
+                 prepare: Optional[Callable] = None, devices: Sequence = ()):
         self.body, self.finish, self.bound, self.prepare = body, finish, bound, prepare
+        self.devices = tuple(devices)
         self.graphs = GraphCache(limit=None)
         self._staging = HostStaging()
 
@@ -338,7 +428,7 @@ class GraphedStep:
         leaves, spec = tree_flatten(args[self.bound:])
         leaves = [torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray)
                   else torch.as_tensor(a) for a in leaves]
-        if not self._graphed(dev) or any(t.device != dev for t in writes):
+        if not self._graphed(dev):
             batch = [self._staging.upload(a, dev, slot=i) for i, a in enumerate(leaves)]
             return self.body(state, *bound, *tree_unflatten(batch, spec))
         for t in bound:
@@ -351,12 +441,19 @@ class GraphedStep:
             statics = [torch.empty(a.shape, dtype=a.dtype, device=dev) for a in leaves]
             self._fill(statics, leaves, dev)
             body, n = self.body, len(bound)
+            others = []
+            for d in [t.device for t in writes] + [indexed(d) for d in self.devices]:
+                if d != key[0] and d not in others:
+                    others.append(d)
 
             def fn(*ins):  # holds no reference to self: the graphs go with the step
                 return body(state, *ins[:n], *tree_unflatten(list(ins[n:]), spec))
 
-            graph = self.graphs.get(
-                key, lambda pool: CapturedCall(fn, [*bound, *statics], pool, writes=writes))
+            def build(pool, *pools):
+                return CapturedCall(fn, [*bound, *statics], pool, writes=writes,
+                                    others=list(zip(others, pools)))
+
+            graph = self.graphs.get(key, build, others)
         else:
             self._fill(graph.inputs[len(bound):], leaves, dev)
         return tuple(o.clone() for o in graph.replay())

@@ -21,10 +21,9 @@ checkpoint and saves one at every log step.  ``--device`` defaults to
 ``cuda``; without a card pass ``--device cpu``.
 
 On one card the step replays a CUDA graph (``make_train_step``), and
-so does the sharded step on a mesh that repeats one card; the loop
-(:func:`train_loop`) reads the device only for the loss of a logging
-step, as JAX's loop does.  The sharded step over several distinct cards
-runs eagerly (``fire_tpu_torch.train.trainer``'s docstring says why).
+so does the sharded step, over several distinct cards one graph that
+spans them all; the loop (:func:`train_loop`) reads the device only for
+the loss of a logging step, as JAX's loop does.
 """
 
 from __future__ import annotations

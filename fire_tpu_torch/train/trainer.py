@@ -42,27 +42,29 @@ single controller drives its mesh:
   its own device.
 
 It computes the one-device step's arithmetic, the order of the sums
-aside.  JAX jits it as one program (``in_shardings`` over the mesh);
-the port runs it as a :class:`~fire_tpu_torch.runtime.graphs.GraphedStep`
+aside.  Its backward runs on the calling thread
+(``torch.autograd.set_multithreading_enabled(False)``), from one queue
+of the autograd engine ordered by the nodes' creation: by default the
+engine runs each card's backward on a thread of its own, and a gradient
+that gathers three or more terms from several cards (a master tensor
+read by every shard, a BatchNorm's statistics, an activation feeding
+several branches) adds them in the order they arrive, so two runs from
+one state would differ over distinct cards.  The one-device step keeps
+the engine's default.
+
+JAX jits the step as one program (``in_shardings`` over the mesh); the
+port runs it as a :class:`~fire_tpu_torch.runtime.graphs.GraphedStep`
 too.  An unsharded state is laid out on the mesh first
 (:func:`shard_state`, outside any graph; the same unsharded state
 passed again is laid out into the same tensors, and a state laid out
 for another mesh raises), then the key is taken: the batch's shapes and
-dtypes and the laid-out state's tensors by identity.
-
-* On a mesh that repeats one card (``["cuda:0"] * 4``: every tensor on
-  one device) the key's graph holds the whole step: every shard's
-  forward, the BatchNorms' sums over the shards, the column-sharded
-  softmax, the backward and the AdamW update, replayed with no host
-  read.
-* Over distinct cards the step runs eagerly, by design: the state's
-  tensors lie on several devices, and ``GraphedStep`` reads that from
-  the state, never from a failed capture.  A graph of this step cannot
-  be shown bitwise equal to its eager step there: the autograd engine
-  runs each card's backward on its own thread and sums a gradient's
-  terms from several cards in the order they arrive, so two eager runs
-  from one state already differ after the first update (on four H100s;
-  ``ROADMAP.md`` lists this as an open fault).
+dtypes and the laid-out state's tensors by identity.  The key's graph
+holds the whole step, every shard's forward, the BatchNorms' sums over
+the shards, the column-sharded softmax, the backward and the AdamW
+update, replayed with no host read: on a mesh that repeats one card
+(``["cuda:0"] * 4``) on that card, over distinct cards as one graph
+over every card of the mesh (the first card's capture with each other
+card's side stream forked from it and joined back).
 
 On the CPU the step runs eagerly, and the eager step is the graph's
 plain version.
@@ -139,11 +141,16 @@ def cli_compute_dtype(device: torch.device) -> Optional[torch.dtype]:
 
 def compute_context(device: torch.device, compute_dtype: Optional[torch.dtype]):
     """``torch.autocast`` to ``compute_dtype`` (None or float32: none).
-    Inside a CUDA graph capture its cache of cast weights is off: a
-    cached cast would be captured once and replayed stale."""
+    Inside a CUDA graph capture (on ``device``'s current stream) its cache
+    of cast weights is off: a cached cast would be captured once and
+    replayed stale.  The cache is one for every card, so a forward that
+    goes on to other cards keeps it off there too."""
     if compute_dtype in (None, torch.float32):
         return contextlib.nullcontext()
-    capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    capturing = False
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            capturing = torch.cuda.is_current_stream_capturing()
     return torch.autocast(device.type, dtype=compute_dtype, cache_enabled=not capturing)
 
 
@@ -312,9 +319,9 @@ def make_train_step(model: torch.nn.Module, optimizer: GradientTransformation,
     graphs).  With a ``mesh`` of more than one position the step is the
     dp×mp-sharded one (:func:`sharded_arcface_loss`; the model on the
     mesh's first device, B divisible by ``dp``): it lays out an
-    unsharded state first (:func:`shard_state`); it replays a graph on a
-    mesh that repeats one card and runs eagerly over distinct cards (see
-    the module's docstring)."""
+    unsharded state first (:func:`shard_state`), runs its backward on
+    the calling thread, and replays one graph on every mesh, over all
+    its cards where they are distinct (see the module's docstring)."""
     if _sharded_mesh(mesh):
         return _make_sharded_step(model, optimizer, mesh, margin, scale, compute_dtype)
 
@@ -364,10 +371,13 @@ def _make_sharded_step(model, optimizer, mesh, margin, scale, compute_dtype):
     def body(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         loss = sharded_arcface_loss(model, state.classifier, images, labels, mesh, margin,
                                     scale, compute_dtype)
-        optimizer_step(optimizer, state.params + list(state.classifier), state.opt_state, loss)
+        # one thread, one ready queue: the cards' gradient terms add in a fixed order
+        with torch.autograd.set_multithreading_enabled(False):
+            optimizer_step(optimizer, state.params + list(state.classifier), state.opt_state,
+                           loss)
         return (loss.detach(),)
 
-    return GraphedStep(body, _advance, prepare=lay_out)
+    return GraphedStep(body, _advance, prepare=lay_out, devices=mesh.distinct_devices())
 
 
 def _tensors(state: TrainState) -> List[torch.Tensor]:

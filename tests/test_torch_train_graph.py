@@ -165,12 +165,14 @@ class FakeTrainCall:
 
     built = []
 
-    def __init__(self, fn, inputs, pool, state=(), writes=None):
+    def __init__(self, fn, inputs, pool, state=(), writes=None, others=()):
         assert writes is not None, "a training step is built in the training form"
         self.fn, self.inputs, self.state = fn, tuple(inputs), tuple(state)
+        self.others = tuple(others)
         before = [t.detach().clone() for t in writes]
         graphs.warm_up(fn, self.inputs, self.state, writes)
-        self.build_kept_state = all(torch.equal(a, b) for a, b in zip(before, writes))
+        self.build_kept_state = all(a.is_meta or torch.equal(a, b)  # meta: no data to compare
+                                    for a, b in zip(before, writes))
         self.replays = 0
         FakeTrainCall.built.append(self)
 

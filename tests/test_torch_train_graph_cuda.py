@@ -24,8 +24,11 @@ call after its first step, refreshes of the pool included, under
 too.  A capture that fails raises, nothing runs eagerly in its place,
 and the next capture into the device's pool works, a sharded one's
 too.  The sharded step is held to the same bitwise comparison (C = 7
-over two column blocks); with two cards or more, a sharded step over
-distinct cards captures nothing and trains eagerly.
+over two column blocks), on the card repeated and, with two cards or
+more, over distinct cards, where its graph spans every card of the
+mesh; there two eager runs from one state are bitwise equal too, a
+failed capture leaves every card capturing, and eager work on another
+card after a replay sees the replay's update.
 """
 
 import contextlib
@@ -131,8 +134,8 @@ def test_graph_equals_eager_bitwise(case, exact_cuda, monkeypatch):
     real = graphs.CapturedCall
 
     class Recording(real):
-        def __init__(self, fn, inputs, pool, state=(), writes=None):
-            super().__init__(fn, inputs, pool, state, writes)
+        def __init__(self, fn, inputs, pool, state=(), writes=None, others=()):
+            super().__init__(fn, inputs, pool, state, writes, others)
             torch.cuda.synchronize()
             built.append((self, [t.detach().clone() for t in writes]))
 
@@ -307,13 +310,24 @@ def test_sharded_graph_equals_eager_bitwise(exact_cuda, monkeypatch):
     classifier blocks, Adam moments and counts bitwise equal after every
     step; building the graph left the state as it was; one key
     replayed."""
-    mesh = make_mesh((2, 2), devices=[exact_cuda] * 4)
+    _sharded_graph_vs_eager(make_mesh((2, 2), devices=[exact_cuda] * 4), monkeypatch)
+
+
+def test_sharded_graph_over_distinct_cards_equals_eager_bitwise(exact_cuda, monkeypatch):
+    """The same over distinct cards: one graph over every card of the
+    mesh, bitwise equal to the eager step after each of 5 float32 steps,
+    built without moving the state, one key; each classifier block and
+    its moments on its card."""
+    _sharded_graph_vs_eager(_distinct_mesh(), monkeypatch)
+
+
+def _sharded_graph_vs_eager(mesh, monkeypatch):
     built = []
     real = graphs.CapturedCall
 
     class Recording(real):
-        def __init__(self, fn, inputs, pool, state=(), writes=None):
-            super().__init__(fn, inputs, pool, state, writes)
+        def __init__(self, fn, inputs, pool, state=(), writes=None, others=()):
+            super().__init__(fn, inputs, pool, state, writes, others)
             _synchronize(mesh)
             built.append((self, [t.detach().clone() for t in writes]))
 
@@ -331,35 +345,106 @@ def test_sharded_graph_equals_eager_bitwise(exact_cuda, monkeypatch):
             assert a.device == b.device and torch.equal(a, b), i
     assert len(graphed.graphs) == 1 and len(eager.graphs) == 0
     ((call, after_build),) = built
+    assert call.devices == tuple(mesh.distinct_devices())
     assert all(torch.equal(a, b) for a, b in zip(after_build, start)), "the build moved the state"
     counts = [t for t in _tensors(state_g) if t.dtype == torch.int32]
     assert counts and all(int(t) == STEPS for t in counts)
-    assert {b.device for b in state_g.classifier} == set(mesh.devices[0, :])
+    _blocks_on_their_cards(state_g, mesh)
     graphed.release_graphs()
 
 
-def test_sharded_step_over_distinct_cards_stays_eager(exact_cuda, monkeypatch):
-    """Over distinct cards the sharded step runs eagerly by design (its
-    eager step is not bitwise reproducible there, so no graph can be
-    shown equal to it): nothing is captured, each classifier block and
-    its moments stay on their card, and the steps train."""
-    mesh = _distinct_mesh()
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("captured over distinct cards")
-
-    monkeypatch.setattr(graphs, "CapturedCall", refuse)
-    step, state, batches = _sharded(mesh)
-    losses = []
-    for i in range(STEPS):
-        state, loss = step(state, *batches[i])
-        losses.append(float(loss))
-    assert len(step.graphs) == 0 and state.step == STEPS
-    assert all(np.isfinite(v) for v in losses)
+def _blocks_on_their_cards(state, mesh):
     n = len(state.params)
     adam = state.opt_state[0]
     for j, dev in enumerate(mesh.devices[0, :]):
         assert state.classifier[j].device == adam.mu[n + j].device == adam.nu[n + j].device == dev
+
+
+def test_sharded_eager_over_distinct_cards_is_reproducible(exact_cuda):
+    """Two eager runs of the sharded step over distinct cards from one
+    state, 5 float32 steps: the loss and every tensor of the state
+    bitwise equal after each step (the backward runs on the calling
+    thread, so every gradient's terms from several cards add in one
+    order)."""
+    mesh = _distinct_mesh()
+    runs = []
+    for _ in range(2):
+        step, state, batches = _sharded(mesh)
+        step._graphed = lambda device: False
+        after = []
+        for i in range(STEPS):
+            state, loss = step(state, *batches[i])
+            _synchronize(mesh)
+            after.append([loss.clone()] + [t.detach().clone() for t in _tensors(state)])
+        assert len(step.graphs) == 0 and state.step == STEPS
+        runs.append(after)
+    for i, (a, b) in enumerate(zip(*runs)):
+        differ = [j for j, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+        assert len(a) == len(b) and not differ, (i, len(differ), len(a), differ[:10])
+
+
+def test_failed_capture_over_distinct_cards_raises(exact_cuda, monkeypatch):
+    """A sharded step over distinct cards that reads the card back cannot
+    be captured: it raises, keeps no key, leaves the state as it was,
+    and no card is left routing its allocations to a pool: the next
+    capture over every card of the mesh works, and so does a one-device
+    capture on each of them."""
+    mesh = _distinct_mesh()
+    real = trainer.sharded_arcface_loss
+
+    def reading(*args, **kwargs):
+        loss = real(*args, **kwargs)
+        loss.item()  # a host read: refused inside a capture
+        return loss
+
+    monkeypatch.setattr(trainer, "sharded_arcface_loss", reading)
+    step, state, batches = _sharded(mesh)
+    before = [t.detach().clone() for t in _tensors(state)]
+    with pytest.raises(RuntimeError):
+        step(state, *batches[0])
+    assert len(step.graphs) == 0
+    _synchronize(mesh)
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(state), before))
+    monkeypatch.setattr(trainer, "sharded_arcface_loss", real)
+    good, state, batches = _sharded(mesh)
+    for i in range(2):
+        state, loss = good(state, *batches[i])
+    _synchronize(mesh)
+    assert len(good.graphs) == 1 and bool(torch.isfinite(loss)) and state.step == 2
+    ((_, call),) = good.graphs
+    assert call.devices == tuple(mesh.distinct_devices())
+    for dev in mesh.distinct_devices():
+        x = torch.zeros(4, device=dev)
+        one = graphs.GraphedStep(lambda st, b: (st[0].add_(b).sum(),), lambda st, out: out[0])
+        for _ in range(2):
+            total = one([x], torch.ones(4, device=dev))
+        assert len(one.graphs) == 1 and float(total) == 8.0, dev
+
+
+def test_replay_then_eager_read_on_another_card(exact_cuda):
+    """Eager work on another card of the mesh, issued right after a
+    replay with no synchronisation (a copy of the last classifier block
+    and its moments on that card's current stream), sees that replay's
+    update: the copies equal the eager step's blocks after each step."""
+    mesh = _distinct_mesh()
+    eager, state_e, batches_e = _sharded(mesh)
+    eager._graphed = lambda device: False
+    graphed, state_g, batches_g = _sharded(mesh)
+    for i in range(STEPS):
+        state_g, _ = graphed(state_g, *batches_g[i])
+        adam = state_g.opt_state[0]
+        dev = state_g.classifier[-1].device
+        assert dev != mesh.devices[0, 0]
+        with torch.cuda.device(dev):
+            read = [state_g.classifier[-1].detach().clone(), adam.mu[-1].clone(),
+                    adam.nu[-1].clone()]
+        state_e, _ = eager(state_e, *batches_e[i])
+        _synchronize(mesh)
+        adam_e = state_e.opt_state[0]
+        want = [state_e.classifier[-1], adam_e.mu[-1], adam_e.nu[-1]]
+        assert all(torch.equal(a, b) for a, b in zip(read, want)), i
+    assert len(graphed.graphs) == 1
+    graphed.release_graphs()
 
 
 def test_failed_sharded_capture_raises(exact_cuda, monkeypatch):

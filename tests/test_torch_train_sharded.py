@@ -12,7 +12,9 @@ bitwise equal to the eager step on four meshes, against JAX's jitted
 sharded step at case 1's tolerances, its keys (the state laid out
 first, JAX's retrace for another batch size, another mesh's state
 refused), its body under ``NoHostReads``, and the dry run's
-``train_plane`` through it.
+``train_plane`` through it; a state over two devices captured over
+both, each with its own pool (renewed on every card when a build
+fails), and the backward run on the calling thread.
 
 Tolerances.  Against JAX: the loss at rtol 1e-4 over three steps; one
 step's parameters and classifier by the Adam-direction bound of
@@ -47,6 +49,7 @@ from fire_tpu_torch.models.facenet import Block35, tiny_facenet
 from fire_tpu_torch.models.layers import BatchNorm
 from fire_tpu_torch.parallel.shards import ShardList
 from fire_tpu_torch.parallel.mesh import column_devices, make_mesh, split_columns
+from fire_tpu_torch.runtime.graphs import GraphedStep
 from fire_tpu_torch.train import __main__ as arcface_cli
 from fire_tpu_torch.train import optim, state_shardings
 from fire_tpu_torch.train.losses import column_sharded_cross_entropy
@@ -329,14 +332,16 @@ def test_unsharded_state_passed_twice_keeps_one_key(fake_capture):
     assert not torch.equal(runs["graph"][1][0][0], runs["graph"][1][1][0])
 
 
-def test_sharded_step_captures_only_on_one_card(fake_capture):
-    """The choice between the graph and the eager step is read from
-    where the state lies: a state on one device is captured (the
-    sharded step on a mesh that repeats one card, as the CPU meshes
-    here do), a state whose tensors lie on two devices runs eagerly (the
-    sharded step over distinct cards; here a second tensor on the
-    ``meta`` device, which the body leaves alone)."""
-    from fire_tpu_torch.runtime.graphs import GraphedStep
+def test_state_on_several_devices_is_captured_over_all_of_them(fake_capture, monkeypatch):
+    """Where the state lies never turns the graph off: a state on one
+    device is captured (the sharded step on a mesh that repeats one
+    card, as the CPU meshes here do), and so is a state whose tensors
+    lie on two devices (the sharded step over distinct cards; here a
+    second tensor on the ``meta`` device, which the body leaves alone):
+    the second device goes to the capture as its other card, with that
+    device's own pool.  Each key is captured once and replayed; nothing
+    runs eagerly beside the replays."""
+    from fire_tpu_torch.runtime import graphs
 
     def body(state, x):
         return (state[0].add_(x).sum(),)
@@ -344,13 +349,78 @@ def test_sharded_step_captures_only_on_one_card(fake_capture):
     def finish(state, out):
         return state, out[0]
 
-    for other, captured in (("cpu", 1), ("meta", 0)):
+    pools, meta = iter(range(100)), torch.device("meta")
+    monkeypatch.setattr(graphs, "_POOLS", {})
+    monkeypatch.setattr(graphs, "_new_pool", lambda: next(pools))
+    for other in ("cpu", "meta"):
         step = _graph_path(GraphedStep(body, finish))
         state = [torch.zeros(3), torch.zeros(3, device=other)]
         for _ in range(2):
             _, total = step(state, torch.ones(3))
-        assert float(total) == 6.0 and len(step.graphs) == captured, other
-    assert [c.replays for c in fake_capture] == [2]
+        # the fake's warm-up leaves the state as it was: two replays, two adds
+        assert float(total) == 6.0 and len(step.graphs) == 1, other
+        others = [] if other == "cpu" else [(meta, graphs._POOLS[meta][0])]
+        assert list(fake_capture[-1].others) == others, other
+    assert [c.replays for c in fake_capture] == [2, 2]
+    assert graphs._POOLS[torch.device("cpu")][0] != graphs._POOLS[meta][0]
+
+
+def test_failed_build_renews_the_pool_of_every_card(monkeypatch):
+    """``GraphCache.get`` hands a graph over several cards each card's
+    shared pool, the first card's first; a build that fails keeps no key
+    and leaves every one of those cards to take a new pool, and a built
+    graph is a user of each card's pool."""
+    from fire_tpu_torch.runtime import graphs
+
+    pools, cpu, meta = iter(range(100)), torch.device("cpu"), torch.device("meta")
+    monkeypatch.setattr(graphs, "_POOLS", {})
+    monkeypatch.setattr(graphs, "_new_pool", lambda: next(pools))
+    cache, given = graphs.GraphCache(), []
+
+    def failing(*pools):
+        given.append(pools)
+        raise RuntimeError("the capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        cache.get((cpu, "key"), failing, [meta])
+    assert len(cache) == 0 and graphs._POOLS == {}
+
+    class Graph:
+        pass
+
+    graph = cache.get((cpu, "key"), lambda *pools: given.append(pools) or Graph(), [meta])
+    assert given == [(0, 1), (2, 3)] and cache.find((cpu, "key")) is graph
+    assert all(graph in graphs._POOLS[d][1] for d in (cpu, meta))
+
+
+def test_sharded_backward_runs_on_the_calling_thread(monkeypatch):
+    """The sharded step differentiates with the autograd engine's
+    multithreading off, read from inside its backward; the one-device
+    step's backward keeps the engine's default (on)."""
+    from fire_tpu_torch.train import trainer
+
+    seen = []
+
+    class Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            seen.append(torch._C._is_multithreading_enabled())
+            return g
+
+    for name, mesh in (("sharded_arcface_loss", _mesh()), ("arcface_loss", None)):
+        real = getattr(trainer, name)
+        monkeypatch.setattr(trainer, name, lambda *a, real=real, **k: Probe.apply(real(*a, **k)))
+        model = tiny_facenet(32)
+        opt = optim.adamw(LR)
+        state = init_state(model, JAX_INIT_SEED, 8, opt, mesh=mesh)
+        images, labels = _batch()
+        make_train_step(model, opt, mesh=mesh)(state, torch.tensor(images), torch.tensor(labels))
+    assert seen == [False, True]
+    assert torch._C._is_multithreading_enabled()
 
 
 def test_sharded_body_makes_no_host_reads():
