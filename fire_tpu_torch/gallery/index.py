@@ -465,6 +465,7 @@ class ShardedGalleryView:
         self.axis = axis
         self._gal_sharded = None
         self._synced = 0  # gallery rows reflected in the shards
+        self._staging = HostStaging()  # the queries' pinned upload buffers
         self.refresh()
 
     def refresh(self, force: bool = False) -> None:
@@ -517,8 +518,11 @@ class ShardedGalleryView:
             return None, None
         if count != self._synced:
             self.refresh()
-        home = self._gal_sharded[0].device
-        q = torch.from_numpy(np.ascontiguousarray(embeddings, np.float32)).to(home)
+        # the queries go up to the first shard's device without waiting for
+        # it (JAX's device_put does not wait either): the two readbacks are
+        # the call's only waits
+        q = self._staging.upload(np.ascontiguousarray(embeddings, np.float32),
+                                 self._gal_sharded[0].device)
         sims, idx = sharded_cosine_topk(self.mesh, q, self._gal_sharded, count,
                                         k=min(k, count), axis=self.axis)
         return idx.cpu().numpy(), 1.0 - sims.cpu().numpy()

@@ -59,13 +59,20 @@ def indexed(device) -> torch.device:
 
 
 # One memory pool per device for every graph of the process, with the
-# graphs that use it.  Graphs on a device replay one after another on its
-# stream, and every tensor that outlives a replay (inputs, states,
-# outputs, what passes between parts) is held by its graph, so one
-# graph's scratch may be another's.  A pool whose graphs are all gone is
-# released by PyTorch and not captured into again: the next graph takes a
-# new one.
-_POOLS: Dict[torch.device, Tuple[object, "weakref.WeakSet"]] = {}
+# graphs that use it and, of those, the graphs whose capture began into
+# it on that device (a graph over several cards only routes its other
+# cards' allocations to theirs).  Graphs on a device replay one after
+# another on its stream, and every tensor that outlives a replay (inputs,
+# states, outputs, what passes between parts) is held by its graph, so
+# one graph's scratch may be another's.  A pool whose graphs are all gone
+# is released by PyTorch and not captured into again: the next graph
+# takes a new one.  PyTorch's pinned-host allocator counts a pool's users
+# apart: a capture that begins into the pool takes a count, and its graph
+# gives it back when it goes; routed allocations take none.  It refuses
+# (an internal assert) a capture into a pool whose count came back to 0,
+# so a capture begins into a pool only while a graph that began one into
+# it lives.
+_POOLS: Dict[torch.device, Tuple[object, "weakref.WeakSet", "weakref.WeakSet"]] = {}
 # One side stream per device for every warm-up and capture, so that the
 # blocks a warm-up leaves in the allocator's cache serve the next one.
 _SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
@@ -308,9 +315,10 @@ class GraphCache:
         if graph is not None:
             return graph
         cards = (key[0], *devices)
-        for dev in cards:
-            if dev not in _POOLS or not _POOLS[dev][1]:
-                _POOLS[dev] = (_new_pool(), weakref.WeakSet())
+        for i, dev in enumerate(cards):
+            # the first card's capture begins into its pool; the others route
+            if dev not in _POOLS or not _POOLS[dev][2 if i == 0 else 1]:
+                _POOLS[dev] = (_new_pool(), weakref.WeakSet(), weakref.WeakSet())
         try:
             graph = self._graphs[key] = build(*(_POOLS[dev][0] for dev in cards))
         except BaseException:
@@ -321,6 +329,7 @@ class GraphCache:
             raise
         for dev in cards:
             _POOLS[dev][1].add(graph)
+        _POOLS[key[0]][2].add(graph)
         while self.limit is not None and len(self._graphs) > self.limit:
             self._graphs.popitem(last=False)
         return graph

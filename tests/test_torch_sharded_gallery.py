@@ -3,6 +3,9 @@
 eight CPU devices, the port on a mesh of ``"cpu"`` entries.  Indices are
 exact, similarities within 1e-6."""
 
+import os
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -141,3 +144,58 @@ def test_sharded_view_matches_jax_after_enrolments(n):
     assert ids.shape == (1, 1) and int(ids[0, 0]) == 77 and abs(float(dists[0, 0])) < 1e-3  # bf16
     empty = ShardedGalleryView(DeviceGallery(D, capacity=256, device="cpu"), tmesh)
     assert empty.query_batch(q) == (None, None)
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_sharded_view_sends_its_queries_through_the_staging(n, monkeypatch):
+    """The view's queries go to the first shard's device through
+    ``HostStaging.upload`` (on a card a pinned buffer copied up without a
+    wait, as JAX's ``device_put``), once a call; the view itself makes no
+    ``torch.from_numpy`` and no ``Tensor.to`` (a copy out of pageable
+    memory, which waits for the card).  The answers still equal JAX's
+    view: indices exact, similarities within 1e-6."""
+    from fire_tpu_torch.gallery import index as TI
+    from fire_tpu_torch.runtime.graphs import HostStaging
+
+    rng = np.random.default_rng(40 + n)
+    rows = _unit(rng, 200)
+    jg, tg = JGallery(D, capacity=256), DeviceGallery(D, capacity=256, device="cpu")
+    for i, r in enumerate(rows):
+        jg.add(r, f"p{i}", i + 1)
+        tg.add(r, f"p{i}", i + 1)
+    jmesh, tmesh = _meshes(n)
+    jview, tview = JView(jg, jmesh), ShardedGalleryView(tg, tmesh)
+    tview.refresh()  # enrolments are flushed here, not by the queries below
+
+    uploads, moves = [], []
+    real_upload, real_to, real_from_numpy = HostStaging.upload, torch.Tensor.to, torch.from_numpy
+
+    def upload(staging, x, device, *args, **kw):
+        uploads.append((type(x), torch.device(device)))
+        return real_upload(staging, x, device, *args, **kw)
+
+    def in_view(what):
+        caller = sys._getframe(2)
+        if os.path.samefile(caller.f_code.co_filename, TI.__file__):
+            moves.append((what, caller.f_code.co_name, caller.f_lineno))
+
+    def to(t, *args, **kw):
+        in_view("Tensor.to")
+        return real_to(t, *args, **kw)
+
+    def from_numpy(a):
+        in_view("torch.from_numpy")
+        return real_from_numpy(a)
+
+    monkeypatch.setattr(HostStaging, "upload", upload)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    monkeypatch.setattr(torch, "from_numpy", from_numpy)
+    q = np.concatenate([rows[[3, 120, 199]], _unit(rng, 5)])
+    for k in (1, 5):
+        jids, jd = jview.query_batch(q, k=k)
+        tids, td = tview.query_batch(q, k=k)
+        np.testing.assert_array_equal(tids, jids)
+        np.testing.assert_allclose(td, jd, atol=1e-6)
+    assert tids[:3, 0].tolist() == [3, 120, 199]
+    assert uploads == [(np.ndarray, tview._gal_sharded[0].device)] * 2
+    assert moves == []

@@ -393,6 +393,44 @@ def test_failed_build_renews_the_pool_of_every_card(monkeypatch):
     assert all(graph in graphs._POOLS[d][1] for d in (cpu, meta))
 
 
+def test_a_capture_begins_into_a_pool_only_while_one_that_began_into_it_lives(monkeypatch):
+    """PyTorch's pinned-host allocator counts the captures that begin into
+    a pool, not a graph over several cards routing its other cards'
+    allocations there, and refuses a capture into a pool whose count came
+    back to 0 (on four cards: ``dryrun_multichip(4)``'s real plane after
+    its stand-in plane, with the train plane's graph alive).  So a graph
+    that begins its capture on a card takes the card's pool only while a
+    graph that began one into it lives; routing needs only a live user."""
+    import gc
+
+    from fire_tpu_torch.runtime import graphs
+
+    pools, cpu, meta = iter(range(100)), torch.device("cpu"), torch.device("meta")
+    monkeypatch.setattr(graphs, "_POOLS", {})
+    monkeypatch.setattr(graphs, "_new_pool", lambda: next(pools))
+    given = []
+
+    class Graph:
+        pass
+
+    def build(*pools):
+        given.append(pools)
+        return Graph()
+
+    train = graphs.GraphCache()
+    train.get((cpu, "train"), build, [meta])  # meta's pool 1 is only routed into
+    standin = graphs.GraphCache()
+    standin.get((meta, "stand-in"), build)  # so meta's capture takes a pool of its own
+    standin.get((meta, "stand-in, another key"), build)  # and shares it while that lives
+    del standin
+    gc.collect()
+    real = graphs.GraphCache()
+    real.get((meta, "real"), build)  # not pool 2, which its captures gave back
+    train.get((cpu, "train, another key"), build, [meta])  # routed into meta's live pool
+    assert given == [(0, 1), (2,), (2,), (3,), (0, 3)]
+    assert len(graphs._POOLS[meta][2]) == 1 and len(graphs._POOLS[meta][1]) == 2
+
+
 def test_sharded_backward_runs_on_the_calling_thread(monkeypatch):
     """The sharded step differentiates with the autograd engine's
     multithreading off, read from inside its backward; the one-device
