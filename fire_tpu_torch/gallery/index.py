@@ -36,6 +36,7 @@ from fire_tpu_torch.device import DeviceLike, resolve_device
 from fire_tpu_torch.gallery.crypto import Encryptor
 from fire_tpu_torch.ops.cosine_top1 import cosine_top1
 from fire_tpu_torch.ops.gallery_match import cosine_topk, cosine_topk_f32
+from fire_tpu_torch.pipeline.timing import span
 from fire_tpu_torch.runtime.graphs import HostStaging
 
 log = logging.getLogger(__name__)
@@ -385,7 +386,10 @@ class DeviceGallery:
             # its two readbacks are the call's only waits, as in JAX
             q = self._staging.upload(embeddings, self.device)
             sims, idx = cosine_top1(q, self._gal16, self.count)
-            return idx.cpu().numpy()[:, None], 1.0 - sims.cpu().numpy()[:, None]
+            with span("readback"):
+                ids = idx.cpu().numpy()[:, None]
+            with span("readback"):
+                return ids, 1.0 - sims.cpu().numpy()[:, None]
         q = torch.from_numpy(embeddings).to(self.device)
         valid = torch.arange(self.padded, device=self.device) < self.count
         k = min(k, self.count)
@@ -396,8 +400,10 @@ class DeviceGallery:
                 s, j = cosine_topk_f32(rows, self._gal, valid, k)
             else:
                 s, j = cosine_topk(rows, self._gal16, valid, k)
-            sims.append(s.cpu().numpy())
-            idx.append(j.cpu().numpy())
+            with span("readback"):
+                sims.append(s.cpu().numpy())
+            with span("readback"):
+                idx.append(j.cpu().numpy())
         return np.concatenate(idx), 1.0 - np.concatenate(sims)
 
     def find_similar(self, embedding: np.ndarray, threshold: float, k: int = 50) -> List[int]:
@@ -517,7 +523,8 @@ class ShardedGalleryView:
         if count == 0:
             return None, None
         if count != self._synced:
-            self.refresh()
+            with span("refresh"):
+                self.refresh()
         # the queries go up to the first shard's device without waiting for
         # it (JAX's device_put does not wait either): the two readbacks are
         # the call's only waits
@@ -525,4 +532,7 @@ class ShardedGalleryView:
                                  self._gal_sharded[0].device)
         sims, idx = sharded_cosine_topk(self.mesh, q, self._gal_sharded, count,
                                         k=min(k, count), axis=self.axis)
-        return idx.cpu().numpy(), 1.0 - sims.cpu().numpy()
+        with span("readback"):
+            ids = idx.cpu().numpy()
+        with span("readback"):
+            return ids, 1.0 - sims.cpu().numpy()

@@ -22,6 +22,7 @@ import torch
 from fire_tpu_torch.ops.boxes import top_k_stable
 from fire_tpu_torch.ops.gallery_match import cosine_topk
 from fire_tpu_torch.parallel.mesh import Mesh
+from fire_tpu_torch.pipeline.timing import span
 
 Sharded = List[torch.Tensor]
 
@@ -53,7 +54,8 @@ def sharded_cosine_topk(
     an (N,) bool row mask, or a row count (each shard then derives its
     mask from its index, so enrolment only changes one number).
     Returns ``(sims (B, k), global row idx (B, k))`` on the first shard's
-    device."""
+    device.  Inside a timer's span, each shard's query copy and top-k
+    launch are its span ``shard<s>``."""
     shards = gallery if isinstance(gallery, list) else shard_gallery(mesh, gallery, axis)
     n_shards = mesh.shape[axis]
     if len(shards) != n_shards:
@@ -65,13 +67,14 @@ def sharded_cosine_topk(
     kk = min(k, rows_per)
     sims, idx = [], []
     for s, g in enumerate(shards):
-        if count_form:
-            mask = torch.arange(rows_per, device=g.device) + s * rows_per < int(valid)
-        else:
-            mask = masks[s]
-        l_sims, l_idx = cosine_topk(queries.to(g.device), g, mask, kk)
-        sims.append(l_sims)
-        idx.append(l_idx + s * rows_per)
+        with span(f"shard{s}"):
+            if count_form:
+                mask = torch.arange(rows_per, device=g.device) + s * rows_per < int(valid)
+            else:
+                mask = masks[s]
+            l_sims, l_idx = cosine_topk(queries.to(g.device), g, mask, kk)
+            sims.append(l_sims)
+            idx.append(l_idx + s * rows_per)
     home = shards[0].device
     all_sims = torch.cat([t.to(home) for t in sims], dim=1)
     all_idx = torch.cat([t.to(home) for t in idx], dim=1)

@@ -1,4 +1,16 @@
-"""Batched stream pipeline: engine, batched step, recognizer, I/O, timing."""
+"""Batched stream pipeline: engine, batched step, recognizer, I/O, timing.
 
-from fire_tpu_torch.pipeline.engine import DeviceEngine  # noqa: F401
-from fire_tpu_torch.pipeline.recognizer import FaceRecognition  # noqa: F401
+``DeviceEngine`` and ``FaceRecognition`` are loaded at first use, so that
+the modules below the recognizer (the tracker, the gallery) can import
+:mod:`fire_tpu_torch.pipeline.timing` without the recognizer that
+imports them."""
+
+
+def __getattr__(name):
+    if name == "DeviceEngine":
+        from fire_tpu_torch.pipeline.engine import DeviceEngine
+        return DeviceEngine
+    if name == "FaceRecognition":
+        from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+        return FaceRecognition
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -65,6 +65,7 @@ from fire_tpu_torch.models.yunet import YuNet, decode_yunet
 from fire_tpu_torch.ops.affine import align_faces_160
 from fire_tpu_torch.ops.gallery_match import l2_normalize
 from fire_tpu_torch.ops.image import bgr_to_rgb, crop_and_resize, crop_and_resize_mm, letterbox
+from fire_tpu_torch.pipeline.timing import span
 from fire_tpu_torch.runtime.graphs import GraphCache, HostStaging, indexed, replay
 from fire_tpu_torch.weights import (flax_shapes, from_flax_blazeface, from_flax_facenet,
                                     from_flax_retinaface, from_flax_yunet, load_into, materialize,
@@ -633,7 +634,8 @@ class DeviceEngine:
             packed = self._detect(frame_bgr, "detect")[1]
         else:
             packed = self._pack_dets(self.detect(frame_bgr))
-        packed = packed.cpu().numpy()
+        with span("readback"):
+            packed = packed.cpu().numpy()
         return [
             {"bbox": row[:4].astype(np.int32).tolist(),
              "landmarks": row[4:14].reshape(5, 2).astype(np.int32),
@@ -673,7 +675,8 @@ class DeviceEngine:
 
         emb = self._run((kind, tuple(frame.shape[:2]), bucket), self.encoder, run,
                         (frame, padded))[0]
-        return emb.cpu().numpy()[:k]
+        with span("readback"):
+            return emb.cpu().numpy()[:k]
 
     def encode_boxes(self, frame_bgr: Frame, boxes_xywh: np.ndarray) -> np.ndarray:
         """Encode all K face boxes of a frame: (K, 4) pixel xywh →

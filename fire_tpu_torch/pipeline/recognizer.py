@@ -11,7 +11,11 @@ Differences from the JAX class, all deliberate:
 * files and windows go through :mod:`fire_tpu_torch.utils.imageio`, so
   BMP / PPM images need no OpenCV and anything else imports it at the
   call;
-* the timer also records ``tracker`` and ``match`` stages;
+* the timer also records ``tracker`` and ``match`` stages, and the
+  per-frame path is timed in nested spans (``frame``, ``upload``,
+  ``labels``, each device-to-host wait as ``<stage>.readback``, the
+  sharded view's ``match.refresh`` and ``match.shard<s>``), which show
+  by name in a ``torch.profiler`` trace (``--profile DIR``);
 * an encrypted image save encodes JPEG whatever the path's name, as JAX
   does, when OpenCV is installed; without it a ``.bmp`` or ``.ppm`` path
   is encoded in its own format (one logged warning) and any other name
@@ -66,6 +70,7 @@ from fire_tpu_torch.pipeline.stream import (CAP_PROP_FPS, CAP_PROP_FRAME_HEIGHT,
                                             CAP_PROP_FRAME_WIDTH, FrameSequenceCapture,
                                             PrefetchReader)
 from fire_tpu_torch.pipeline.timing import StageTimer
+from fire_tpu_torch.runtime import graphs
 from fire_tpu_torch.track.sort import Sort
 from fire_tpu_torch.utils import imageio
 
@@ -516,48 +521,59 @@ class FaceRecognition:
         lifecycle.  Each stage ends in a readback, so the host clock
         around it times synchronised work.  On a card detect, the tracker
         and each encode replay their captured graphs, and those readbacks
-        and the gallery query's two are the frame's only waits."""
-        timer = self.timer
-        timer.start()
+        and the gallery query's two are the frame's only waits.
+
+        The frame is the timer's span ``frame`` (carrying ``frame_index``
+        to the profiler), tiled by the spans ``upload``, ``detection``,
+        ``tracker``, ``labels`` (before the encode and after the match),
+        ``encoding`` and ``match``; every wait is a ``readback`` span
+        inside its stage."""
+        self.timer.start()
         self.frame_index += 1
+        with self.timer.span("frame", frame=self.frame_index):
+            return self._recognize_frame(image, rename_label)
+
+    def _recognize_frame(self, image, rename_label: Optional[str]) -> List[dict]:
+        timer = self.timer
         detecting = self.frame_index % self.detection_interval == 0
 
         # one host→device copy per frame, shared by detect and encode: on a
         # card through pinned memory into the static frame input that the
         # detect and encode graphs of this size read
-        image_dev = self.engine.to_device(image)
+        with timer.span("upload"):
+            image_dev = self.engine.to_device(image)
 
         detected: List[dict] = []
         if detecting:
-            t0 = time.perf_counter()
-            detected = self.detect_faces(image_dev)
-            timer.add("detection", time.perf_counter() - t0)
+            with timer.span("detection"):
+                detected = self.detect_faces(image_dev)
             self.counters["faces_detected"] += len(detected)
-        t0 = time.perf_counter()
-        tracks = self.face_tracker.update(
-            [{"bbox": d["bbox"], "confidence": d["confidence"]} for d in detected])
-        timer.add("tracker", time.perf_counter() - t0)
+        with timer.span("tracker"):
+            tracks = self.face_tracker.update(
+                [{"bbox": d["bbox"], "confidence": d["confidence"]} for d in detected])
 
-        # drop state of dead tracks
-        active = {t["id"] for t in tracks}
-        for tid in set(self.track_id_to_label) - active:
-            del self.track_id_to_label[tid]
-            self.unknown_faces.pop(tid, None)
+        with timer.span("labels"):
+            # drop state of dead tracks
+            active = {t["id"] for t in tracks}
+            for tid in set(self.track_id_to_label) - active:
+                del self.track_id_to_label[tid]
+                self.unknown_faces.pop(tid, None)
 
-        # split cached / to-encode tracks
-        h, w = image.shape[:2]
-        to_encode = []
-        for trk in tracks:
-            if trk["id"] in self.track_id_to_label:
-                continue
-            x, y, bw, bh = trk["bbox"]
-            x, y = max(0, x), max(0, y)
-            bw, bh = max(0, bw), max(0, bh)
-            bw, bh = min(bw, w - x), min(bh, h - y)
-            if bw <= 0 or bh <= 0:
-                log.warning("Face image has zero size for track ID %s. Skipping.", trk["id"])
-                continue
-            to_encode.append((trk["id"], [x, y, bw, bh], trk.get("src_det", -1)))
+            # split cached / to-encode tracks
+            h, w = image.shape[:2]
+            to_encode = []
+            for trk in tracks:
+                if trk["id"] in self.track_id_to_label:
+                    continue
+                x, y, bw, bh = trk["bbox"]
+                x, y = max(0, x), max(0, y)
+                bw, bh = max(0, bw), max(0, bh)
+                bw, bh = min(bw, w - x), min(bh, h - y)
+                if bw <= 0 or bh <= 0:
+                    log.warning("Face image has zero size for track ID %s. Skipping.",
+                                trk["id"])
+                    continue
+                to_encode.append((trk["id"], [x, y, bw, bh], trk.get("src_det", -1)))
 
         # one encode for every new face of the frame.  With align_video
         # on, a track updated by a detection this frame encodes a
@@ -565,31 +581,29 @@ class FaceRecognition:
         # a coasting track falls back to the raw box crop.
         embs = {}
         if to_encode:
-            t0 = time.perf_counter()
-            lms_of = {}
-            if self.align_video and detecting:
-                for si, d in enumerate(detected):
-                    lm = np.asarray(d.get("landmarks", ()), np.float32)
-                    if lm.shape == (5, 2) and np.abs(lm).sum() > 0:
-                        # (left_eye, right_eye, nose) from the
-                        # (right, left, nose, ...) layout: landmarks3's swap
-                        lms_of[si] = lm[[1, 0, 2]]
-            ali = [i for i, (_, _, src) in enumerate(to_encode) if src in lms_of]
-            rest = [i for i in range(len(to_encode)) if i not in set(ali)]
-            batch = np.zeros((len(to_encode), self.embedding_dim), np.float32)
-            if ali:
-                lms3 = np.stack([lms_of[to_encode[i][2]] for i in ali])
-                batch[ali] = self.engine.encode_landmarks(image_dev, lms3)
-            if rest:
-                boxes = np.asarray([to_encode[i][1] for i in rest], np.float32)
-                batch[rest] = self.engine.encode_boxes(image_dev, boxes)
-            timer.add("encoding", time.perf_counter() - t0)
+            with timer.span("encoding"):
+                lms_of = {}
+                if self.align_video and detecting:
+                    for si, d in enumerate(detected):
+                        lm = np.asarray(d.get("landmarks", ()), np.float32)
+                        if lm.shape == (5, 2) and np.abs(lm).sum() > 0:
+                            # (left_eye, right_eye, nose) from the
+                            # (right, left, nose, ...) layout: landmarks3's swap
+                            lms_of[si] = lm[[1, 0, 2]]
+                ali = [i for i, (_, _, src) in enumerate(to_encode) if src in lms_of]
+                rest = [i for i in range(len(to_encode)) if i not in set(ali)]
+                batch = np.zeros((len(to_encode), self.embedding_dim), np.float32)
+                if ali:
+                    lms3 = np.stack([lms_of[to_encode[i][2]] for i in ali])
+                    batch[ali] = self.engine.encode_landmarks(image_dev, lms3)
+                if rest:
+                    boxes = np.asarray([to_encode[i][1] for i in rest], np.float32)
+                    batch[rest] = self.engine.encode_boxes(image_dev, boxes)
             # one batched gallery query for the same faces
-            t0 = time.perf_counter()
-            gal_ids, gal_dists = (None, None)
-            if self.gallery.count > 0:
-                gal_ids, gal_dists = self._matcher.query_batch(batch, k=1)
-            timer.add("match", time.perf_counter() - t0)
+            with timer.span("match"):
+                gal_ids, gal_dists = (None, None)
+                if self.gallery.count > 0:
+                    gal_ids, gal_dists = self._matcher.query_batch(batch, k=1)
             for i, (tid, _, _src) in enumerate(to_encode):
                 embs[tid] = (
                     batch[i],
@@ -597,6 +611,15 @@ class FaceRecognition:
                     None if gal_dists is None else float(1.0 - gal_dists[i][0]),
                 )
 
+        with timer.span("labels"):
+            results = self._labels(tracks, embs, rename_label)
+        timer.tick_frame()
+        return results
+
+    def _labels(self, tracks: List[dict], embs: dict, rename_label: Optional[str]) -> List[dict]:
+        """The frame's labels: the track cache, then for each encoded
+        track the recent cache, the gallery's answer and the unknown
+        lifecycle (its enrolment the span ``labels.enrol``)."""
         results = []
         for trk in tracks:
             tid = trk["id"]
@@ -628,7 +651,8 @@ class FaceRecognition:
                             self.update_label(gal_gid, rename_label)
                             label = rename_label
                 if label == "Unknown":
-                    label = self._handle_unknown_embedding(tid, emb, rename_label)
+                    with self.timer.span("enrol"):
+                        label = self._handle_unknown_embedding(tid, emb, rename_label)
                     confidence = 1.0
                     if label != "Unknown":
                         self.counters["unknown_enrolled"] += 1
@@ -641,8 +665,6 @@ class FaceRecognition:
                 continue
             results.append({"label": self.track_id_to_label[tid], "confidence": float(confidence),
                             "bbox": trk["bbox"]})
-
-        timer.tick_frame()
         return results
 
     # --------------------------------------------------------- image mode --
@@ -1120,3 +1142,4 @@ class FaceRecognition:
         if self.enable_logging:
             self.timer.log_stream_report()
             log.info("Counters: %s; gallery size: %d", self.counters, self.gallery.count)
+            log.info("Span counts: %s; graph captures: %d", self.timer.counts, graphs.captures)

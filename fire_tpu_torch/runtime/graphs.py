@@ -73,6 +73,9 @@ def indexed(device) -> torch.device:
 # so a capture begins into a pool only while a graph that began one into
 # it lives.
 _POOLS: Dict[torch.device, Tuple[object, "weakref.WeakSet", "weakref.WeakSet"]] = {}
+# Capture count: one per graph GraphCache.get builds (the per-frame, step
+# and training graphs); nowhere else.  A steady per-frame loop adds none.
+captures = 0
 # One side stream per device for every warm-up and capture, so that the
 # blocks a warm-up leaves in the allocator's cache serve the next one.
 _SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
@@ -311,6 +314,7 @@ class GraphCache:
         """The graph of ``key``, built when absent by ``build(pool,
         *pools)``: the shared pool of the device ``key[0]``, then that of
         each of ``devices`` (the graph's other cards)."""
+        global captures
         graph = self.find(key)
         if graph is not None:
             return graph
@@ -327,6 +331,7 @@ class GraphCache:
             for dev in cards:
                 _POOLS.pop(dev, None)
             raise
+        captures += 1
         for dev in cards:
             _POOLS[dev][1].add(graph)
         _POOLS[key[0]][2].add(graph)

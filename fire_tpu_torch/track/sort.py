@@ -19,6 +19,7 @@ import torch
 
 from fire_tpu_torch.config import TrackerConfig
 from fire_tpu_torch.device import DeviceLike, resolve_device
+from fire_tpu_torch.pipeline.timing import span
 from fire_tpu_torch.runtime.graphs import GraphCache, HostStaging, indexed, replay
 from fire_tpu_torch.track import assignment as assign
 from fire_tpu_torch.track.ukf import kf_predict, kf_update_tracker, tracker_f_matrix
@@ -316,12 +317,15 @@ class Sort:
 
         if cfg.assignment == "hungarian_host":
             # exact LAP solved on the host (SciPy): one packed readback
-            packed = run("predict", self._predict_cost, det_boxes).cpu().numpy()
+            packed = run("predict", self._predict_cost, det_boxes)
+            with span("readback"):
+                packed = packed.cpu().numpy()
             buf = run("apply", self._apply, det_boxes, det_mask,
                       self._host_match(packed, det_mask))
         else:
             buf = run("step", self._step, det_boxes, det_mask)
-        buf = buf.cpu().numpy()
+        with span("readback"):
+            buf = buf.cpu().numpy()
         t = buf.shape[0] // 8
         tids, boxes, ages = buf[:t], buf[t : 5 * t].reshape(t, 4), buf[5 * t : 6 * t]
         mask = buf[6 * t : 7 * t] > 0
