@@ -10,8 +10,9 @@ the serving phases (the recognizer's own sharded gallery view,
 in order, each printing one JSON line:
 
 1. ``env``: torch / CUDA versions, the card's name and power limit.
-2. ``build``: compiles kernels K1 (``fire_tpu_torch/csrc/cosine_top1.cu``)
-   and K2 (``csrc/track_scan.cu``) and the step graph's library
+2. ``build``: compiles kernels K1 (``fire_tpu_torch/csrc/cosine_top1.cu``),
+   K2 (``csrc/track_scan.cu``) and K3 (``csrc/bn_act.cu``) and the step
+   graph's library
    (``csrc/step_graph.cu``) with nvcc for sm_90a, and beside them the
    host AES-128-CBC library of the at-rest encryption
    (``csrc/aes128_cbc.cpp``) and the host LAP / NMS library with the host
@@ -37,6 +38,12 @@ in order, each printing one JSON line:
    plain version's and the bound; thread 0's cycles by phase a frame (and
    in µs at the clock the launch ran at), and where the launch plan put
    each array.
+   Then K3, inference BatchNorm with its ReLU and residual in one bf16
+   pass, at the shapes RetinaFace (512²), YuNet (640²) and FaceNet (8 and
+   64 crops of 160²) give it, one frame and the batched path's 64: bitwise against its plain version, ms
+   called one by one and replayed from a CUDA graph, the bound from the
+   bytes it moves, plain ms, and the library chain it replaces (cast,
+   cuDNN's float32 ``F.batch_norm``, cast, residual, ReLU).
 4. ``main_path``: ``FaceRecognition.process_frames(batch_size=64)`` at full
    width (YuNet-64 at 640², FaceNet-512, 99,900-row gallery, committed
    trained weights) over rendered 1-face 1080p scenes; K1's and K2's
@@ -61,7 +68,9 @@ in order, each printing one JSON line:
    same gallery; frames/s and ms per frame by stage.  A second, shorter
    run uses ``detection_interval=3`` and ``align_video=True`` (coasting
    and landmark-aligned encoding).  K2 launches once a frame (``Sort.update``
-   at B = 1).  Detect, each encoder bucket and the tracker step replay
+   at B = 1); K3 exactly once a BatchNorm of each detect and encode
+   replayed.  Detect, each encoder
+   bucket and the tracker step replay
    CUDA graphs (``runtime/graphs.py``), captured at the first frame of
    each key and never again (capture seconds and pool bytes recorded).
    Then 16 more frames, each under ``set_sync_debug_mode``: a frame that
@@ -385,6 +394,7 @@ def phase_build(ctx) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from fire_tpu_torch.gallery import crypto
+    from fire_tpu_torch.ops import bn_act as k3
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.runtime import native
     from fire_tpu_torch.runtime import step_graph
@@ -397,14 +407,15 @@ def phase_build(ctx) -> None:
         build()
         return time.time() - t0
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         k1_job = pool.submit(timed, k1.build, k1.library_path())
         k2_job = pool.submit(timed, k2.build, k2.library_path())
+        k3_job = pool.submit(timed, k3.build, k3.library_path())
         graph_job = pool.submit(timed, step_graph.build, step_graph.library_path())
         aes_job = pool.submit(timed, crypto.build, crypto.library_path())
         native_job = pool.submit(timed, native.load_native, native.library_path())
         secs, aes_secs, native_secs = k1_job.result(), aes_job.result(), native_job.result()
-        k2_secs, graph_secs = k2_job.result(), graph_job.result()
+        k2_secs, k3_secs, graph_secs = k2_job.result(), k3_job.result(), graph_job.result()
     check(native.load_native() is not None, "build: the native library did not build")
 
     def report(kernel, seconds):
@@ -419,11 +430,14 @@ def phase_build(ctx) -> None:
 
     ptxas, ctx["k1_build"] = report(k1, secs)
     k2_ptxas, ctx["k2_build"] = report(k2, k2_secs)
+    k3_ptxas, ctx["k3_build"] = report(k3, k3_secs)
     graph_ptxas, graph_build = report(step_graph, graph_secs)
     emit({"phase": "build", "kernel": k1.NAME, "arch": "sm_90a", "nvcc_flags": list(k1.NVCC_FLAGS),
           "ptxas": ptxas, **ctx["k1_build"],
           "k2": {"kernel": k2.NAME, "nvcc_flags": list(k2.NVCC_FLAGS), "ptxas": k2_ptxas,
                  **ctx["k2_build"]},
+          "k3": {"kernel": k3.NAME, "nvcc_flags": list(k3.NVCC_FLAGS), "ptxas": k3_ptxas,
+                 **ctx["k3_build"]},
           "step_graph_library": {"source": "fire_tpu_torch/csrc/step_graph.cu",
                                  "nvcc_flags": list(step_graph.NVCC_FLAGS),
                                  "ptxas": graph_ptxas, **graph_build},
@@ -530,6 +544,84 @@ def phase_kernels(ctx) -> None:
     ctx["k2"] = [k2_case(dev, *case) for case in K2_CASES]
     check(ctx["k2"][1]["stats"]["jv_frames"] > 0, "K2: no frame of the crowd took the JV solve")
     check(ctx["k2"][3]["enrolments"] > 8, "K2: the identity case did not overflow MAX_ENROLL")
+    ctx["k3"] = [k3_case(dev, *case) for case in K3_CASES]
+
+
+# (case, shape, residual, relu, scale): the layers of RetinaFace at 512²
+# (the stem; stage 1's and stage 4's last 1×1 with the shortcut; an SSH
+# branch; the stem and stage 1 again at the batched path's 64 frames),
+# YuNet at 640² (the stem, a 64-channel unit at stride 8; the stem at 64
+# frames), FaceNet-512 (stem0 at 8 and at 64 crops, the 1792-channel block,
+# the 2-D bottleneck; no scale)
+K3_CASES = (
+    ("RetinaFace stem", (1, 64, 256, 256), False, True, True),
+    ("RetinaFace stage1 bn3", (1, 256, 128, 128), True, True, True),
+    ("RetinaFace stem B=64", (64, 64, 256, 256), False, True, True),
+    ("RetinaFace stage1 bn3 B=64", (64, 256, 128, 128), True, True, True),
+    ("RetinaFace stage4 bn3", (1, 2048, 16, 16), True, True, True),
+    ("RetinaFace SSH s8", (1, 128, 64, 64), False, False, True),
+    ("YuNet stem", (1, 16, 320, 320), False, True, True),
+    ("YuNet unit s8", (1, 64, 80, 80), False, True, True),
+    ("YuNet stem B=64", (64, 16, 320, 320), False, True, True),
+    ("FaceNet stem0 B=8", (8, 32, 79, 79), False, True, False),
+    ("FaceNet stem0 B=64", (64, 32, 79, 79), False, True, False),
+    ("FaceNet block8 B=8", (8, 1792, 3, 3), False, True, False),
+    ("FaceNet bottleneck B=8", (8, 512), False, False, False),
+)
+
+
+def k3_case(dev, name, shape, residual, relu, use_scale) -> dict:
+    """K3 at one layer's shape: bitwise against its plain version, then
+    timed against it and against the library chain it replaces."""
+    import torch
+    import torch.nn.functional as F
+
+    from fire_tpu_torch.bench.common import HBM_BYTES_PER_S
+    from fire_tpu_torch.ops import bn_act as k3
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    c = shape[1]
+
+    def activation():
+        t = (2 * torch.randn(shape, generator=gen) + 0.3).to(dev, torch.bfloat16)
+        return t.to(memory_format=torch.channels_last) if len(shape) == 4 else t
+
+    x = activation()
+    r = activation() if residual else None
+    mean = (0.3 * torch.randn(c, generator=gen)).to(dev)
+    var = (0.5 + torch.rand(c, generator=gen)).to(dev)
+    scale = ((1 + 0.3 * torch.randn(c, generator=gen)) if use_scale else torch.ones(c)).to(dev)
+    bias = (0.2 * torch.randn(c, generator=gen)).to(dev)
+    eps = 1e-5 if use_scale else 1e-3
+    params = (mean, var, scale, bias, eps)
+    got = k3.bn_act(x, *params, r, relu)
+    torch.cuda.synchronize()  # a fault of this case shows here, not later
+    want = k3.plain_bn_act(x, *params, r, relu)
+    differ = int((got.contiguous().view(torch.int16) != want.contiguous().view(torch.int16)).sum())
+    check(differ == 0, f"K3 {name}: {differ} bf16 values differ from the plain version")
+
+    def library():
+        y = F.batch_norm(x.float(), mean, var, scale, bias, False, 0.0, eps).to(torch.bfloat16)
+        y = y + r if residual else y
+        return torch.relu(y) if relu else y
+
+    lib_err = float((library().float() - got.float()).abs().max())
+    plan = k3.launch_plan(x.numel() // c, c, 8 if c % 8 == 0 else 1,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    rec = {"case": name, "shape": list(shape), "residual": residual, "relu": relu,
+           "scale": use_scale, "bf16_values_differing": differ,
+           "max_abs_diff_vs_library": lib_err, "plan": {**plan._asdict(), "threads": plan.threads}}
+    rec.update(cuda_ms_each({"kernel_ms": lambda: k3.bn_act(x, *params, r, relu),
+                             "plain_ms": lambda: k3.plain_bn_act(x, *params, r, relu),
+                             "library_ms": library}, reps=20))
+    rec["kernel_device_ms"] = graph_ms(lambda: k3.bn_act(x, *params, r, relu), 20)
+    rec["library_device_ms"] = graph_ms(library, 20)
+    nbytes = x.numel() * (6 if residual else 4) + 4 * 4 * c
+    rec["bound_ms"], rec["bound_by"] = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    rec["kernel_over_bound"] = rec["kernel_device_ms"] / rec["bound_ms"]
+    rec["library_over_kernel"] = rec["library_device_ms"] / rec["kernel_device_ms"]
+    emit({"phase": "kernels", "kernel": k3.NAME, **rec})
+    return rec
 
 
 # (case, assignment, T, K, B, objects, identity, frames tracked before, sequence keywords)
@@ -853,6 +945,7 @@ def _batched_run(ctx, storage: str, detector: dict):
     import torch
 
     from fire_tpu_torch.config import TrackerConfig
+    from fire_tpu_torch.ops import bn_act as k3
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.pipeline.recognizer import FaceRecognition
     from fire_tpu_torch.track import scan as k2
@@ -878,13 +971,14 @@ def _batched_run(ctx, storage: str, detector: dict):
     with _batch_steps() as steps:
         k1.reset_launches()
         k2.reset_launches()
+        k3_0 = k3.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fr.process_frames(frames, annotate=False, batch_size=BATCH,
                           on_frame=lambda f, faces: faces_per_frame.append(len(faces)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, k2_launches = k1.launches, k2.launches
+        launches, k2_launches, k3_launches = k1.launches, k2.launches, k3.launches - k3_0
     n_batches = len(frames) // BATCH
     added = fr.db_manager.count() - sql_before
 
@@ -895,6 +989,11 @@ def _batched_run(ctx, storage: str, detector: dict):
     check(launches >= n_batches, f"{name}: K1 launched {launches} times for {n_batches} batches")
     check(k2_launches == steps.n == n_batches,
           f"{name}: K2 launched {k2_launches} times for {steps.n} steps of {n_batches} batches")
+    # a step detects its frames once and encodes its crops once, graphed or eager
+    k3_per_step = _bn_layers(fr.engine._detector_net) + _bn_layers(fr.engine._encoder_net)
+    check(k3_launches == k3_per_step * steps.n,
+          f"{name}: K3 launched {k3_launches} times in {steps.n} steps of "
+          f"{k3_per_step} BatchNorms")
     check(tracked >= 0.9, f"{name}: faces tracked in {tracked:.3f} of the frames after warm-up")
     # each scene's one face is enrolled at most once, and something is
     check(1 <= added <= n_scenes, f"{name}: {added} enrolments for {n_scenes} one-face scenes")
@@ -903,8 +1002,8 @@ def _batched_run(ctx, storage: str, detector: dict):
     return fr, {"graphs": graph_records(fr._batch_engines), "frames": len(frames),
                 "batch": BATCH, "batches": n_batches,
                 "frames_per_s": len(frames) / wall, "wall_s": wall, "k1_launches": launches,
-                "k2_launches": k2_launches,
-                "tracked_fraction": tracked, "sqlite_rows_added": added,
+                "k2_launches": k2_launches, "k3_launches": k3_launches,
+                "k3_launches_per_step": k3_per_step, "tracked_fraction": tracked, "sqlite_rows_added": added,
                 "gallery_count": fr.gallery.count, "stage_ms_per_batch": stages,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -913,6 +1012,7 @@ def phase_main_path(ctx) -> None:
     fr, rec = _batched_run(ctx, ctx["tmp"], YUNET)
     ctx["k1_launches"] = rec["k1_launches"]
     ctx["k2_launches"] = rec["k2_launches"]
+    ctx["k3_launches"] = rec["k3_launches"]
     ctx["fr"] = fr  # the trace phase runs it once more, then closes it
     emit({"phase": "main_path", **rec})
     emit({"phase": "main_path", "check": "submit syncs", **submit_syncs(fr)})
@@ -1192,6 +1292,7 @@ def phase_retina_path(ctx) -> None:
     ctx["fr_retina"] = fr  # traced too, then closed, by the trace phase
     ctx["k1_launches_retina_path"] = rec["k1_launches"]
     ctx["k2_launches_retina_path"] = rec["k2_launches"]
+    ctx["k3_launches_retina_path"] = rec["k3_launches"]
     emit({"phase": "retina_path", "detector": "retinaface-512", **rec})
 
 
@@ -1435,6 +1536,12 @@ def device_summary(prof, wall_ms: float) -> dict:
     return {"traced_wall_ms": wall_ms, "device_events": len(dev), "device_busy_ms": busy_ms,
             "idle_share_traced": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
             "host_launch_calls": host, "top_device_ms": {k: v / 1e3 for k, v in top}}
+
+
+def _bn_layers(module) -> int:
+    from fire_tpu_torch.models.layers import BatchNorm
+
+    return sum(isinstance(m, BatchNorm) for m in module.modules())
 
 
 def _graph_kind(key) -> str:
@@ -1745,6 +1852,7 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: 
     import numpy as np
     import torch
 
+    from fire_tpu_torch.ops import bn_act as k3
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.pipeline.recognizer import FaceRecognition
     from fire_tpu_torch.track import scan as k2
@@ -1781,6 +1889,7 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: 
             faces_per_frame = []
             k1.reset_launches()
             k2.reset_launches()
+            k3_0, replays0 = k3.launches, dict(built.replays)
             with _QuerySizes() as sizes, _Calls(Sort, "update") as updates:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1788,7 +1897,12 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: 
                                   on_frame=lambda f, faces: faces_per_frame.append(len(faces)))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            launches, k2_launches = k1.launches, k2.launches
+            launches, k2_launches, k3_launches = k1.launches, k2.launches, k3.launches - k3_0
+            replayed = {k: v - replays0.get(k, 0) for k, v in built.replays.items()}
+        # each detect and each encode replays its network's BatchNorms once each
+        k3_expected = (_bn_layers(fr.engine._detector_net) * replayed.get("detect", 0)
+                       + _bn_layers(fr.engine._encoder_net) * sum(
+                           v for k, v in replayed.items() if k.startswith("encode_")))
         for kind in encode_frames:
             delattr(fr.engine, f"encode_{kind}")
         n = len(frames)
@@ -1798,7 +1912,10 @@ def _per_frame_run(ctx, storage: str, frames, per_scene: int, warmup, detector: 
         rec = {
             "frames": n, "frames_per_s": n / wall, "ms_per_frame": wall / n * 1e3,
             "stage_ms_per_frame": stage_ms, "k1_launches": launches,
-            "k2_launches": k2_launches, "tracker_updates": updates.n,
+            "k2_launches": k2_launches, "k3_launches": k3_launches,
+            "k3_launches_per_frame": k3_launches / len(frames),
+            "k3_launches_expected": k3_expected, "graph_replays": replayed,
+            "tracker_updates": updates.n,
             "k1_query_sizes": sorted(set(sizes.k1)), "view_query_sizes": sorted(set(sizes.view)),
             "view_queries": len(sizes.view),
             "encode_frames": len(encode_frames["boxes"] | encode_frames["landmarks"]),
@@ -1834,6 +1951,9 @@ def _check_per_frame(rec: dict, name: str, built: "_frame_graphs",
     and ``encode`` must have replayed, each key captured once."""
     built.check(name, ("detect", "tracker") + tuple(encode))
     check(rec["results"] == rec["frames"], f"{name}: every frame produced a result")
+    check(rec["k3_launches"] == rec["k3_launches_expected"] > 0,
+          f"{name}: K3 launched {rec['k3_launches']} times where the detect and encode "
+          f"replays {rec['graph_replays']} hold {rec['k3_launches_expected']}")
     check(rec["k2_launches"] == rec["tracker_updates"] > 0,
           f"{name}: K2 launched {rec['k2_launches']} times for {rec['tracker_updates']} "
           "tracker updates")
@@ -1864,6 +1984,7 @@ def phase_frame_path(ctx) -> None:
               f"frame_path: {rec['tracker_updates']} tracker updates for {rec['frames']} frames")
         ctx["k1_launches_frame_path"] = rec["k1_launches"]
         ctx["k2_launches_frame_path"] = rec["k2_launches"]
+        ctx["k3_launches_frame_path"] = rec["k3_launches"]
         emit({"phase": "frame_path", "check": "frame graph vs eager",
               "run": "detect every frame, box crops",
               **frame_graph_vs_eager(os.path.join(ctx["tmp"], "frame_path_vs_eager"),
@@ -1905,6 +2026,7 @@ def phase_retina_frame(ctx) -> None:
         _check_per_frame(rec, "retina_frame", built)
         ctx["k1_launches_retina_frame"] = rec["k1_launches"]
         ctx["k2_launches_retina_frame"] = rec["k2_launches"]
+        ctx["k3_launches_retina_frame"] = rec["k3_launches"]
         emit({"phase": "retina_frame", "check": "frame graph vs eager",
               **frame_graph_vs_eager(os.path.join(ctx["tmp"], "retina_frame_vs_eager"),
                                      _frames(seed=0, n_scenes=2, per_scene=12, n_faces=(1, 3)),
@@ -4362,7 +4484,7 @@ def kernel_summary(ctx) -> dict:
         "library_ms": main["library_ms"], "device_ms": main["kernel_device_ms"],
         "plan": main["plan"], "host_count_ms": host_count["kernel_ms"],
         "host_count_device_ms": host_count["kernel_device_ms"], **ctx["k1_build"]},
-        k2_summary(ctx)]}
+        k2_summary(ctx), k3_summary(ctx)]}
 
 
 def k2_summary(ctx) -> dict:
@@ -4392,6 +4514,31 @@ def k2_summary(ctx) -> dict:
         "outside_shared_by_case": {r["case"]: [n for n, w in zip(k2.ARRAYS, r["launch_plan"]["where"])
                                                if w != "shared"] for r in ctx["k2"]},
         **ctx["k2_build"]}
+
+
+def k3_summary(ctx) -> dict:
+    """K3 at RetinaFace's stage-1 shape (residual and ReLU), with its
+    launch counts on the batched and per-frame paths and its time at
+    every case's shape beside the library chain it replaces."""
+    from fire_tpu_torch.ops import bn_act as k3
+
+    main = next(r for r in ctx["k3"] if r["case"] == "RetinaFace stage1 bn3")
+    return {
+        "name": k3.NAME, "route": "cuda", "source": "fire_tpu_torch/csrc/bn_act.cu",
+        "replaces": "cuDNN's float32 BatchNorm between bf16 casts, the residual add and the "
+                    "ReLU (flax.linen.BatchNorm in eval; no Pallas kernel)",
+        "launches": ctx["k3_launches"],
+        "launches_retina_path": ctx["k3_launches_retina_path"],
+        "launches_frame_path": ctx["k3_launches_frame_path"],
+        "launches_retina_frame": ctx["k3_launches_retina_frame"],
+        "bf16_values_differing": sum(r["bf16_values_differing"] for r in ctx["k3"]),
+        "ms": main["kernel_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "device_ms": main["kernel_device_ms"],
+        "device_ms_by_case": {r["case"]: r["kernel_device_ms"] for r in ctx["k3"]},
+        "library_device_ms_by_case": {r["case"]: r["library_device_ms"] for r in ctx["k3"]},
+        "bound_ms_by_case": {r["case"]: r["bound_ms"] for r in ctx["k3"]},
+        **ctx["k3_build"]}
 
 
 def main() -> int:

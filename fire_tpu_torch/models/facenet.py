@@ -43,8 +43,7 @@ class ConvBn(nn.Module):
         self.relu = relu
 
     def forward(self, x, train: bool = False):
-        x = self.bn(self.conv(x), train)
-        return torch.relu(x) if self.relu else x
+        return self.bn(self.conv(x), train, relu=self.relu)
 
 
 class Block35(nn.Module):

@@ -2,10 +2,13 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fire_tpu_torch.ops import bn_act
 from fire_tpu_torch.parallel.mesh import sum_to
 from fire_tpu_torch.parallel.shards import ShardList
 
@@ -31,6 +34,15 @@ class BatchNorm(nn.Module):
     takes them: the shards' float32 sums, sums of squares and counts
     are added up before the mean and variance are formed, on the
     module's device, and the running statistics are updated once.
+
+    ``relu`` and ``residual`` finish the layer as the networks do after
+    it: ``y + residual`` (same shape and dtype as ``x``), then ReLU.  The
+    route is chosen by mode and dtype alone.  In eval mode on the card a
+    bf16 call that wants no gradient runs all of it as kernel K3
+    (:mod:`fire_tpu_torch.ops.bn_act`), Flax's formula in one pass, which
+    raises on a layout it does not take (channels-last 4-D or rows × C).
+    The train path, a call that wants a gradient, a ``ShardList``, the
+    CPU and float32 compute run it as below, op by op.
 
     ``weight`` and ``bias`` are the trainable ``scale`` and ``bias``;
     with ``use_scale=False`` (FaceNet) ``weight`` is a buffer fixed at
@@ -59,9 +71,18 @@ class BatchNorm(nn.Module):
                 setattr(self, name, t.float())
         return self
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, relu: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if isinstance(x, ShardList):
-            return self._forward_shards(x, train)
+            return _finish(self._forward_shards(x, train), relu, residual)
+        params = (self.running_mean, self.running_var, self.weight, self.bias)
+        if (not train and x.device.type == "cuda" and x.dtype == torch.bfloat16
+                and not (torch.is_grad_enabled() and any(
+                    t is not None and t.requires_grad for t in (x, residual, *params)))):
+            return bn_act.bn_act(x, *params, self.eps, residual, relu)
+        return _finish(self._forward(x, train), relu, residual)
+
+    def _forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.float()
         if not train:
             y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight,
@@ -103,6 +124,14 @@ class BatchNorm(nn.Module):
             ((xf - mean.to(s.device).reshape(shape)) * mul.to(s.device).reshape(shape)
              + self.bias.to(s.device).reshape(shape)).to(s.dtype)
             for xf, s in zip(xs, x.shards)])
+
+
+def _finish(y, relu: bool, residual):
+    """``y + residual``, then ReLU, where asked: the plain route's end of
+    the layer."""
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
 
 
 def same_pad(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:

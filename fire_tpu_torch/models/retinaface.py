@@ -65,10 +65,9 @@ class Bottleneck(nn.Module):
 
     def forward(self, x, train: bool = False):
         sc = x if self.proj is None else self.proj_bn(self.proj(x), train)
-        y = torch.relu(self.bn1(self.c1(x), train))
-        y = torch.relu(self.bn2(self.c2(same_pad(y, 3, self.strides)), train))
-        y = self.bn3(self.c3(y), train)
-        return torch.relu(y + sc)
+        y = self.bn1(self.c1(x), train, relu=True)
+        y = self.bn2(self.c2(same_pad(y, 3, self.strides)), train, relu=True)
+        return self.bn3(self.c3(y), train, relu=True, residual=sc)
 
 
 class SSH(nn.Module):
@@ -83,8 +82,7 @@ class SSH(nn.Module):
             setattr(self, name + "_bn", BatchNorm(b, _BN_EPS))
 
     def _conv_bn(self, x, name: str, relu: bool, train: bool):
-        y = getattr(self, name + "_bn")(getattr(self, name)(x), train)
-        return torch.relu(y) if relu else y
+        return getattr(self, name + "_bn")(getattr(self, name)(x), train, relu=relu)
 
     def forward(self, x, train: bool = False):
         b3 = self._conv_bn(x, "b3", False, train)
@@ -140,7 +138,7 @@ class RetinaFace(nn.Module):
         ``train=True`` normalises with the batch's statistics and
         updates the running ones (Flax's momentum 0.99)."""
         x = x_nhwc.to(self.dtype).permute(0, 3, 1, 2)
-        x = torch.relu(self.stem_bn(self.stem(same_pad(x, 7, 2)), train))
+        x = self.stem_bn(self.stem(same_pad(x, 7, 2)), train, relu=True)
         x = max_pool_same(x, 3, 2)
         feats = {}
         for i, n_blocks in enumerate(self.stage_sizes):

@@ -42,7 +42,7 @@ class ConvDPUnit(nn.Module):
     def forward(self, x, train: bool = False):
         x = self.conv2(self.conv1(x))
         if self.bn is not None:
-            x = torch.relu(self.bn(x, train))
+            x = self.bn(x, train, relu=True)
         return x
 
 
@@ -56,7 +56,7 @@ class ConvHead(nn.Module):
         self.conv2 = ConvDPUnit(mid, features)
 
     def forward(self, x, train: bool = False):
-        return self.conv2(torch.relu(self.bn1(self.conv1(x), train)), train)
+        return self.conv2(self.bn1(self.conv1(x), train, relu=True), train)
 
 
 class Conv4LayerBlock(nn.Module):

@@ -52,14 +52,13 @@ import numpy as np
 import torch
 
 from fire_tpu_torch.config import RecognizerConfig, TrackerConfig
-from fire_tpu_torch.ops import cosine_top1 as _k1
 from fire_tpu_torch.ops.boxes import top_k_stable
 from fire_tpu_torch.ops.cosine_top1 import cosine_top1
 from fire_tpu_torch.ops.gallery_match import l2_normalize
 from fire_tpu_torch.ops.image import bgr_to_rgb, crop_and_resize_mm_batched, crop_selected_rows
 from fire_tpu_torch.runtime.graphs import (GraphCache, HostStaging, check_graph_runtime,
+                                           count_replayed, launch_counts, set_launch_counts,
                                            side_stream)
-from fire_tpu_torch.track import scan as _k2
 from fire_tpu_torch.track.scan import IdentityState, gather_emb, track_scan
 from fire_tpu_torch.track.sort import TrackTable, make_table
 
@@ -286,9 +285,10 @@ class StepGraph:
     ComposedGraph`) in which the rung bodies sit behind conditional nodes.
     A capture that fails raises: nothing falls back to eager dispatch.
 
-    K1's and K2's launch counters count what runs: the warm-up and the
-    capture add nothing, and each replay adds the launches its graph
-    holds (K1 and K2 once a stream, whatever the rung)."""
+    K1's, K2's and K3's launch counters count what runs: the warm-up and
+    the capture add nothing, and each replay adds the launches its graph
+    holds (K1 and K2 once a stream, K3 once a BatchNorm of the networks,
+    whatever the rung)."""
 
     def __init__(self, owner: "BatchStreamEngine", engine, gal: torch.Tensor,
                  count: torch.Tensor, states: List[StreamState], frames: List[torch.Tensor],
@@ -304,7 +304,7 @@ class StepGraph:
         self.frames = frames
         self.pool = pool
         self.parts: List[torch.cuda.CUDAGraph] = []  # they hold the graph's memory
-        k1_0, k2_0 = _k1.launches, _k2.launches
+        counts = launch_counts()
         cur = torch.cuda.current_stream(dev)
         side = side_stream(dev)
         side.wait_stream(cur)
@@ -318,26 +318,26 @@ class StepGraph:
                 reserved = torch.cuda.memory_reserved(dev)
                 t0 = time.perf_counter()
                 items, self.packed, self.rungs, self._held = [], [], [], []
-                self.k1_per_replay = self.k2_per_replay = 0
+                # K1's, K2's and K3's launches in one replay
+                self.launches_per_replay = (0,) * len(counts)
                 for state, x in zip(states, frames):
-                    k2_before = _k2.launches
                     got = owner._capture_parts(self._part, engine, gal, count, state, x)
-                    stream_items, packed, rung, k1_runs, held = got
+                    stream_items, packed, rung, per_replay, held = got
                     items += stream_items
                     self.packed.append(packed)
                     # each stream's rung of the last replay, a 0-d tensor on the
                     # card (None for a single rung): for checks, never read on the path
                     self.rungs.append(rung)
                     self._held.append(held)
-                    self.k1_per_replay += k1_runs
-                    self.k2_per_replay += _k2.launches - k2_before
+                    self.launches_per_replay = tuple(
+                        a + b for a, b in zip(self.launches_per_replay, per_replay))
                 self.graph = ComposedGraph(items, dev)
                 self.capture_s = time.perf_counter() - t0
                 # what this capture added to the device's shared pool
                 self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             cur.wait_stream(side)
         finally:
-            _k1.launches, _k2.launches = k1_0, k2_0
+            set_launch_counts(counts)
 
     @contextlib.contextmanager
     def _part(self):
@@ -354,8 +354,7 @@ class StepGraph:
         """Queue one run of the graph on the current stream (its inputs
         already copied into ``frames``); returns ``packed``."""
         self.graph.launch()
-        _k1.count_replayed(self.k1_per_replay)
-        _k2.count_replayed(self.k2_per_replay)
+        count_replayed(self.launches_per_replay)
         return self.packed
 
 
@@ -561,8 +560,10 @@ class BatchStreamEngine:
         back, which writes the new state into ``state``'s own tensors.
         Returns the items to compose (the bodies behind the rung index:
         ``lax.switch``), the packed results, the rung index (None for a
-        single rung), K1's launches in one run of the step, and the tensors
-        that pass between parts, which must outlive the graph."""
+        single rung), the kernels' launches in one run of the step (K1,
+        K2, K3), and the tensors that pass between parts, which must
+        outlive the graph."""
+        start = launch_counts()
         with part() as front_part:
             front = self._front(engine, frames_u8, None)
             ladder, rungs = self.rungs(front.n_det * front.k)
@@ -577,7 +578,7 @@ class BatchStreamEngine:
                        torch.empty(shape, dtype=torch.bool, device=dev))
         bodies, per_rung = [], []
         for m, full in rungs:
-            k1_0 = _k1.launches
+            counts = launch_counts()
             with part() as body:
                 out = self._encode(engine, gal, count, front, m, full, None)
                 if ladder is None:
@@ -586,14 +587,17 @@ class BatchStreamEngine:
                     for dst, src in zip(enc, out):
                         dst.copy_(src)
             bodies.append(body)
-            per_rung.append(_k1.launches - k1_0)
+            per_rung.append(tuple(a - b for a, b in zip(launch_counts(), counts)))
         if len(set(per_rung)) != 1:
-            raise RuntimeError(f"step graph: the rungs launch K1 {per_rung} times")
+            raise RuntimeError(f"step graph: the rungs launch K1, K2 and K3 {per_rung} times")
         with part() as back_part:
             new, packed = self._back(state, front, enc, None)
             copy_state(state, new)
+        # the capture ran every rung's body; a run of the step runs one
+        per_replay = tuple(a - s - (len(rungs) - 1) * r
+                           for a, s, r in zip(launch_counts(), start, per_rung[0]))
         items = [([front_part], None), (bodies, sel), ([back_part], None)]
-        return items, packed, sel, per_rung[0], (front, enc, sel, packed)
+        return items, packed, sel, per_replay, (front, enc, sel, packed)
 
     def _graph_key(self, engine, gal: torch.Tensor, count: torch.Tensor, n_streams: int,
                    frames_shape) -> tuple:

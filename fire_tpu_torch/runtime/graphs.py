@@ -92,12 +92,30 @@ def _new_pool():
     return torch.cuda.graph_pool_handle()
 
 
-def _launch_counters():
+def launch_counters():
+    """The modules of the kernels whose ``launches`` a replay counts: K1,
+    K2, K3."""
     # at the call: track.scan imports track.sort, which imports this module
+    from fire_tpu_torch.ops import bn_act as k3
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.track import scan as k2
 
-    return k1, k2
+    return k1, k2, k3
+
+
+def launch_counts() -> Tuple[int, ...]:
+    return tuple(k.launches for k in launch_counters())
+
+
+def set_launch_counts(counts: Sequence[int]) -> None:
+    for k, n in zip(launch_counters(), counts):
+        k.launches = n
+
+
+def count_replayed(per_replay: Sequence[int]) -> None:
+    """Add the launches of each kernel that one replay of a graph makes."""
+    for k, n in zip(launch_counters(), per_replay):
+        k.count_replayed(n)
 
 
 def warm_up(fn: Callable, inputs: Sequence[torch.Tensor], state: Sequence[torch.Tensor] = (),
@@ -168,9 +186,9 @@ class CapturedCall:
     every card's current stream and makes each wait for the replay, as
     an eager step over the cards would order them.
 
-    K1's and K2's launch counters count what runs: the warm-up and the
-    capture add nothing, and each :meth:`replay` adds the launches the
-    graph holds."""
+    The kernels' launch counters (K1, K2, K3: :func:`launch_counters`)
+    count what runs: the warm-up and the capture add nothing, and each
+    :meth:`replay` adds the launches the graph holds."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], pool,
                  state: Sequence[torch.Tensor] = (),
@@ -179,8 +197,7 @@ class CapturedCall:
         self.inputs, self.state, self.others = tuple(inputs), tuple(state), tuple(others)
         dev = self.device = self.inputs[0].device
         self.devices = (dev, *(d for d, _ in self.others))
-        k1, k2 = _launch_counters()
-        counts = k1.launches, k2.launches
+        counts = launch_counts()
         curs = [torch.cuda.current_stream(d) for d in self.devices]
         sides = [side_stream(d) for d in self.devices]
         for side, cur in zip(sides, curs):
@@ -200,12 +217,13 @@ class CapturedCall:
                 torch.cuda.empty_cache()
                 reserved = [torch.cuda.memory_reserved(d) for d in self.devices]
                 t0 = time.perf_counter()
-                before = k1.launches, k2.launches
+                before = launch_counts()
                 self.graph = torch.cuda.CUDAGraph()
                 out = self._capture(fn, pool)
                 self.outputs = tuple(out) if isinstance(out, (tuple, list)) else (out,)
-                self.k1_per_replay = k1.launches - before[0]
-                self.k2_per_replay = k2.launches - before[1]
+                # K1's, K2's and K3's launches in one replay
+                self.launches_per_replay = tuple(
+                    a - b for a, b in zip(launch_counts(), before))
                 self.capture_s = time.perf_counter() - t0
                 # what this capture added to each card's shared pool
                 self.pool_bytes_by_device = {
@@ -215,7 +233,7 @@ class CapturedCall:
             for cur, side in zip(curs, sides):
                 cur.wait_stream(side)
         finally:
-            k1.launches, k2.launches = counts
+            set_launch_counts(counts)
         if self.others:
             # the graph gives back the first card's pool when it goes; the
             # other cards' were taken by _cuda_beginAllocateToPool
@@ -278,9 +296,7 @@ class CapturedCall:
                 cur.wait_stream(home)
         else:
             self.graph.replay()
-        k1, k2 = _launch_counters()
-        k1.count_replayed(self.k1_per_replay)
-        k2.count_replayed(self.k2_per_replay)
+        count_replayed(self.launches_per_replay)
         return self.outputs
 
 
