@@ -4,13 +4,14 @@ the comparison with the reference that decides ``correct``."""
 from __future__ import annotations
 
 import gc
+import tempfile
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from harness import check, drive, spec, trace, traffic, work
+from harness import check, drive, spec, trace, traffic, weights, work
 from reference.pipeline import Reference
 
 
@@ -28,7 +29,7 @@ def _record(mode: str, cfg: dict, mix: dict, loop, res: dict, rec, tracer, setup
     r = {"mode": mode, "setup_s": setup_s, "window_s": res["window_s"], "measured": n,
          "work": {"detector_macs": macs["detector"], "encoder_macs": macs["encoder"],
                   "frames": n, "faces": int(encoded.sum()), "gallery_rows": rows,
-                  "dim": 512, "batch": mix.get("batch_size", 1), "encode_k": enc_k,
+                  "dim": cfg["embedding_dim"], "batch": mix.get("batch_size", 1), "encode_k": enc_k,
                   "tracks": cfg["max_tracks"]}}
     if mode == "per_frame":
         r["latency_ms"] = [x * 1e3 for x in res["latency_s"]]
@@ -45,7 +46,8 @@ def _record(mode: str, cfg: dict, mix: dict, loop, res: dict, rec, tracer, setup
         b = mix.get("batch_size", 1)
         per_batch = [int(np.minimum(faces[traced[i : i + b]], enc_k).sum())
                      for i in range(0, len(traced), b)]
-        summ["k1_bound_s"] = sum(work.k1_bound_s(m, rows, 512) for m in per_batch if m)
+        summ["k1_bound_s"] = sum(work.k1_bound_s(m, rows, cfg["embedding_dim"])
+                                 for m in per_batch if m)
         summ["k2_bound_s"] = (len(traced) // b) * work.k2_bound_s(b, cfg["max_tracks"], enc_k)
         summ["frames"] = int(len(traced))
         r["trace"] = summ
@@ -56,7 +58,16 @@ def run(workload: str, seed: int, seconds: float, traced: bool, t_start: float,
         device="cuda", control: bool = False, overrides: Optional[dict] = None,
         bench: Optional[dict] = None, root: str = spec.ROOT) -> dict:
     """Run ``workload`` once; returns the result object the command
-    prints (with ``control`` the control's numbers beside it)."""
+    prints (with ``control`` the control's numbers beside it).  Seeded
+    weights live in a directory of the run's, under ``TMPDIR``, until the
+    check has read them."""
+    with tempfile.TemporaryDirectory(prefix="fire-bench-run-") as run_dir:
+        return _run(workload, seed, seconds, traced, t_start, device, control, overrides,
+                    bench, root, run_dir)
+
+
+def _run(workload, seed, seconds, traced, t_start, device, control, overrides, bench, root,
+         run_dir) -> dict:
     bench = bench or spec.load_benchmark(root)
     w = spec.cell(bench, workload)
     cfg = spec.config(bench, w["config"], root)
@@ -74,6 +85,9 @@ def run(workload: str, seed: int, seconds: float, traced: bool, t_start: float,
     loop = traffic.render(mix, seed, device)
     phases["traffic"] = time.perf_counter() - t
     errors = drive.ErrorCount()
+    t = time.perf_counter()
+    cfg = weights.resolve(cfg, seed, run_dir, device)
+    phases["weights"] = time.perf_counter() - t
     with drive.quiet_program_logs(errors):
         t = time.perf_counter()
         system = drive.System(cfg, w["chips"], seed, root, device, ov.get("engine"))
@@ -93,7 +107,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, t_start: float,
                                          mix["trace_frames"])
         drive._sync_all()
     peak = drive.memory_peak_bytes()
-    macs = work.network_macs(cfg["detector"], cfg["input_px"])
+    macs = work.network_macs(cfg)
     record = _record(mode, cfg, mix, loop, res, rec, tracer, setup_s, macs)
     rows = system.rows
     system.close()
@@ -129,7 +143,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, t_start: float,
             "enrolled": [enrolled_before, len(rec.added) - enrolled_before],
             "faces_per_frame": float(loop.faces_per_frame().mean()), "setup_phases_s": phases,
             "measured": res["measured"], "window_s": res["window_s"],
-            "batch_s": res.get("batch_s")}
+            "batch_s": res.get("batch_s"), "work": record["work"]}
     if control:
         ctrl = Reference(cfg, root, device, quant="fp8")
         ctrl.set_gallery(rows, rec.added)

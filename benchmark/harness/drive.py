@@ -173,9 +173,12 @@ def gallery_rows(seed: int, rows: int, dim: int, device) -> np.ndarray:
 
 
 class System:
-    """The configuration's ``FaceRecognition`` with its trained weights
-    and the seed's gallery, storage in a fresh directory under
-    ``TMPDIR`` (the engine's parameter cache in a fixed one beside it)."""
+    """The configuration's ``FaceRecognition`` with its weights and the
+    seed's gallery, storage in a fresh directory under ``TMPDIR`` (the
+    engine's parameter cache in a fixed one beside it).  The program's
+    arguments are the configuration's ``program`` entries:
+    ``detector_type``, ``encoder_model_type``, and ``engine_sizes``, the
+    ``EngineConfig`` field that takes each of the configuration's sizes."""
 
     def __init__(self, cfg: dict, chips: int, seed: int, root: str, device,
                  engine_overrides: Optional[dict] = None):
@@ -185,14 +188,14 @@ class System:
         tmp = tempfile.gettempdir()
         self.store = tempfile.mkdtemp(prefix="fire-bench-", dir=tmp)
         params_root = os.path.join(tmp, "fire-bench-params")
-        size_key = "retinaface_size" if cfg["detector"] == "retinaface" else "detect_size"
+        prog = cfg["program"]
         eng = dict(max_faces=cfg["max_faces"], compute_dtype=cfg["compute_dtype"],
-                   **{size_key: tuple(cfg["input_px"])})
+                   **{field: tuple(cfg[key]) for field, key in prog["engine_sizes"].items()})
         eng.update(engine_overrides or {})
         paths = {f"{k}_path": os.path.join(self.store, f"{k}.bin")
                  for k in ("hnsw_index", "hnsw_labels", "hnsw_db_ids")}
         self.rec = FaceRecognition(
-            detector_type=cfg["detector"], encoder_model_type="512",
+            detector_type=prog["detector_type"], encoder_model_type=prog["encoder_model_type"],
             similarity_threshold=cfg["similarity_threshold"],
             unknown_trigger_count=cfg["unknown_trigger_count"],
             detection_interval=cfg["detection_interval"], enable_logging=False,
@@ -204,7 +207,7 @@ class System:
             engine_cfg=EngineConfig(**eng), sharded_gallery=chips > 1, device=device, **paths)
         self.rec.engine.load_trained_detector(os.path.join(root, cfg["detector_weights"]))
         self.rec.engine.load_trained_encoder(os.path.join(root, cfg["encoder_weights"]))
-        self.rows = gallery_rows(seed, cfg["gallery_rows"], 512, device)
+        self.rows = gallery_rows(seed, cfg["gallery_rows"], cfg["embedding_dim"], device)
         self.rec.gallery.load_rows((i + 1, f"{SEED_LABEL}{i}", r.tobytes())
                                    for i, r in enumerate(self.rows))
         self.rec.gallery.save(compact=True)

@@ -45,17 +45,17 @@ def forward_macs(model: torch.nn.Module, *inputs: torch.Tensor) -> int:
     return total[0]
 
 
-def network_macs(detector: str, input_px, encode_px=(160, 160)) -> dict:
-    """MACs of the configuration's detector at its letterbox size (one
-    frame) and of FaceNet-512 at 160 x 160 (one face), counted on the
-    ``meta`` device."""
+def network_macs(cfg: dict) -> dict:
+    """MACs of the configuration's detector at its letterbox size
+    ``input_px`` (one frame) and of its encoder at ``encode_px`` (one
+    face), counted on the ``meta`` device."""
     from reference import nets
 
     with torch.device("meta"):
-        det = nets.build(detector)
-        enc = nets.build("facenet512")
-        x = torch.empty((1, *input_px, 3))
-        f = torch.empty((1, *encode_px, 3))
+        det = nets.build(cfg["detector"])
+        enc = nets.build(cfg["encoder"])
+        x = torch.empty((1, *cfg["input_px"], 3))
+        f = torch.empty((1, *cfg["encode_px"], 3))
     return {"detector": forward_macs(det, x), "encoder": forward_macs(enc, f)}
 
 

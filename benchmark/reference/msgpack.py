@@ -1,10 +1,13 @@
-"""Reader of the trained networks' files (Flax ``to_bytes`` msgpack) and
-their conversion to ``torch`` state dicts of :mod:`reference.nets`.
+"""Reader and writer of the networks' weight files (Flax ``to_bytes``
+msgpack) and their conversion to and from ``torch`` state dicts of the
+reference networks (:mod:`reference.nets`).
 
 A frozen copy of the msgpack decoder and the Flax-to-torch layout rules
 (HWIO kernels to OIHW, Dense ``(in, out)`` to Linear ``(out, in)``,
-BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var``); it imports nothing
-of the program.
+BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var``, any other parameter
+under its own name), and their exact inverse (:func:`tree_of`,
+:func:`pack`, :func:`write`), which writes seeded weights in the trained
+files' layout; it imports nothing of the program.
 """
 
 from __future__ import annotations
@@ -161,6 +164,8 @@ def _convert(tree: Dict[str, Any], unit_bn_scale: bool) -> Dict[str, torch.Tenso
             tname = _LEAF[(col, name)]
             if col == "batch_stats":
                 bn_layers.add(mod)
+        elif col == "params":  # any other parameter (a PReLU slope) under its own name
+            tname = name
         else:
             raise ValueError(f"unconsumed weight leaf {'/'.join(path)}")
         key = ".".join(mod + (tname,))
@@ -171,7 +176,7 @@ def _convert(tree: Dict[str, Any], unit_bn_scale: bool) -> Dict[str, torch.Tenso
         for mod in bn_layers:
             key = ".".join(mod + ("weight",))
             if key in sd:
-                raise ValueError(f"{key}: FaceNet BatchNorm has no scale")
+                raise ValueError(f"{key}: a BatchNorm under unit_bn_scale has no scale")
             sd[key] = torch.ones_like(sd[".".join(mod + ("running_mean",))])
     return sd
 
@@ -186,3 +191,114 @@ def state_dict(tree: Dict[str, Any], unit_bn_scale: bool) -> Dict[str, torch.Ten
     """The ``torch`` state dict of a variable tree (FaceNet's BatchNorm
     has no scale: ``unit_bn_scale``)."""
     return _convert(tree, unit_bn_scale)
+
+
+_BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+            "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def tree_of(sd: Dict[str, torch.Tensor], unit_bn_scale: bool) -> Dict[str, Any]:
+    """The variable tree (float32 numpy leaves) of a state dict: the
+    exact inverse of :func:`state_dict`.  A module with a running mean
+    is a BatchNorm; under ``unit_bn_scale`` its weight, which has to be
+    1, is left out."""
+    bn_layers = {k.rpartition(".")[0] for k in sd if k.endswith(".running_mean")}
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, t in sd.items():
+        mod, _, name = key.rpartition(".")
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if mod in bn_layers:
+            col, leaf = _BN_LEAF[name]
+            if unit_bn_scale and name == "weight":
+                if not (arr == 1.0).all():
+                    raise ValueError(f"{key}: a BatchNorm without scale has weight 1")
+                continue
+        elif name == "weight":
+            col, leaf = "params", "kernel"
+            if arr.ndim == 4:  # OIHW → HWIO
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:  # Linear (out, in) → Dense (in, out)
+                arr = arr.T
+            else:
+                raise ValueError(f"unexpected weight rank at {key}")
+        elif name in ("kernel", "scale"):
+            raise ValueError(f"{key}: the reader would take this leaf for another")
+        else:
+            col, leaf = "params", name
+        node = out[col]
+        for k in mod.split(".") if mod else ():
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {k: v for k, v in out.items() if v}
+
+
+class _Packer:
+    """msgpack as ``msgpack.packb(..., use_bin_type=True)`` writes it, for
+    what Flax's ``to_bytes`` writes: maps, str, bin, arrays, non-negative
+    ints and ndarrays (ext type 1)."""
+
+    def __init__(self):
+        self.out: list = []
+
+    def _head(self, n: int, fix: int, fix_max: int, wide: tuple) -> None:
+        if n < fix_max and fix is not None:
+            self.out.append(bytes([fix | n]))
+            return
+        for code, size in wide:
+            if n < 1 << (8 * size):
+                self.out.append(bytes([code]) + n.to_bytes(size, "big"))
+                return
+        raise ValueError(f"msgpack length {n} too large")
+
+    def pack(self, x: Any) -> None:
+        if isinstance(x, dict):
+            self._head(len(x), 0x80, 16, ((0xDE, 2), (0xDF, 4)))
+            for k, v in x.items():
+                self.pack(k)
+                self.pack(v)
+        elif isinstance(x, (list, tuple)):
+            self._head(len(x), 0x90, 16, ((0xDC, 2), (0xDD, 4)))
+            for v in x:
+                self.pack(v)
+        elif isinstance(x, str):
+            b = x.encode()
+            self._head(len(b), 0xA0, 32, ((0xD9, 1), (0xDA, 2), (0xDB, 4)))
+            self.out.append(b)
+        elif isinstance(x, bytes):
+            self._head(len(x), None, 0, ((0xC4, 1), (0xC5, 2), (0xC6, 4)))
+            self.out.append(x)
+        elif isinstance(x, (int, np.integer)) and not isinstance(x, bool) and x >= 0:
+            x = int(x)
+            if x < 128:
+                self.out.append(bytes([x]))
+            else:
+                self._head(x, None, 0, ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)))
+        elif isinstance(x, np.ndarray):
+            inner = _Packer()
+            inner.pack(([int(d) for d in x.shape], x.dtype.name, x.tobytes("C")))
+            payload = inner.getvalue()
+            fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+            if len(payload) in fixed:
+                self.out.append(bytes([fixed[len(payload)]]))
+            else:
+                self._head(len(payload), None, 0, ((0xC7, 1), (0xC8, 2), (0xC9, 4)))
+            self.out.append(struct.pack(">b", _EXT_NDARRAY) + payload)
+        else:
+            raise TypeError(f"cannot write {type(x).__name__} to msgpack")
+
+    def getvalue(self) -> bytes:
+        return b"".join(self.out)
+
+
+def pack(tree: Dict[str, Any]) -> bytes:
+    """The msgpack bytes of a variable tree: the inverse of
+    :func:`msgpack_restore`."""
+    p = _Packer()
+    p.pack(tree)
+    return p.getvalue()
+
+
+def write(path: str, tree: Dict[str, Any]) -> None:
+    """Write a variable tree as a weight file that :func:`read` reads."""
+    with open(path, "wb") as f:
+        f.write(pack(tree))

@@ -1,14 +1,17 @@
 """The plain reference of what the timed path computes, in float32 with
-TF32 off: the letterbox, the detector with its decode and a greedy NMS,
-the crop of a face box to 160 x 160, FaceNet-512 with L2
-normalisation, and the gallery's top-1 by cosine similarity.
+TF32 off: the letterbox, the configuration's detector with its decode
+and a greedy NMS, the crop of a face box to ``encode_px``, the
+configuration's encoder with L2 normalisation, and the gallery's top-1
+by cosine similarity.  The networks, their input conventions, decodes
+and NMS conventions are their files' (:mod:`reference.nets`).
 
 It imports nothing of the program and takes nothing the program made:
 the frames and the gallery rows are the benchmark's, the weights are
-read from the trained files by :mod:`reference.msgpack`, and the
-resampling weights, anchors and normalisation are worked out here
-again.  With ``quant="fp8"`` every convolution and linear layer reads
-its input and weight rounded to float8 e4m3 (a per-tensor scale), and
+read from the configuration's weight files (trained, or seeded by the
+benchmark) by :mod:`reference.msgpack`, and the resampling weights,
+anchors and normalisation are worked out here again.  With
+``quant="fp8"`` every convolution and linear layer reads its input
+and weight rounded to float8 e4m3 (a per-tensor scale), and
 the gallery product rows and queries likewise: the control, one
 precision below the configuration's bfloat16.
 """
@@ -25,13 +28,6 @@ import torch.nn.functional as F
 from reference import msgpack, nets
 
 FP8_MAX = 448.0  # largest finite float8 e4m3
-
-# RetinaFace base anchors (xyxy) per stride, two per cell.
-RETINA_ANCHORS = {
-    32: ((-248.0, -248.0, 263.0, 263.0), (-120.0, -120.0, 135.0, 135.0)),
-    16: ((-56.0, -56.0, 71.0, 71.0), (-24.0, -24.0, 39.0, 39.0)),
-    8: ((-8.0, -8.0, 23.0, 23.0), (0.0, 0.0, 15.0, 15.0)),
-}
 
 
 def fp8(x: torch.Tensor) -> torch.Tensor:
@@ -86,50 +82,8 @@ def greedy_nms(boxes: np.ndarray, scores: np.ndarray, thr: float, max_out: int,
     return np.asarray(keep, np.int64)
 
 
-def _yunet_candidates(heads) -> Tuple[np.ndarray, np.ndarray]:
-    """YuNet's anchor-free decode: score sqrt(cls * obj), centre (cell +
-    offset) * stride, size exp(pred) * stride."""
-    boxes, scores = [], []
-    for stride, (cls, obj, box, _kps) in heads.items():
-        cls, obj, box = (t[0].double().cpu().numpy() for t in (cls, obj, box))
-        h, w = cls.shape[:2]
-        cols, rows = np.arange(w)[None, :], np.arange(h)[:, None]
-        cx = (cols + box[..., 0]) * stride
-        cy = (rows + box[..., 1]) * stride
-        bw, bh = np.exp(box[..., 2]) * stride, np.exp(box[..., 3]) * stride
-        boxes.append(np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2],
-                              -1).reshape(-1, 4))
-        scores.append(np.sqrt(np.clip(cls[..., 0] * obj[..., 0], 0, 1)).reshape(-1))
-    return np.concatenate(boxes), np.concatenate(scores)
-
-
-def _retina_candidates(heads, im_hw) -> Tuple[np.ndarray, np.ndarray]:
-    """RetinaFace's anchor decode (legacy +1 widths), clipped to the
-    network input, strides 32, 16, 8 in that order."""
-    boxes, scores = [], []
-    for stride in (32, 16, 8):
-        prob, bbox = (t[0].double().cpu().numpy() for t in heads[stride][:2])
-        h, w, a = prob.shape
-        base = np.asarray(RETINA_ANCHORS[stride], np.float64)
-        xs, ys = np.meshgrid(np.arange(w) * stride, np.arange(h) * stride)
-        shift = np.stack([xs, ys, xs, ys], -1)[:, :, None, :]
-        anc = (shift + base[None, None]).reshape(-1, 4)
-        d = bbox.reshape(-1, 4)
-        aw, ah = anc[:, 2] - anc[:, 0] + 1.0, anc[:, 3] - anc[:, 1] + 1.0
-        acx, acy = anc[:, 0] + 0.5 * (aw - 1.0), anc[:, 1] + 0.5 * (ah - 1.0)
-        px, py = d[:, 0] * aw + acx, d[:, 1] * ah + acy
-        pw, ph = np.exp(d[:, 2]) * aw, np.exp(d[:, 3]) * ah
-        b = np.stack([px - 0.5 * (pw - 1.0), py - 0.5 * (ph - 1.0),
-                      px + 0.5 * (pw - 1.0), py + 0.5 * (ph - 1.0)], -1)
-        b[:, 0::2] = np.clip(b[:, 0::2], 0, im_hw[1] - 1.0)
-        b[:, 1::2] = np.clip(b[:, 1::2], 0, im_hw[0] - 1.0)
-        boxes.append(b)
-        scores.append(prob.reshape(-1))
-    return np.concatenate(boxes), np.concatenate(scores)
-
-
 def crop_boxes(frame01: torch.Tensor, boxes_xywh: torch.Tensor,
-               out_hw: Tuple[int, int] = (160, 160)) -> torch.Tensor:
+               out_hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear crops of K xywh boxes from one (H, W, C) frame: sample
     points at half-pixel centres across each box, held inside the box
     and the frame, as two dense products.  Returns (K, oh, ow, C)."""
@@ -150,7 +104,7 @@ def crop_boxes(frame01: torch.Tensor, boxes_xywh: torch.Tensor,
 
 
 class Reference:
-    """The configuration's detector and encoder from the trained files,
+    """The configuration's detector and encoder from its weight files,
     on ``device``, in float32 (``quant=None``) or in the control's
     float8 (``quant="fp8"``)."""
 
@@ -158,17 +112,25 @@ class Reference:
         strict_f32()
         self.cfg, self.device = cfg, torch.device(device)
         self.quant = fp8 if quant == "fp8" else None
-        self.det_kind = cfg["detector"]
-        self.det = self._load(self.det_kind, cfg["detector_weights"], root, False)
-        self.enc = self._load("facenet512", cfg["encoder_weights"], root, True)
+        self.det_net = nets.network(cfg["detector"])
+        self.enc_net = nets.network(cfg["encoder"])
+        self.det = self._load(self.det_net, "detector", cfg["detector_weights"], root)
+        self.enc = self._load(self.enc_net, "encoder", cfg["encoder_weights"], root)
 
-    def _load(self, kind: str, rel: str, root: str, unit_bn_scale: bool):
-        net = nets.build(kind)
+    def _load(self, network, role: str, rel: str, root: str):
+        if network.ROLE != role:
+            raise ValueError(f"{network.__name__} is a {network.ROLE}, not a {role}")
+        net = network.build()
         net.load_state_dict(msgpack.state_dict(msgpack.read(os.path.join(root, rel)),
-                                               unit_bn_scale))
+                                               network.UNIT_BN_SCALE))
         net = net.to(self.device).eval()
         nets.set_quant(net, self.quant)
         return net
+
+    @staticmethod
+    def _channels(x: torch.Tensor, network) -> torch.Tensor:
+        """``x`` (BGR, channels last) in the network's colour order."""
+        return x.flip(-1) if network.CHANNELS == "rgb" else x
 
     @torch.no_grad()
     def detect(self, frame_u8: np.ndarray, threshold: Optional[float] = None
@@ -176,36 +138,33 @@ class Reference:
         """One (H, W, 3) uint8 BGR frame -> ``{"boxes": (N, 4) xywh,
         "scores": (N,)}`` in source pixels (float64), after the
         configuration's threshold (or ``threshold``) and NMS."""
-        c = self.cfg
+        c, dn = self.cfg, self.det_net
         frame = torch.from_numpy(frame_u8).to(self.device).float()
         size = tuple(c["input_px"])
         canvas, scale = letterbox(frame, size)
-        if self.det_kind == "yunet":
-            boxes, scores = _yunet_candidates(self.det((canvas / 255.0)[None]))
-            plus_one = suppress_equal = False
-            boxes = boxes / scale
-        else:
-            boxes, scores = _retina_candidates(self.det(canvas.flip(-1)[None]), size)
-            plus_one = suppress_equal = True
-            boxes = boxes / scale
+        x = self._channels(canvas / dn.SCALE, dn)
+        boxes, scores = dn.candidates(self.det(x[None]), size)
+        boxes = boxes / scale
         live = scores > (c["det_threshold"] if threshold is None else threshold)
         idx = np.nonzero(live)[0]
         keep = idx[greedy_nms(boxes[idx], scores[idx], c["nms_threshold"], c["max_faces"],
-                              plus_one, suppress_equal)]
+                              **dn.NMS)]
         xyxy = boxes[keep]
         return {"boxes": np.concatenate([xyxy[:, :2], xyxy[:, 2:] - xyxy[:, :2]], 1),
                 "scores": scores[keep]}
 
     @torch.no_grad()
     def embed(self, frame_u8: np.ndarray, boxes_xywh: np.ndarray) -> np.ndarray:
-        """L2-normalised embeddings (K, 512) float64 of the crops of
-        ``boxes_xywh`` from one uint8 BGR frame."""
+        """L2-normalised embeddings (K, ``embedding_dim``) float64 of the
+        crops of ``boxes_xywh`` to ``encode_px`` from one uint8 BGR
+        frame."""
         if len(boxes_xywh) == 0:
-            return np.zeros((0, 512))
-        frame = torch.from_numpy(frame_u8).to(self.device).float() / 255.0
+            return np.zeros((0, self.cfg["embedding_dim"]))
+        frame = torch.from_numpy(frame_u8).to(self.device).float() / self.enc_net.SCALE
         crops = crop_boxes(frame, torch.as_tensor(np.asarray(boxes_xywh, np.float32),
-                                                  device=self.device))
-        e = self.enc(crops.flip(-1)).double()
+                                                  device=self.device),
+                           tuple(self.cfg["encode_px"]))
+        e = self.enc(self._channels(crops, self.enc_net)).double()
         return F.normalize(e, dim=1).cpu().numpy()
 
     def set_gallery(self, rows: np.ndarray, added) -> None:

@@ -117,11 +117,36 @@ def test_macs_from_shapes_match_the_program_count():
     from fire_tpu_torch.models.retinaface import RetinaFace
     from fire_tpu_torch.models.yunet import YuNet
 
-    got = work.network_macs("yunet", (640, 640))
+    cfg = spec.config(BENCH, "yunet640-facenet512-g100k")
+    got = work.network_macs(cfg)
     with torch.device("meta"):
         y = forward_macs(YuNet(), torch.empty(1, 640, 640, 3))
         f = forward_macs(FaceNet(512), torch.empty(1, 160, 160, 3))
         r = forward_macs(RetinaFace(), torch.empty(1, 512, 512, 3))
     assert got == {"detector": y, "encoder": f}
-    assert work.network_macs("retinaface", (512, 512))["detector"] == r
+    retina = spec.config(BENCH, "retina512-facenet512-g100k")
+    assert work.network_macs(retina)["detector"] == r
     assert 0.5e9 < y < 5e9 and 1e9 < f < 3e9
+
+
+@pytest.mark.parametrize("config,detector", [("yunet640-facenet512-g100k", 542_393_600),
+                                             ("retina512-facenet512-g100k", 28_329_377_792)])
+def test_the_cells_work_reads_as_before(config, detector):
+    """The counts and the width the cells read while the harness fixed
+    FaceNet-512 at 160 x 160 and 512 dimensions, now taken from each
+    configuration and its network files."""
+    from types import SimpleNamespace
+
+    from harness import cell
+
+    cfg = spec.config(BENCH, config)
+    macs = work.network_macs(cfg)
+    assert macs == {"detector": detector, "encoder": 1_417_662_304}
+    loop = SimpleNamespace(faces_per_frame=lambda: np.array([1, 3]))
+    res = {"loop_idx": [0, 1, 0], "measured": 3, "window_s": 1.0, "latency_s": [0.004] * 3,
+           "stages_s": {"detection": [0.002] * 3}}
+    r = cell._record("per_frame", cfg, {}, loop, res, SimpleNamespace(added=[]),
+                     SimpleNamespace(prof=None), 1.0, macs)
+    assert r["work"] == {"detector_macs": detector, "encoder_macs": 1_417_662_304, "frames": 3,
+                         "faces": 5, "gallery_rows": 99_900, "dim": 512, "batch": 1,
+                         "encode_k": 32, "tracks": 64}
