@@ -43,7 +43,10 @@ in order, each printing one JSON line:
    64 crops of 160²) give it, one frame and the batched path's 64: bitwise against its plain version, ms
    called one by one and replayed from a CUDA graph, the bound from the
    bytes it moves, plain ms, and the library chain it replaces (cast,
-   cuDNN's float32 ``F.batch_norm``, cast, residual, ReLU).
+   cuDNN's float32 ``F.batch_norm``, cast, residual, ReLU); and K3's
+   PReLU route at two IResNet-100 shapes (112²: the stem, a layer-3
+   ``bn2``), against the chain with ``F.prelu``, and the residual route
+   at a third (a layer-1 ``bn3`` with the shortcut at four faces).
 4. ``main_path``: ``FaceRecognition.process_frames(batch_size=64)`` at full
    width (YuNet-64 at 640², FaceNet-512, 99,900-row gallery, committed
    trained weights) over rendered 1-face 1080p scenes; K1's and K2's
@@ -88,6 +91,12 @@ in order, each printing one JSON line:
    command's engine captures its own); then, untimed, each engine call of
    a YuNet and a default command against the same call run eagerly,
    bitwise.
+8a. ``iresnet_path``: ArcFace IResNet-100 in the encoder slot at full
+   size (112² crops, the random init) behind the trained YuNet: an
+   encode makes 153 K3 launches, 50 on the PReLU route, replayed and
+   eager, the replay bitwise equal to the eager call; ``recognize_faces``,
+   ``extract_faces`` (112² crops), ``add_face``, ``process_frames`` at
+   B = 2 and ``--encoder iresnet100`` image mode through the CLI.
 9. ``default_command``: ``cli.main`` image mode without ``--encoder``
    (the random-init FaceNet-128 and its params cache), twice on fresh
    storage: the first call writes the cache, the second reads it; the
@@ -253,7 +262,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main_path", "retina_path", "frame_path", "retina_frame",
-          "image_mode", "default_command", "encrypted", "multistream", "sharded_gallery",
+          "image_mode", "iresnet_path", "default_command", "encrypted", "multistream", "sharded_gallery",
           "importers", "native", "label_text", "eval_detect", "calibrate", "eval_auc",
           "eval_e2e", "train_encoder", "train_sharded", "dryrun", "train_detectors",
           "train_graph", "bench", "trace", "cross_device")
@@ -547,12 +556,15 @@ def phase_kernels(ctx) -> None:
     ctx["k3"] = [k3_case(dev, *case) for case in K3_CASES]
 
 
-# (case, shape, residual, relu, scale): the layers of RetinaFace at 512²
+# (case, shape, residual, act, scale): the layers of RetinaFace at 512²
 # (the stem; stage 1's and stage 4's last 1×1 with the shortcut; an SSH
 # branch; the stem and stage 1 again at the batched path's 64 frames),
 # YuNet at 640² (the stem, a 64-channel unit at stride 8; the stem at 64
 # frames), FaceNet-512 (stem0 at 8 and at 64 crops, the 1792-channel block,
-# the 2-D bottleneck; no scale)
+# the 2-D bottleneck; no scale), ArcFace IResNet-100 at 112² (on the
+# PReLU route the stem and a layer-3 block's bn2; a layer-1 block's bn3
+# with the shortcut at four faces).  ``act`` is True (ReLU), False or
+# "prelu".
 K3_CASES = (
     ("RetinaFace stem", (1, 64, 256, 256), False, True, True),
     ("RetinaFace stage1 bn3", (1, 256, 128, 128), True, True, True),
@@ -567,12 +579,16 @@ K3_CASES = (
     ("FaceNet stem0 B=64", (64, 32, 79, 79), False, True, False),
     ("FaceNet block8 B=8", (8, 1792, 3, 3), False, True, False),
     ("FaceNet bottleneck B=8", (8, 512), False, False, False),
+    ("IResNet stem PReLU", (1, 64, 112, 112), False, "prelu", True),
+    ("IResNet layer3 bn2 PReLU", (1, 256, 14, 14), False, "prelu", True),
+    ("IResNet layer1 bn3 B=4", (4, 64, 56, 56), True, False, True),
 )
 
 
-def k3_case(dev, name, shape, residual, relu, use_scale) -> dict:
+def k3_case(dev, name, shape, residual, act, use_scale) -> dict:
     """K3 at one layer's shape: bitwise against its plain version, then
-    timed against it and against the library chain it replaces."""
+    timed against it and against the library chain it replaces (with a
+    PReLU: the float32 BatchNorm, its cast, the add and ``F.prelu``)."""
     import torch
     import torch.nn.functional as F
 
@@ -593,30 +609,34 @@ def k3_case(dev, name, shape, residual, relu, use_scale) -> dict:
     scale = ((1 + 0.3 * torch.randn(c, generator=gen)) if use_scale else torch.ones(c)).to(dev)
     bias = (0.2 * torch.randn(c, generator=gen)).to(dev)
     eps = 1e-5 if use_scale else 1e-3
+    relu = act is True
+    slope = (0.25 + 0.1 * torch.randn(c, generator=gen)).to(dev) if act == "prelu" else None
     params = (mean, var, scale, bias, eps)
-    got = k3.bn_act(x, *params, r, relu)
+    got = k3.bn_act(x, *params, r, relu, slope)
     torch.cuda.synchronize()  # a fault of this case shows here, not later
-    want = k3.plain_bn_act(x, *params, r, relu)
+    want = k3.plain_bn_act(x, *params, r, relu, slope)
     differ = int((got.contiguous().view(torch.int16) != want.contiguous().view(torch.int16)).sum())
     check(differ == 0, f"K3 {name}: {differ} bf16 values differ from the plain version")
 
     def library():
         y = F.batch_norm(x.float(), mean, var, scale, bias, False, 0.0, eps).to(torch.bfloat16)
         y = y + r if residual else y
+        if slope is not None:
+            return F.prelu(y, slope.to(y.dtype))
         return torch.relu(y) if relu else y
 
     lib_err = float((library().float() - got.float()).abs().max())
     plan = k3.launch_plan(x.numel() // c, c, 8 if c % 8 == 0 else 1,
                           torch.cuda.get_device_properties(dev).multi_processor_count)
     rec = {"case": name, "shape": list(shape), "residual": residual, "relu": relu,
-           "scale": use_scale, "bf16_values_differing": differ,
+           "prelu": slope is not None, "scale": use_scale, "bf16_values_differing": differ,
            "max_abs_diff_vs_library": lib_err, "plan": {**plan._asdict(), "threads": plan.threads}}
-    rec.update(cuda_ms_each({"kernel_ms": lambda: k3.bn_act(x, *params, r, relu),
-                             "plain_ms": lambda: k3.plain_bn_act(x, *params, r, relu),
+    rec.update(cuda_ms_each({"kernel_ms": lambda: k3.bn_act(x, *params, r, relu, slope),
+                             "plain_ms": lambda: k3.plain_bn_act(x, *params, r, relu, slope),
                              "library_ms": library}, reps=20))
-    rec["kernel_device_ms"] = graph_ms(lambda: k3.bn_act(x, *params, r, relu), 20)
+    rec["kernel_device_ms"] = graph_ms(lambda: k3.bn_act(x, *params, r, relu, slope), 20)
     rec["library_device_ms"] = graph_ms(library, 20)
-    nbytes = x.numel() * (6 if residual else 4) + 4 * 4 * c
+    nbytes = x.numel() * (6 if residual else 4) + 4 * (5 if slope is not None else 4) * c
     rec["bound_ms"], rec["bound_by"] = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
     rec["kernel_over_bound"] = rec["kernel_device_ms"] / rec["bound_ms"]
     rec["library_over_kernel"] = rec["library_device_ms"] / rec["kernel_device_ms"]
@@ -2165,6 +2185,93 @@ def _one_face_bmp(work: str, seed: int):
     src = os.path.join(work, "scene.bmp")
     imageio.imwrite(src, scene)
     return scene, src
+
+
+IRESNET_K3 = (153, 50)  # IResNet-100's K3 launches an encode, and those on the PReLU route
+
+
+def phase_iresnet_path(ctx) -> None:
+    """ArcFace IResNet-100 in the encoder slot at full size (the random
+    init; the 112² crops from the encoder, with no engine configuration) behind the trained YuNet on a rendered 1080p scene:
+    an encode makes 153 K3 launches, 50 of them on the PReLU route,
+    replayed and eager, and the replay equals the eager call bitwise;
+    ``recognize_faces``, ``extract_faces`` (every aligned crop 112²),
+    ``add_face``, ``process_frames`` at B = 2 and image mode through the
+    command line (``--encoder iresnet100``) serve it."""
+    import numpy as np
+    import torch
+
+    from fire_tpu_torch import cli
+    from fire_tpu_torch.ops import bn_act as k3
+    from fire_tpu_torch.pipeline.recognizer import FaceRecognition
+    from fire_tpu_torch.train.scenes import compose_scene, make_identities
+    from fire_tpu_torch.utils import imageio
+
+    work = os.path.join(ctx["tmp"], "iresnet_path")
+    os.makedirs(work)
+    scene = compose_scene(np.random.default_rng(11), make_identities(6, seed=11),
+                          hw=(1080, 1920), n_faces=(2, 3), face_px=(160, 260),
+                          occlusion_prob=0.0)[0]
+    t0 = time.perf_counter()
+    fr = FaceRecognition(
+        detector_type="yunet", encoder_model_type="iresnet100", similarity_threshold=0.7,
+        unknown_trigger_count=1, detection_interval=1, weights_dir=None, enable_logging=False,
+        storage_root=os.path.join(work, "storage"), device="cuda",
+        trained_detector=os.path.join(REPO, "weights_trained", "yunet_synth.msgpack"))
+    setup_s = time.perf_counter() - t0
+    eng = fr.engine
+    check(fr.embedding_dim == 512 and fr.cfg.engine.encode_size == (112, 112),
+          f"iresnet_path: width {fr.embedding_dim}, crops {fr.cfg.engine.encode_size}")
+
+    def counted(fn):
+        n0, p0 = k3.launches, k3.prelu_launches
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (k3.launches - n0, k3.prelu_launches - p0)
+
+    with recognizer_errors_fail("iresnet_path"):
+        for _ in range(6):
+            faces = fr.recognize_faces(scene)
+        boxes = np.asarray([f["bbox"] for f in eng.detect_faces(scene)], np.float32)
+        check(len(boxes) >= 2, f"iresnet_path: {len(boxes)} faces detected")
+        eng.encode_boxes(scene, boxes)  # the bucket's capture
+        graph, graph_k3 = counted(lambda: eng.encode_boxes(scene, boxes))
+        eng._graphed = lambda device: False
+        try:
+            eager, eager_k3 = counted(lambda: eng.encode_boxes(scene, boxes))
+        finally:
+            del eng._graphed
+        check(graph_k3 == eager_k3 == IRESNET_K3,
+              f"iresnet_path: K3 (all, PReLU) a replay {graph_k3}, eager {eager_k3}")
+        check(np.array_equal(graph, eager), "iresnet_path: the encode replay != eager")
+        crops = fr.extract_faces(scene, align=True)
+        check(crops and all(c.shape == (112, 112, 3) for c in crops),
+              f"iresnet_path: aligned crops {[c.shape for c in crops]}")
+        added = fr.add_face(scene, "iresnet_person")
+        batched = []
+        fr.process_frames([scene] * 8, annotate=False, batch_size=2,
+                          on_frame=lambda _f, fs: batched.append(len(fs)))
+        check(len(batched) == 8, f"iresnet_path: {len(batched)} batched frames")
+        labels = [f.get("label") for f in faces]
+    fr.close()
+    del fr, eng
+    src, out = os.path.join(work, "scene.bmp"), os.path.join(work, "out.bmp")
+    imageio.imwrite(src, scene)
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)  # storage/ is made under the working directory
+        with recognizer_errors_fail("iresnet_path image mode"):
+            cli.main(["--mode", "image", "--input", src, "--detector", "yunet",
+                      "--encoder", "iresnet100", "--save", out])
+    finally:
+        os.chdir(cwd)
+    check(os.path.exists(out), "iresnet_path: image mode wrote no output")
+    emit({"phase": "iresnet_path", "setup_s": setup_s, "faces": len(boxes), "labels": labels,
+          "k3_per_encode": list(graph_k3), "k3_per_encode_eager": list(eager_k3),
+          "replay_equals_eager": True, "crops": [list(c.shape) for c in crops],
+          "add_face": bool(added), "batched_faces": batched,
+          "embedding_norms": np.linalg.norm(graph, axis=1).round(4).tolist()})
+    torch.cuda.empty_cache()
 
 
 def phase_default_command(ctx) -> None:

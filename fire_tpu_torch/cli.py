@@ -53,8 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--detector", type=str, default="mediapipe",
                    choices=["mediapipe", "yunet", "retinaface"],
                    help="Detector type (mediapipe selects the BlazeFace-class fast path)")
-    p.add_argument("--encoder", type=str, default=None, choices=["128", "512"],
-                   help="FaceNet embedding width: 128-d or 512-d")
+    p.add_argument("--encoder", type=str, default=None, choices=["128", "512", "iresnet100"],
+                   help="FaceNet embedding width, 128-d or 512-d, or ArcFace IResNet-100 "
+                        "(512-d, 112x112 crops; no committed weights: pass --trained)")
     p.add_argument("--encoder_mode", type=str, default="cpu_optimized",
                    choices=["cpu_optimized", "gpu_optimized"],
                    help="Accepted for compatibility; the engine ignores it")
@@ -213,6 +214,11 @@ def _run(args) -> None:
     try:
         if not args.no_default_weights:
             _load_trained_defaults(face_recog, args)
+        encoder_source = face_recog.engine.weight_source["encoder"]
+        if args.encoder == "iresnet100" and encoder_source == "random-init":
+            log.warning("ENCODER 'iresnet100' IS RUNNING RANDOM-INIT WEIGHTS — its embeddings "
+                        "do not tell faces apart. No trained IResNet-100 is committed: pass "
+                        "--trained FILE (its Flax msgpack weights).")
 
         if args.core:
             print(f"Use only 1 cpu core: {bool(args.core)}")

@@ -19,6 +19,11 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+# encoder_model_type → the width of the embedding that encoder hands back:
+# FaceNet-128, FaceNet-512, ArcFace IResNet-100
+ENCODER_DIMS = {"128": 128, "512": 512, "iresnet100": 512}
+
+
 @dataclasses.dataclass(frozen=True)
 class TrackerConfig:
     """SORT + linear-KF tracker parameters (``Sort(max_age=4,
@@ -141,7 +146,9 @@ class RecognizerConfig:
 
     @property
     def embedding_dim(self) -> int:
-        return 512 if self.encoder_model_type == "512" else 128
+        """The encoder's embedding width (:data:`ENCODER_DIMS`; 128 for a
+        name it does not hold, as before)."""
+        return ENCODER_DIMS.get(self.encoder_model_type, 128)
 
     def with_embedding_dim(self) -> "RecognizerConfig":
         gal = dataclasses.replace(self.gallery, embedding_dim=self.embedding_dim)

@@ -37,6 +37,15 @@
 // Bound on an H100 SXM: bytes only (a few operations an element), 4 or
 // 6 bytes an element at 3.35 TB/s: 60 M elements, RetinaFace's
 // BatchNorms at 512^2, in about 0.09 ms.
+//
+// The PReLU route (bn_prelu_kernel, ArcFace IResNet's BatchNorm before
+// its PReLU) ends the same formula, with no residual (no network adds
+// one before a PReLU), in a PReLU with one float32 slope a channel:
+//   y <= 0 ? bf16(y * slope[c]) : y
+// which is y > 0 ? y : slope * y with a NaN kept as it is, the plain
+// version's torch.where of the same product, rounded once.  A thread
+// reads its V channels' slopes once, with the other parameters; the
+// route reads and writes the same bytes as the ReLU route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,6 +123,41 @@ __global__ void __launch_bounds__(MAX_THREADS) bn_act_kernel(BnActArgs a) {
 }
 
 template <int V>
+__global__ void __launch_bounds__(MAX_THREADS) bn_prelu_kernel(BnActArgs a,
+                                                               const float* __restrict__ slope) {
+  using T = typename Vec<V>::T;
+  union Pack { T raw; uint16_t h[V]; };
+  const T* __restrict__ xv = reinterpret_cast<const T*>(a.x);
+  T* __restrict__ yv = reinterpret_cast<T*>(a.y);
+  const int lane = threadIdx.x % a.tpr;
+  const long long row0 = static_cast<long long>(blockIdx.x) * a.rpb + threadIdx.x / a.tpr;
+  const long long row_step = static_cast<long long>(gridDim.x) * a.rpb;
+  for (int g = lane; g < a.groups; g += a.tpr) {
+    float mean[V], mul[V], bias[V], neg[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int c = g * V + v;
+      mean[v] = __ldg(a.mean + c);
+      mul[v] = rsqrtf(__ldg(a.var + c) + a.eps) * __ldg(a.scale + c);
+      bias[v] = __ldg(a.bias + c);
+      neg[v] = __ldg(slope + c);
+    }
+    for (long long row = row0; row < a.rows; row += row_step) {
+      const long long i = row * a.groups + g;
+      Pack in, out;
+      in.raw = xv[i];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const uint16_t h = float_to_bf16((bf16_to_float(in.h[v]) - mean[v]) * mul[v] + bias[v]);
+        const float f = bf16_to_float(h);
+        out.h[v] = f <= 0.0f ? float_to_bf16(f * neg[v]) : h;
+      }
+      yv[i] = out.raw;
+    }
+  }
+}
+
+template <int V>
 void* pick(bool res, bool relu) {
   if (res) {
     return relu ? reinterpret_cast<void*>(bn_act_kernel<V, true, true>)
@@ -125,17 +169,13 @@ void* pick(bool res, bool relu) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-}  // namespace
-
-// One launch on `stream`: x, the residual (or null) and y are bf16
-// (rows, C) with channels innermost; mean, var, scale and bias float32
+// The launch's arguments, checked: x, the residual (or null) and y are
+// bf16 (rows, C) with channels innermost; mean, var, scale and bias float32
 // (C).  `vector` is 8 or 1; the plan (threads = tpr * rpb, blocks) is the
-// wrapper's (ops/bn_act.py launch_plan).  Returns 0, a cudaError_t, or
-// ERR_BAD_ARGS for arguments the kernel cannot take.
-extern "C" int fire_bn_act(const void* x, const void* r, void* y, const float* mean,
-                           const float* var, const float* scale, const float* bias, float eps,
-                           long long rows, int channels, int vector, int relu, int tpr, int rpb,
-                           int blocks, void* stream) {
+// wrapper's (ops/bn_act.py launch_plan).  Returns 0 or ERR_BAD_ARGS.
+int make_args(BnActArgs* a, const void* x, const void* r, void* y, const float* mean,
+              const float* var, const float* scale, const float* bias, float eps,
+              long long rows, int channels, int vector, int tpr, int rpb, int blocks) {
   if (!x || !y || !mean || !var || !scale || !bias) return ERR_BAD_ARGS;
   if (rows < 1 || channels < 1 || blocks < 1 || tpr < 1 || rpb < 1) return ERR_BAD_ARGS;
   if (tpr * rpb > MAX_THREADS) return ERR_BAD_ARGS;
@@ -145,14 +185,49 @@ extern "C" int fire_bn_act(const void* x, const void* r, void* y, const float* m
   } else if (vector != 1) {
     return ERR_BAD_ARGS;
   }
-  BnActArgs a{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(r),
-              static_cast<uint16_t*>(y), mean, var, scale, bias, eps, rows,
-              channels / vector, tpr, rpb};
-  if (tpr > a.groups) return ERR_BAD_ARGS;
-  void* kernel = vector == 8 ? pick<8>(r != nullptr, relu != 0) : pick<1>(r != nullptr, relu != 0);
-  void* params[] = {&a};
-  cudaError_t e = cudaLaunchKernel(kernel, dim3(blocks), dim3(tpr * rpb), params, 0,
+  *a = BnActArgs{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(r),
+                 static_cast<uint16_t*>(y), mean, var, scale, bias, eps, rows,
+                 channels / vector, tpr, rpb};
+  return tpr > a->groups ? ERR_BAD_ARGS : 0;
+}
+
+cudaError_t launch(void* kernel, int blocks, int threads, void** params, void* stream) {
+  cudaError_t e = cudaLaunchKernel(kernel, dim3(blocks), dim3(threads), params, 0,
                                    reinterpret_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// One launch on `stream` (make_args says what it takes).  Returns 0, a
+// cudaError_t, or ERR_BAD_ARGS for arguments the kernel cannot take.
+extern "C" int fire_bn_act(const void* x, const void* r, void* y, const float* mean,
+                           const float* var, const float* scale, const float* bias, float eps,
+                           long long rows, int channels, int vector, int relu, int tpr, int rpb,
+                           int blocks, void* stream) {
+  BnActArgs a;
+  if (int bad = make_args(&a, x, r, y, mean, var, scale, bias, eps, rows, channels, vector, tpr,
+                          rpb, blocks))
+    return bad;
+  void* kernel = vector == 8 ? pick<8>(r != nullptr, relu != 0) : pick<1>(r != nullptr, relu != 0);
+  void* params[] = {&a};
+  return launch(kernel, blocks, tpr * rpb, params, stream);
+}
+
+// The PReLU route: as fire_bn_act with no residual, and `slope`
+// (float32, C) in place of the ReLU.
+extern "C" int fire_bn_prelu(const void* x, void* y, const float* mean, const float* var,
+                             const float* scale, const float* bias, const float* slope, float eps,
+                             long long rows, int channels, int vector, int tpr, int rpb,
+                             int blocks, void* stream) {
+  BnActArgs a;
+  if (!slope) return ERR_BAD_ARGS;
+  if (int bad = make_args(&a, x, nullptr, y, mean, var, scale, bias, eps, rows, channels, vector,
+                          tpr, rpb, blocks))
+    return bad;
+  void* kernel = vector == 8 ? reinterpret_cast<void*>(bn_prelu_kernel<8>)
+                             : reinterpret_cast<void*>(bn_prelu_kernel<1>);
+  void* params[] = {&a, &slope};
+  return launch(kernel, blocks, tpr * rpb, params, stream);
 }

@@ -36,8 +36,10 @@ class BatchNorm(nn.Module):
     module's device, and the running statistics are updated once.
 
     ``relu`` and ``residual`` finish the layer as the networks do after
-    it: ``y + residual`` (same shape and dtype as ``x``), then ReLU.  The
-    route is chosen by mode and dtype alone.  In eval mode on the card a
+    it: ``y + residual`` (same shape and dtype as ``x``), then ReLU;
+    ``slope`` (a :class:`PReLU`'s float32 ``negative_slope``, one a
+    channel), with neither, ends it in that PReLU instead.  The route is chosen by mode
+    and dtype alone.  In eval mode on the card a
     bf16 call that wants no gradient runs all of it as kernel K3
     (:mod:`fire_tpu_torch.ops.bn_act`), Flax's formula in one pass, which
     raises on a layout it does not take (channels-last 4-D or rows × C).
@@ -72,15 +74,16 @@ class BatchNorm(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor, train: bool = False, relu: bool = False,
-                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                residual: Optional[torch.Tensor] = None,
+                slope: Optional[torch.Tensor] = None) -> torch.Tensor:
         if isinstance(x, ShardList):
-            return _finish(self._forward_shards(x, train), relu, residual)
+            return _finish(self._forward_shards(x, train), relu, residual, slope)
         params = (self.running_mean, self.running_var, self.weight, self.bias)
         if (not train and x.device.type == "cuda" and x.dtype == torch.bfloat16
                 and not (torch.is_grad_enabled() and any(
-                    t is not None and t.requires_grad for t in (x, residual, *params)))):
-            return bn_act.bn_act(x, *params, self.eps, residual, relu)
-        return _finish(self._forward(x, train), relu, residual)
+                    t is not None and t.requires_grad for t in (x, residual, slope, *params)))):
+            return bn_act.bn_act(x, *params, self.eps, residual, relu, slope)
+        return _finish(self._forward(x, train), relu, residual, slope)
 
     def _forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.float()
@@ -126,12 +129,36 @@ class BatchNorm(nn.Module):
             for xf, s in zip(xs, x.shards)])
 
 
-def _finish(y, relu: bool, residual):
-    """``y + residual``, then ReLU, where asked: the plain route's end of
-    the layer."""
+def _finish(y, relu: bool, residual, slope=None):
+    """``y + residual``, then ReLU, or the PReLU of ``slope``, where
+    asked: the plain route's end of the layer."""
+    bn_act.check_end(relu, residual, slope)
+    if slope is not None:
+        return bn_act.prelu(y, slope)
     if residual is not None:
         y = y + residual
     return torch.relu(y) if relu else y
+
+
+class PReLU(nn.Module):
+    """PReLU over dim 1 with one learnt slope a channel,
+    ``negative_slope`` (its name in the weight files), kept in float32
+    when the module is cast, as :class:`BatchNorm`'s parameters are.
+    A network passes it to the :class:`BatchNorm` before it
+    (``bn(x, slope=prelu.negative_slope)``), which ends in it on either
+    route; called alone it is :func:`~fire_tpu_torch.ops.bn_act.prelu`."""
+
+    def __init__(self, features: int, init: float = 0.25):
+        super().__init__()
+        self.negative_slope = nn.Parameter(torch.full((features,), float(init)))
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        self.negative_slope.data = self.negative_slope.data.float()
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bn_act.prelu(x, self.negative_slope)
 
 
 def same_pad(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:

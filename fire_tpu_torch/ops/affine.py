@@ -89,19 +89,28 @@ def warp_affine(image: torch.Tensor, m: torch.Tensor, out_hw: Tuple[int, int]) -
     return _warp(image.float(), m[None], out_hw)[0]
 
 
+def template(out_hw: Tuple[int, int] = (160, 160)):
+    """``ALIGN_TEMPLATE_160`` scaled to an ``out_hw`` canvas (x by
+    ``ow / 160``, y by ``oh / 160``): the same face framing at any crop
+    size, and the template itself, bit for bit, at 160 × 160."""
+    sy, sx = out_hw[0] / 160.0, out_hw[1] / 160.0
+    return tuple((x * sx, y * sy) for x, y in ALIGN_TEMPLATE_160)
+
+
 @functools.lru_cache(maxsize=16)
-def _template_on(device: torch.device) -> torch.Tensor:
-    """``ALIGN_TEMPLATE_160`` on ``device``, made once: a captured graph
-    cannot copy from host memory."""
-    return torch.tensor(ALIGN_TEMPLATE_160, dtype=torch.float32, device=device)
+def _template_on(device: torch.device, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """:func:`template` on ``device``, made once: a captured graph cannot
+    copy from host memory."""
+    return torch.tensor(template(out_hw), dtype=torch.float32, device=device)
 
 
 def align_faces_160(image: torch.Tensor, landmarks3: torch.Tensor,
                     out_hw: Tuple[int, int] = (160, 160)) -> torch.Tensor:
-    """Align every face of a frame to the canonical template.
+    """Align every face of a frame to the canonical template, scaled to
+    the ``out_hw`` canvas (:func:`template`).
 
     ``image``: (H, W, C) float frame; ``landmarks3``: (N, 3, 2) per-face
     (left_eye, right_eye, nose) pixels.  Returns (N, oh, ow, C)."""
-    template = _template_on(image.device)
-    m = affine_from_3pts(landmarks3.float(), template.expand(landmarks3.shape[0], 3, 2))
+    tpl = _template_on(image.device, tuple(out_hw))
+    m = affine_from_3pts(landmarks3.float(), tpl.expand(landmarks3.shape[0], 3, 2))
     return _warp(image.float(), m, out_hw)

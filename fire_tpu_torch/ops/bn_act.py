@@ -1,10 +1,13 @@
-"""Kernel K3: inference BatchNorm, its ReLU and its residual add in one
-bf16 pass (CUDA C++, sm_90a).
+"""Kernel K3: inference BatchNorm, its ReLU or PReLU and its residual
+add in one bf16 pass (CUDA C++, sm_90a).
 
 What an eval-mode :class:`~fire_tpu_torch.models.layers.BatchNorm` runs
 on the card for a bf16 input: ``(x − mean) · (rsqrt(var + eps) · scale)
 + bias`` in float32, Flax's formula, rounded to bf16, then the residual
-added and the ReLU applied, where the network asks for them.  The
+added and the ReLU applied where the network asks for them, or, with no
+residual, a PReLU with one float32 slope a channel (ArcFace IResNet's).
+The ReLU routes are ``bn_act_kernel``, the PReLU route
+``bn_prelu_kernel``.  The
 source, its bound on the card and its design are in
 ``fire_tpu_torch/csrc/bn_act.cu``.
 
@@ -45,8 +48,10 @@ MAX_THREADS = 256          # the kernel's launch bounds
 THREADS_PER_SM = 2048      # resident threads an SM holds on sm_90
 
 # Launch count: one per call that launches the kernel, and one per replay of
-# a CUDA graph that holds a launch (count_replayed); nowhere else.
+# a CUDA graph that holds a launch (runtime/graphs.py count_replayed); nowhere else.
 launches = 0
+# Of those, the launches of the PReLU route (counted in ``launches`` too).
+prelu_launches = 0
 # nvcc's output of the last build (ptxas register / spill report).
 build_log = ""
 
@@ -68,14 +73,16 @@ def build() -> str:
 
 
 def _kernel():
+    """The library's two entries, ``fire_bn_act`` and ``fire_bn_prelu``."""
     global _fn
     if _fn is None:
         lib = ctypes.CDLL(build())
-        fn = lib.fire_bn_act
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([ptr] * 7 + [ctypes.c_float, ctypes.c_longlong] + [i32] * 6 + [ptr])
-        fn.restype = ctypes.c_int
-        _fn = fn
+        ptr, i32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        act, prelu = lib.fire_bn_act, lib.fire_bn_prelu
+        act.argtypes = [ptr] * 7 + [f32, i64] + [i32] * 6 + [ptr]
+        prelu.argtypes = [ptr] * 7 + [f32, i64] + [i32] * 5 + [ptr]
+        act.restype = prelu.restype = ctypes.c_int
+        _fn = act, prelu
     return _fn
 
 
@@ -132,16 +139,37 @@ def takes(x: torch.Tensor, residual: Optional[torch.Tensor], *params: torch.Tens
                and p.shape == (x.shape[1],) for p in params)
 
 
+def check_end(relu: bool, residual: Optional[torch.Tensor],
+              slope: Optional[torch.Tensor]) -> None:
+    """Raise on an end of the layer no route has: a PReLU ``slope`` with
+    a ReLU or a residual."""
+    if slope is not None and (relu or residual is not None):
+        raise ValueError("BatchNorm: a PReLU slope ends the layer alone, with no ReLU "
+                         "and no residual")
+
+
+def prelu(y: torch.Tensor, slope: torch.Tensor) -> torch.Tensor:
+    """PReLU over dim 1 with one float32 ``slope`` a channel, in
+    ``y``'s dtype: ``y > 0 ? y : slope · y``, the product in float32
+    rounded once, a NaN kept as it is."""
+    shape = [1, -1] + [1] * (y.dim() - 2)
+    return torch.where(y <= 0, (y.float() * slope.reshape(shape)).to(y.dtype), y)
+
+
 def plain_bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor, eps: float, residual: Optional[torch.Tensor] = None,
-                 relu: bool = False) -> torch.Tensor:
+                 relu: bool = False, slope: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version: Flax's formula as separate torch ops in float32,
-    rounded to ``x``'s dtype, then ``+ residual`` and ReLU in that
-    dtype.  On the card the kernel equals it bitwise."""
+    rounded to ``x``'s dtype, then ``+ residual`` and ReLU, or
+    :func:`prelu` with ``slope``, in that dtype.  On the card the kernel
+    equals it bitwise."""
+    check_end(relu, residual, slope)
     shape = [1, -1] + [1] * (x.dim() - 2)
     mul = torch.rsqrt(var + eps) * scale
     y = ((x.float() - mean.reshape(shape)) * mul.reshape(shape)
          + bias.reshape(shape)).to(x.dtype)
+    if slope is not None:
+        return prelu(y, slope)
     if residual is not None:
         y = y + residual
     return torch.relu(y) if relu else y
@@ -155,19 +183,22 @@ def _sms(index: int) -> int:
 
 def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, scale: torch.Tensor,
            bias: torch.Tensor, eps: float, residual: Optional[torch.Tensor] = None,
-           relu: bool = False) -> torch.Tensor:
+           relu: bool = False, slope: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inference BatchNorm of ``x`` (N, C, H, W) or (N, C) over its
     channels with the per-channel ``mean``, ``var``, ``scale`` and
-    ``bias``, then ``+ residual`` and ReLU where given.  Returns a new
-    tensor laid out as ``x``.
+    ``bias``, then ``+ residual`` and ReLU where given, or a PReLU of
+    the per-channel ``slope`` alone.  Returns a new tensor laid out as
+    ``x``.
 
     CPU tensors → the plain version.  CUDA tensors the kernel
     :func:`takes` → the kernel, on the current stream; others → an
     exception."""
-    global launches
+    global launches, prelu_launches
+    check_end(relu, residual, slope)
     if x.device.type == "cpu":
-        return plain_bn_act(x, mean, var, scale, bias, eps, residual, relu)
-    if not takes(x, residual, mean, var, scale, bias):
+        return plain_bn_act(x, mean, var, scale, bias, eps, residual, relu, slope)
+    params = (mean, var, scale, bias) if slope is None else (mean, var, scale, bias, slope)
+    if not takes(x, residual, *params):
         raise ValueError(f"bn_act: the kernel takes bf16 (rows, C) or channels-last (N, C, H, W) "
                          f"tensors with float32 parameters on one CUDA device, not "
                          f"{x.dtype} {tuple(x.shape)} strides {x.stride()} on {x.device}")
@@ -178,27 +209,26 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, scale: torch.
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, y, residual) if t is not None)
     plan = launch_plan(x.numel() // c, c, 8 if c % 8 == 0 and aligned else 1,
                        _sms(x.device.index))
-    fn = _kernel()
+    act, prelu_fn = _kernel()
     other = x.device.index != torch.cuda.current_device()
+    ptrs = (mean.data_ptr(), var.data_ptr(), scale.data_ptr(), bias.data_ptr())
+    plan_args = (plan.tpr, plan.rpb, plan.blocks, raw_stream(x.device.index))
     with torch.cuda.device(x.device) if other else contextlib.nullcontext():
-        err = fn(x.data_ptr(), None if residual is None else residual.data_ptr(), y.data_ptr(),
-                 mean.data_ptr(), var.data_ptr(), scale.data_ptr(), bias.data_ptr(), eps,
-                 x.numel() // c, c, plan.vector, int(relu), plan.tpr, plan.rpb, plan.blocks,
-                 raw_stream(x.device.index))
+        if slope is None:
+            err = act(x.data_ptr(), None if residual is None else residual.data_ptr(),
+                      y.data_ptr(), *ptrs, eps, x.numel() // c, c, plan.vector, int(relu),
+                      *plan_args)
+        else:
+            err = prelu_fn(x.data_ptr(), y.data_ptr(), *ptrs, slope.data_ptr(), eps,
+                           x.numel() // c, c, plan.vector, *plan_args)
     if err != 0:
         raise RuntimeError(f"bn_act kernel launch failed: code {err} "
                            f"(a cudaError_t, or the kernel's own above 20000) with {plan}")
     launches += 1
+    prelu_launches += slope is not None
     return y
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
-
-
-def count_replayed(n: int) -> None:
-    """Add the ``n`` launches of this kernel that one replay of a CUDA
-    graph makes (capturing a launch counts nothing: it runs at replay)."""
-    global launches
-    launches += n
+    global launches, prelu_launches
+    launches = prelu_launches = 0

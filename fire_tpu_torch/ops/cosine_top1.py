@@ -52,7 +52,7 @@ MAX_CHUNK_TILES = 32_767            # a tile's number in its chunk is kept in 15
 BLOCK_OVERHEAD_TILES = 0.5          # a block's start and end, in tiles of streaming time
 
 # Launch count: one per call that launches the kernel, and one per replay of
-# a CUDA graph that holds a launch (count_replayed); nowhere else.
+# a CUDA graph that holds a launch (runtime/graphs.py count_replayed); nowhere else.
 launches = 0
 # nvcc's output of the last build (ptxas register / spill report).
 build_log = ""
@@ -251,11 +251,3 @@ def cosine_top1(queries: torch.Tensor, gallery: torch.Tensor,
 def reset_launches() -> None:
     global launches
     launches = 0
-
-
-def count_replayed(n: int) -> None:
-    """Add the ``n`` launches of this kernel that one replay of a CUDA
-    graph makes (capturing a launch counts nothing: it runs at replay)."""
-    global launches
-    launches += n
-

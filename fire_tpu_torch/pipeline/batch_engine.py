@@ -318,7 +318,7 @@ class StepGraph:
                 reserved = torch.cuda.memory_reserved(dev)
                 t0 = time.perf_counter()
                 items, self.packed, self.rungs, self._held = [], [], [], []
-                # K1's, K2's and K3's launches in one replay
+                # K1's, K2's and K3's launches (and K3's PReLU route's) in one replay
                 self.launches_per_replay = (0,) * len(counts)
                 for state, x in zip(states, frames):
                     got = owner._capture_parts(self._part, engine, gal, count, state, x)

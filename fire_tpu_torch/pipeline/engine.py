@@ -5,13 +5,15 @@
   `Detections` in source pixels; ``_build_detect`` is the batched form
   the video path uses.
 * ``encode_boxes`` / ``encode_landmarks`` / ``encode_faces``: crop (or
-  3-point alignment) + FaceNet + L2 normalisation for all faces of a
+  3-point alignment) + the encoder + L2 normalisation for all faces of a
   frame in one pass.
-* ``extract_faces(image, align)``: detector + aligned or plain 160×160
-  RGB crops.
+* ``extract_faces(image, align)``: detector + aligned or plain RGB crops
+  of ``encode_size`` (160×160 for FaceNet, 112×112 for IResNet).
 
 Detector slots: ``yunet``, ``retinaface`` and ``mediapipe`` /
-``blazeface`` (BlazeFace).
+``blazeface`` (BlazeFace).  Encoders (:data:`ENCODERS`, by
+``encoder_model_type``): ``128`` and ``512`` (FaceNet), ``iresnet100``
+(ArcFace IResNet-100).
 
 Weights, as in the JAX engine: both models start from the deterministic
 random init (:func:`fire_tpu_torch.weights.materialize`, encoder seed
@@ -33,7 +35,9 @@ JAX compiles detect (with ``_pack_dets``) per frame size and variant,
 each encoder per (frame size, power-of-two bucket) and ``encode_faces``
 per bucket; the port pads to the same buckets (``_buckets``; more faces
 than ``max_encode`` go in bucket-sized slices, landmark pad rows take
-``ALIGN_TEMPLATE_160``) and, on a card, replays one CUDA graph per key
+``ALIGN_TEMPLATE_160``; the rows and the pad rows of each call add to the
+counters ``encoding.rows`` and ``encoding.padded`` of the span open
+around it) and, on a card, replays one CUDA graph per key
 (:mod:`fire_tpu_torch.runtime.graphs`), captured at the key's first
 call: the key is JAX's ``_detect_jit_cache`` key with the device and
 the module in the slot.  A frame goes up once, through pinned memory,
@@ -48,9 +52,10 @@ each replay against them.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 import os
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,16 +65,17 @@ from fire_tpu_torch.device import DeviceLike, resolve_device
 from fire_tpu_torch.models.blazeface import BlazeFace, decode_blazeface
 from fire_tpu_torch.models.detections import Detections
 from fire_tpu_torch.models.facenet import FaceNet
+from fire_tpu_torch.models.iresnet import PX as IRESNET_PX, IResNet, iresnet100
 from fire_tpu_torch.models.retinaface import RetinaFace, decode_retinaface
 from fire_tpu_torch.models.yunet import YuNet, decode_yunet
 from fire_tpu_torch.ops.affine import align_faces_160
 from fire_tpu_torch.ops.gallery_match import l2_normalize
 from fire_tpu_torch.ops.image import bgr_to_rgb, crop_and_resize, crop_and_resize_mm, letterbox
-from fire_tpu_torch.pipeline.timing import span
+from fire_tpu_torch.pipeline.timing import count, span
 from fire_tpu_torch.runtime.graphs import GraphCache, HostStaging, indexed, replay
 from fire_tpu_torch.weights import (flax_shapes, from_flax_blazeface, from_flax_facenet,
-                                    from_flax_retinaface, from_flax_yunet, load_into, materialize,
-                                    msgpack_serialize, read_msgpack)
+                                    from_flax_iresnet, from_flax_retinaface, from_flax_yunet,
+                                    load_into, materialize, msgpack_serialize, read_msgpack)
 
 log = logging.getLogger(__name__)
 
@@ -79,6 +85,39 @@ YUNET_OUTPUTS = ["cls_8", "obj_8", "bbox_8", "kps_8", "cls_16", "obj_16",
                  "bbox_16", "kps_16", "cls_32", "obj_32", "bbox_32", "kps_32"]
 BLAZEFACE_OUTPUTS = ["classifier_8", "regressor_8", "classifier_16", "regressor_16"]
 RETINAFACE_PERM = (7, 1, 4, 8, 0, 3, 6, 2, 5)  # the export's output order → (sc, bb, lm) × 32/16/8
+
+
+class Encoder(NamedTuple):
+    """An encoder slot's network: ``build(embed_dim)`` the full network,
+    ``unit_bn_scale`` (its weight files hold no BatchNorm scale),
+    ``convert`` (its Flax tree → the module's state dict) and ``px``, the
+    crop size the network fixes (``None``: any; FaceNet pools globally)."""
+    build: Callable[[int], torch.nn.Module]
+    unit_bn_scale: bool
+    convert: Callable[[dict], Dict[str, torch.Tensor]]
+    px: Optional[Tuple[int, int]]
+
+
+# encoder_model_type → its network; any other name is FaceNet-128's, as before
+ENCODERS = {
+    "128": Encoder(lambda dim: FaceNet(embed_dim=dim), True, from_flax_facenet, None),
+    "512": Encoder(lambda dim: FaceNet(embed_dim=dim), True, from_flax_facenet, None),
+    "iresnet100": Encoder(iresnet100, False, from_flax_iresnet, (IRESNET_PX, IRESNET_PX)),
+}
+
+
+def encoder_of(cfg: RecognizerConfig) -> Encoder:
+    """The network of ``cfg.encoder_model_type`` (:data:`ENCODERS`)."""
+    return ENCODERS.get(cfg.encoder_model_type, ENCODERS["128"])
+
+
+def fit_encoder(cfg: RecognizerConfig) -> RecognizerConfig:
+    """``cfg`` with the crop size its encoder fixes as ``encode_size``
+    (IResNet's 112²); ``cfg`` itself for an encoder that takes any."""
+    px = encoder_of(cfg).px
+    if px is None or cfg.engine.encode_size == px:
+        return cfg
+    return dataclasses.replace(cfg, engine=dataclasses.replace(cfg.engine, encode_size=px))
 
 
 def _buckets(n: int, cap: int) -> int:
@@ -193,13 +232,16 @@ class OnnxRetinaFace(OnnxSlot):
 class DeviceEngine:
     def __init__(self, cfg: RecognizerConfig, device: DeviceLike = None,
                  detector: Optional[torch.nn.Module] = None,
-                 encoder: Optional[FaceNet] = None,
+                 encoder: Optional[Union[FaceNet, IResNet]] = None,
                  params_dir: Optional[str] = None, seed: int = 0):
         """``detector`` / ``encoder`` accept pre-built modules of the same
-        families (e.g. ``YuNet(width=8)``, ``tiny_facenet``) so tests
-        drive the production path at a fraction of the FLOPs; ``None``
-        builds the full models.  ``params_dir`` holds the params cache
-        (none without it); ``seed`` seeds the random init."""
+        families (e.g. ``YuNet(width=8)``, ``tiny_facenet``,
+        ``IResNet((1, 1, 1, 1))``) so tests drive the production path at a
+        fraction of the FLOPs; ``None`` builds the full models (the
+        encoder ``ENCODERS[cfg.encoder_model_type]``'s).  The crops are
+        that encoder's size where it fixes one (:func:`fit_encoder`).
+        ``params_dir`` holds the params cache (none without it); ``seed``
+        seeds the random init."""
         det = cfg.detector_type
         if det == "yunet":
             detector = detector or YuNet()
@@ -213,13 +255,15 @@ class DeviceEngine:
         else:
             raise ValueError(
                 "Invalid detector_type. Choose from 'yunet', 'retinaface', 'mediapipe'.")
-        self.cfg = cfg
+        self.cfg = cfg = fit_encoder(cfg)
         self.params_dir = params_dir
         self.device = resolve_device(device)
+        self._encoder_kind = encoder_of(cfg)
         dt = cfg.engine.cdtype
         # the port's own modules; the slots hold them, or the ONNX executor
         self._detector_net = self._place(detector, dt)
-        self._encoder_net = self._place(encoder or FaceNet(embed_dim=cfg.embedding_dim), dt)
+        self._encoder_net = self._place(
+            encoder or self._encoder_kind.build(cfg.embedding_dim), dt)
         self.detector, self.encoder = self._detector_net, self._encoder_net
         # provenance per role: "random-init" until a loader replaces it
         # ("trained:<path>", "onnx-import:<path>", "tflite-import:<path>",
@@ -272,7 +316,8 @@ class DeviceEngine:
             except (OSError, ValueError, KeyError, TypeError) as e:
                 log.warning("Params cache %s is unreadable (%s); regenerating from fresh init.",
                             path, e)
-        enc_vars = materialize(flax_shapes(self._encoder_net, unit_bn_scale=True), seed)
+        enc_vars = materialize(
+            flax_shapes(self._encoder_net, unit_bn_scale=self._encoder_kind.unit_bn_scale), seed)
         det_vars = materialize(flax_shapes(self._detector_net), seed + 1)
         self.load_encoder_variables(enc_vars, "random-init")
         self.load_detector_variables(det_vars, "random-init")
@@ -286,11 +331,12 @@ class DeviceEngine:
                      "(embeddings stay stable across sessions).", path)
 
     def load_encoder_variables(self, tree, source: str) -> None:
-        """Load a Flax FaceNet variable tree (nested dicts of arrays) into
-        the port's FaceNet, which takes the slot back from an executor."""
+        """Load a Flax variable tree of the configuration's encoder
+        (nested dicts of arrays) into the port's module, which takes the
+        slot back from an executor."""
         if not isinstance(self.encoder, OnnxSlot):
             self._encoder_net = self.encoder
-        load_into(self._encoder_net, from_flax_facenet(tree))
+        load_into(self._encoder_net, self._encoder_kind.convert(tree))
         self.encoder, self.enc_vars = self._encoder_net, tree
         self.weight_source["encoder"] = source
 
@@ -311,7 +357,9 @@ class DeviceEngine:
         self.weight_source["detector"] = source
 
     def load_trained_encoder(self, path: str) -> None:
-        """Load FaceNet variables written by ``python -m fire_tpu.train``."""
+        """Load encoder variables: FaceNet's written by ``python -m
+        fire_tpu.train``, or a weight file of the configuration's
+        encoder in the same layout."""
         self.load_encoder_variables(read_msgpack(path), f"trained:{path}")
         log.info("Loaded trained encoder variables from %s.", path)
 
@@ -646,16 +694,23 @@ class DeviceEngine:
     # -- encoding ----------------------------------------------------------
 
     def encode(self, faces_rgb01: torch.Tensor) -> torch.Tensor:
-        """(M, 160, 160, 3) RGB [0,1] → (M, D) float32, unnormalised."""
+        """(M, *encode_size, 3) RGB [0,1] → (M, D) float32, unnormalised."""
         return self.encoder(faces_rgb01)
+
+    def encode_bucket(self, k: int) -> int:
+        """The bucket an encode of ``k`` faces pads to (the last slice's
+        when ``k`` exceeds ``max_encode``)."""
+        return _buckets(k, self.cfg.engine.max_encode)
 
     def _encode_crops(self, kind: str, frame_bgr: Frame, per_face: np.ndarray, crop,
                       pad_row=0.0) -> np.ndarray:
         """Shared body of ``encode_boxes`` / ``encode_landmarks``: the K
         rows padded to ``_buckets(K, max_encode)`` with ``pad_row``,
-        ``crop(image01, rows)`` → BGR crops → FaceNet, one call (one graph
-        of ``(kind, frame size, bucket)``) a bucket; more rows than the
-        bucket go in bucket-sized slices (``engine.py:650-716``)."""
+        ``crop(image01, rows)`` → BGR crops → the encoder, one call (one
+        graph of ``(kind, frame size, bucket)``) a bucket; more rows than
+        the bucket go in bucket-sized slices (``engine.py:650-716``).
+        Each call adds its K rows to the counter ``rows`` and the pad rows
+        to ``padded`` of the span open around it."""
         k = per_face.shape[0]
         if k == 0:
             return np.zeros((0, self.cfg.embedding_dim), np.float32)
@@ -668,6 +723,8 @@ class DeviceEngine:
         padded[:k] = per_face
         padded[k:] = pad_row
         frame = self._frame_arg(frame_bgr)
+        count("rows", k)
+        count("padded", bucket - k)
 
         def run(frame_u8, rows):
             img = frame_u8.float() / 255.0
@@ -686,15 +743,18 @@ class DeviceEngine:
                                   lambda img, b: crop_and_resize_mm(img, b, size))
 
     def encode_landmarks(self, frame_bgr: Frame, lms3: np.ndarray) -> np.ndarray:
-        """Encode K faces through landmark-aligned crops: ``lms3``
-        (K, 3, 2) per-face (left_eye, right_eye, nose) pixels.  Pad rows
-        take the template (an all-zero triangle would make the affine
-        solve singular)."""
-        return self._encode_crops("encl", frame_bgr, lms3, align_faces_160,
+        """Encode K faces through landmark-aligned crops of
+        ``encode_size`` (the template scaled to it): ``lms3`` (K, 3, 2)
+        per-face (left_eye, right_eye, nose) pixels.  Pad rows take the
+        template (an all-zero triangle would make the affine solve
+        singular)."""
+        size = self.cfg.engine.encode_size
+        return self._encode_crops("encl", frame_bgr, lms3,
+                                  lambda img, lm: align_faces_160(img, lm, size),
                                   pad_row=np.asarray(ALIGN_TEMPLATE_160, np.float32))
 
     def encode_faces(self, faces_rgb01: np.ndarray) -> np.ndarray:
-        """Encode pre-extracted (B, 160, 160, 3) RGB [0,1] crops (the
+        """Encode pre-extracted (B, *encode_size, 3) RGB [0,1] crops (the
         ``add_face`` path), padded to ``_buckets(B, max(max_encode, B))``
         (``engine.py:718-728``)."""
         b = faces_rgb01.shape[0]
@@ -711,16 +771,18 @@ class DeviceEngine:
 
     @torch.no_grad()
     def extract_faces(self, image_bgr: Frame, align: bool = True) -> List[np.ndarray]:
-        """Detect and return 160×160 RGB [0,1] crops, aligned by the
-        3-point affine when asked.  Uses the extraction detector variant."""
+        """Detect and return RGB [0,1] crops of ``encode_size``, aligned by
+        the 3-point affine (the template scaled to that size) when asked.
+        Uses the extraction detector variant."""
         image = self.to_device(image_bgr)
         d = self.detect(image, variant="extract")
         idx = torch.nonzero(d.mask)[:, 0]
         if idx.numel() == 0:
             return []
         image01 = image.float() / 255.0
+        size = self.cfg.engine.encode_size
         if align:
-            crops = align_faces_160(image01, d.landmarks3[idx])
+            crops = align_faces_160(image01, d.landmarks3[idx], size)
         else:
-            crops = crop_and_resize(image01, d.boxes_xywh[idx], self.cfg.engine.encode_size)
+            crops = crop_and_resize(image01, d.boxes_xywh[idx], size)
         return list(bgr_to_rgb(crops).cpu().numpy())

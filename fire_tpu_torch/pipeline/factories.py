@@ -19,7 +19,7 @@ import torch
 
 from fire_tpu_torch.config import RecognizerConfig, TrackerConfig
 from fire_tpu_torch.device import DeviceLike
-from fire_tpu_torch.pipeline.engine import DeviceEngine
+from fire_tpu_torch.pipeline.engine import DeviceEngine, encoder_of
 from fire_tpu_torch.track.sort import Sort
 from fire_tpu_torch.train.scenes import resize_area, resize_area_u8
 
@@ -46,8 +46,9 @@ def initialize_tracker(device: DeviceLike = None) -> Sort:
 class Encoder:
     """The reference's encoder contract on the port's engine.
 
-    ``preprocess_for_encoder``: resize to 160×160 (area), /255, add a
-    batch axis: NHWC float like the reference.  ``encode``: the batched
+    ``preprocess_for_encoder``: resize to 160×160 (area; the crop size
+    of an encoder that fixes one, IResNet's 112×112), /255, add a batch
+    axis: NHWC float like the reference.  ``encode``: the batched
     FaceNet forward on the engine's device (the unnormalised embedding,
     as the reference returns)."""
 
@@ -57,7 +58,7 @@ class Encoder:
             RecognizerConfig(), encoder_model_type=encoder_model_type or "128"
         ).with_embedding_dim()
         self.engine = engine or DeviceEngine(cfg, device=device)
-        self.input_shape = (160, 160)
+        self.input_shape = encoder_of(cfg).px or (160, 160)
         self.output_shape = cfg.embedding_dim
 
     def preprocess_for_encoder(self, face_img: np.ndarray) -> np.ndarray:

@@ -65,7 +65,7 @@ from fire_tpu_torch.gallery.index import DeviceGallery, ShardedGalleryView
 from fire_tpu_torch.gallery.store import FaceStore
 from fire_tpu_torch.parallel.mesh import make_mesh
 from fire_tpu_torch.pipeline.annotate import annotate_faces, resize_frame_to_screen
-from fire_tpu_torch.pipeline.engine import DeviceEngine
+from fire_tpu_torch.pipeline.engine import DeviceEngine, fit_encoder
 from fire_tpu_torch.pipeline.stream import (CAP_PROP_FPS, CAP_PROP_FRAME_HEIGHT,
                                             CAP_PROP_FRAME_WIDTH, FrameSequenceCapture,
                                             PrefetchReader)
@@ -209,7 +209,7 @@ class FaceRecognition:
             gallery=GalleryConfig(max_recent=max_recent, max_new=max_new),
             engine=engine_cfg or EngineConfig(),
         ).with_embedding_dim()
-        cfg = self.cfg
+        self.cfg = cfg = fit_encoder(self.cfg)
         self.similarity_threshold = similarity_threshold
         self.unknown_similarity_threshold = unknown_similarity_threshold
         self.unknown_trigger_count = unknown_trigger_count
@@ -526,8 +526,10 @@ class FaceRecognition:
         The frame is the timer's span ``frame`` (carrying ``frame_index``
         to the profiler), tiled by the spans ``upload``, ``detection``,
         ``tracker``, ``labels`` (before the encode and after the match),
-        ``encoding`` and ``match``; every wait is a ``readback`` span
-        inside its stage."""
+        ``encoding`` (its range names the encoder and the bucket; its
+        counters ``encoding.rows`` and ``encoding.padded`` count the faces
+        encoded and the pad rows of their buckets) and ``match``; every
+        wait is a ``readback`` span inside its stage."""
         self.timer.start()
         self.frame_index += 1
         with self.timer.span("frame", frame=self.frame_index):
@@ -581,7 +583,8 @@ class FaceRecognition:
         # a coasting track falls back to the raw box crop.
         embs = {}
         if to_encode:
-            with timer.span("encoding"):
+            with timer.span("encoding", encoder=self.cfg.encoder_model_type,
+                            bucket=self.engine.encode_bucket(len(to_encode))):
                 lms_of = {}
                 if self.align_video and detecting:
                     for si, d in enumerate(detected):
@@ -1142,4 +1145,5 @@ class FaceRecognition:
         if self.enable_logging:
             self.timer.log_stream_report()
             log.info("Counters: %s; gallery size: %d", self.counters, self.gallery.count)
-            log.info("Span counts: %s; graph captures: %d", self.timer.counts, graphs.captures)
+            log.info("Span counts: %s; span counters: %s; graph captures: %d", self.timer.counts,
+                     self.timer.counters, graphs.captures)

@@ -16,7 +16,9 @@ timeline beside the card's kernels and copies.  Components below the
 recognizer open theirs through :func:`span`, inside the innermost span
 open on the thread at the call (outside every span it does nothing), so
 they need no timer of their own: ``sharded_cosine_topk``'s signature, for
-one, stays as callers and replacements of it know it.
+one, stays as callers and replacements of it know it.  They add to the
+innermost span's timer's ``counters`` the same way (:func:`count`: the
+engine's ``encoding.rows`` and ``encoding.padded``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,9 @@ _profiling = torch._C._autograd._profiler_enabled
 # they are: an integer shows in the trace (with record_shapes)
 _range_enter = torch._C._autograd._record_function_with_args_enter
 _range_exit = torch._C._autograd._record_function_with_args_exit
+# a range with named arguments, shown in the trace: the one form that keeps
+# a string argument (the range above records a string as empty)
+_named_range = torch._C._profiler._RecordFunctionFast
 
 
 class _Open(threading.local):
@@ -56,13 +61,21 @@ _OPEN = _Open()
 class _Span:
     """One timed interval of :meth:`StageTimer.span`."""
 
-    __slots__ = ("timer", "name", "prefix", "args", "stack", "t0", "range")
+    __slots__ = ("timer", "name", "prefix", "args", "named", "stack", "t0", "range")
 
-    def __init__(self, timer: "StageTimer", name: str, prefix: str, args: tuple, stack: list):
+    def __init__(self, timer: "StageTimer", name: str, prefix: str, args: tuple, stack: list,
+                 named: Optional[dict] = None):
         self.timer, self.name, self.prefix, self.args, self.stack = timer, name, prefix, args, stack
+        self.named = named
 
     def __enter__(self):
-        self.range = _range_enter(PREFIX + self.name, *self.args) if _profiling() else None
+        self.range = None
+        if _profiling():
+            if self.named:
+                self.range = _named_range(PREFIX + self.name, self.args, self.named)
+                self.range.__enter__()
+            else:
+                self.range = _range_enter(PREFIX + self.name, *self.args)
         self.stack.append(self)
         self.t0 = _clock()
         return self
@@ -74,7 +87,10 @@ class _Span:
         totals[name] = totals.get(name, 0.0) + seconds
         counts[name] = counts.get(name, 0) + 1
         if self.range is not None:
-            _range_exit(self.range)
+            if self.named:
+                self.range.__exit__(None, None, None)
+            else:
+                _range_exit(self.range)
         return False
 
 
@@ -85,10 +101,21 @@ def span(name: str):
     return spans[-1].timer.span(name) if spans else _NO_SPAN
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``<span>.<name>`` in the innermost open
+    span's timer's ``counters`` (``encoding.rows``); nothing outside
+    every span."""
+    spans = _OPEN.spans
+    if spans:
+        counters, key = spans[-1].timer.counters, spans[-1].prefix + name
+        counters[key] = counters.get(key, 0) + n
+
+
 class StageTimer:
     def __init__(self):
         self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
+        self.counts: Dict[str, int] = {}  # calls of each span in totals
+        self.counters: Dict[str, int] = {}  # what count() added, by name
         self.frame_count = 0
         self.start_time: Optional[float] = None
         self._events: List[Tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
@@ -117,19 +144,21 @@ class StageTimer:
             finally:
                 self.add(name, time.perf_counter() - t0)
 
-    def span(self, name: str, frame: Optional[int] = None) -> _Span:
+    def span(self, name: str, frame: Optional[int] = None, **named) -> _Span:
         """Time the enclosed host work: its seconds go into
         ``totals[name]`` and one call into ``counts[name]``, where
         ``name`` is ``<parent>.<name>`` inside another span of this
         timer.  ``frame``
         makes it a frame's span: the profiler's range takes the frame
-        index as its argument, and its children keep their own names."""
+        index as its argument, and its children keep their own names.
+        Keyword arguments (strings or numbers: ``encoder=``,
+        ``bucket=``) become the profiler range's named arguments."""
         spans = _OPEN.spans
         if spans and spans[-1].timer is self:
             name = spans[-1].prefix + name
         if frame is None:
-            return _Span(self, name, name + ".", (), spans)
-        return _Span(self, name, "", (frame,), spans)
+            return _Span(self, name, name + ".", (), spans, named)
+        return _Span(self, name, "", (frame,), spans, named)
 
     def resolve(self, wait: bool = True) -> None:
         """Fold recorded CUDA event pairs into the totals, in the order

@@ -103,19 +103,28 @@ def launch_counters():
     return k1, k2, k3
 
 
+def _counters():
+    """(module, attribute) of each launch count a replay adds to: K1's,
+    K2's and K3's launches, then the launches of K3's PReLU route (counted
+    in K3's too)."""
+    k1, k2, k3 = launch_counters()
+    return (k1, "launches"), (k2, "launches"), (k3, "launches"), (k3, "prelu_launches")
+
+
 def launch_counts() -> Tuple[int, ...]:
-    return tuple(k.launches for k in launch_counters())
+    return tuple(getattr(k, name) for k, name in _counters())
 
 
 def set_launch_counts(counts: Sequence[int]) -> None:
-    for k, n in zip(launch_counters(), counts):
-        k.launches = n
+    for (k, name), n in zip(_counters(), counts):
+        setattr(k, name, n)
 
 
 def count_replayed(per_replay: Sequence[int]) -> None:
-    """Add the launches of each kernel that one replay of a graph makes."""
-    for k, n in zip(launch_counters(), per_replay):
-        k.count_replayed(n)
+    """Add the launches of each kernel (and of K3's PReLU route) that one
+    replay of a graph makes."""
+    for (k, name), n in zip(_counters(), per_replay):
+        setattr(k, name, getattr(k, name) + n)
 
 
 def warm_up(fn: Callable, inputs: Sequence[torch.Tensor], state: Sequence[torch.Tensor] = (),
@@ -221,7 +230,7 @@ class CapturedCall:
                 self.graph = torch.cuda.CUDAGraph()
                 out = self._capture(fn, pool)
                 self.outputs = tuple(out) if isinstance(out, (tuple, list)) else (out,)
-                # K1's, K2's and K3's launches in one replay
+                # K1's, K2's and K3's launches (and K3's PReLU route's) in one replay
                 self.launches_per_replay = tuple(
                     a - b for a, b in zip(launch_counts(), before))
                 self.capture_s = time.perf_counter() - t0

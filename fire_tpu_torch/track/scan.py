@@ -74,7 +74,7 @@ STATS = ("jv_frames", "predicted", "updated", "dijkstra_steps", "greedy_rounds",
          "cyc_update", "cyc_emit", "cyc_total")
 
 # Launch count: one per call that launches the kernel, and one per replay of
-# a CUDA graph that holds a launch (count_replayed); nowhere else.
+# a CUDA graph that holds a launch (runtime/graphs.py count_replayed); nowhere else.
 launches = 0
 # nvcc's output of the last build (ptxas register / spill report).
 build_log = ""
@@ -455,10 +455,3 @@ def track_scan(table: TrackTable, ident: IdentityState, boxes: torch.Tensor, mas
 def reset_launches() -> None:
     global launches
     launches = 0
-
-
-def count_replayed(n: int) -> None:
-    """Add the ``n`` launches of this kernel that one replay of a CUDA
-    graph makes (capturing a launch counts nothing: it runs at replay)."""
-    global launches
-    launches += n

@@ -14,13 +14,15 @@ machine with the card has neither ``flax``, ``msgpack`` nor
   ``bfloat16`` leaves are decoded by hand (uint16 shifted left by 16,
   viewed as float32 — exact).
 * :func:`from_flax_yunet` / :func:`from_flax_blazeface` /
-  :func:`from_flax_facenet` — the numpy tree
+  :func:`from_flax_facenet` / :func:`from_flax_iresnet` — the numpy tree
   to a torch state_dict for :mod:`fire_tpu_torch.models`: HWIO conv
   kernels become OIHW (a depthwise ``(3,3,1,f)`` becomes ``(f,1,3,3)``
   by the same transpose), Dense ``(in,out)`` becomes Linear ``(out,in)``,
   BatchNorm ``scale/bias/mean/var`` become ``weight/bias/running_mean/
-  running_var``.  FaceNet's BatchNorms have ``use_scale=False``; their
-  weight is 1.  Any leaf the mapping does not consume raises, and
+  running_var``, a PReLU's ``negative_slope`` keeps its name.  FaceNet's
+  BatchNorms have ``use_scale=False``; their weight is 1.  IResNet's
+  have scales (:func:`from_flax_iresnet`).  Any leaf the mapping does
+  not consume raises, and
   :func:`load_into` loads strictly, so a missing or surplus tensor
   raises too.  :func:`from_flax_retinaface` does the same for RetinaFace.
 * :func:`flax_shapes` / :func:`to_flax` — the inverse direction: a
@@ -51,7 +53,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from fire_tpu_torch.models.layers import BatchNorm
+from fire_tpu_torch.models.layers import BatchNorm, PReLU
 
 # ---------------------------------------------------------------- msgpack --
 
@@ -380,7 +382,8 @@ def _flax_layout(module: torch.nn.Module, unit_bn_scale: bool = False):
     kernel, a BatchNorm's weight and bias are ``params`` ``scale`` (none
     where it has no scale, as FaceNet's, or with ``unit_bn_scale``) and
     ``bias`` and its running statistics ``batch_stats`` ``mean`` and
-    ``var``.  A module holding tensors of any other kind raises."""
+    ``var``, a PReLU's slope ``params`` ``negative_slope``.  A module
+    holding tensors of any other kind raises."""
     for name, mod in module.named_modules():
         path = tuple(name.split(".")) if name else ()
         own = dict(mod.named_parameters(recurse=False))
@@ -395,6 +398,9 @@ def _flax_layout(module: torch.nn.Module, unit_bn_scale: bool = False):
             yield "params", path + ("bias",), mod.bias
             yield "batch_stats", path + ("mean",), mod.running_mean
             yield "batch_stats", path + ("var",), mod.running_var
+            continue
+        elif isinstance(mod, PReLU):
+            yield "params", path + ("negative_slope",), mod.negative_slope
             continue
         elif own:
             raise ValueError(f"no Flax counterpart for {type(mod).__name__} {name}")
@@ -502,6 +508,7 @@ _LEAF = {
     ("params", "scale"): "weight",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
+    ("params", "negative_slope"): "negative_slope",
 }
 
 
@@ -563,6 +570,13 @@ def from_flax_facenet(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """FaceNet variables → state_dict of
     :class:`fire_tpu_torch.models.facenet.FaceNet` (BN weight = 1)."""
     return _convert(tree, unit_bn_scale=True)
+
+
+def from_flax_iresnet(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """IResNet variables (``{"params", "batch_stats"}``) → state_dict of
+    :class:`fire_tpu_torch.models.iresnet.IResNet`: every BatchNorm with
+    its scale, each PReLU's ``negative_slope``."""
+    return _convert(tree, unit_bn_scale=False)
 
 
 def load_into(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:

@@ -355,6 +355,8 @@ def test_launch_plan(rows, c):
 
 
 def test_graphs_count_k3_with_k1_and_k2():
+    """A replay adds K1's, K2's and K3's launches, then those of K3's
+    PReLU route (counted in K3's too: 153 and 50 an IResNet-100 encode)."""
     from fire_tpu_torch.ops import cosine_top1 as k1
     from fire_tpu_torch.track import scan as k2
 
@@ -362,7 +364,11 @@ def test_graphs_count_k3_with_k1_and_k2():
     before = graphs.launch_counts()
     try:
         graphs.count_replayed((0, 0, 68))
-        assert graphs.launch_counts() == (before[0], before[1], before[2] + 68)
+        assert graphs.launch_counts() == (before[0], before[1], before[2] + 68, before[3])
+        graphs.count_replayed((0, 0, 153, 50))
+        assert graphs.launch_counts() == (before[0], before[1], before[2] + 221,
+                                          before[3] + 50)
+        assert (bn_act.launches, bn_act.prelu_launches) == (before[2] + 221, before[3] + 50)
     finally:
         graphs.set_launch_counts(before)
     assert graphs.launch_counts() == before

@@ -1,5 +1,5 @@
-"""Kernel K3 on the card: inference BatchNorm, ReLU and residual in one
-bf16 pass, against its plain version.
+"""Kernel K3 on the card: inference BatchNorm, ReLU or PReLU and
+residual in one bf16 pass, against its plain version.
 
 Needs an NVIDIA card and nvcc, and skips without them.  This file
 imports no JAX, so it runs on the machine with the card, where
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from fire_tpu_torch.models.facenet import facenet_512
+from fire_tpu_torch.models.iresnet import iresnet100
 from fire_tpu_torch.models.layers import BatchNorm
 from fire_tpu_torch.models.retinaface import RetinaFace
 from fire_tpu_torch.models.yunet import YuNet
@@ -50,16 +51,19 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int16)
 
 
-def _check(shape, relu: bool, residual: bool, use_scale: bool = True, eps: float = 1e-5):
+def _check(shape, relu: bool, residual: bool, use_scale: bool = True, eps: float = 1e-5,
+           prelu: bool = False):
     gen = torch.Generator().manual_seed(sum(shape) + 2 * relu + residual)
     x = _input(shape, gen)
     r = _input(shape, gen) if residual else None
     params = _params(shape[1], gen, use_scale)
-    before = bn_act.launches
-    got = bn_act.bn_act(x, *params, eps, r, relu)
+    slope = (0.25 + 0.1 * torch.randn(shape[1], generator=gen)).cuda() if prelu else None
+    before, before_prelu = bn_act.launches, bn_act.prelu_launches
+    got = bn_act.bn_act(x, *params, eps, r, relu, slope)
     torch.cuda.synchronize()
     assert bn_act.launches == before + 1
-    want = bn_act.plain_bn_act(x, *params, eps, r, relu)
+    assert bn_act.prelu_launches == before_prelu + prelu
+    want = bn_act.plain_bn_act(x, *params, eps, r, relu, slope)
     assert got.shape == x.shape and got.stride() == x.stride()
     differ = int((_bits(got) != _bits(want)).sum())
     assert differ == 0, f"{differ} of {x.numel()} bf16 values differ from the plain version"
@@ -83,6 +87,47 @@ SHAPES = [(1, 64, 256, 256), (1, 256, 128, 128), (1, 2048, 16, 16), (1, 64, 64, 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain_on_card(shape, relu, residual):
     _check(shape, relu, residual)
+
+
+# IResNet-100 at 112²: the PReLU route at the stem and a layer-3 block's
+# bn2, a layer-2 block's bn2 at four faces; rows × C, and a channel count
+# that is not a multiple of 8; a layer-1 block's bn3 (the shortcut added,
+# no activation: the residual route) at four faces (PERF.md's rows)
+PRELU_SHAPES = [((1, 64, 112, 112), True), ((1, 256, 14, 14), True), ((4, 128, 28, 28), True),
+                ((8, 512), True), ((2, 10, 33, 31), True), ((4, 64, 56, 56), False)]
+
+
+@pytest.mark.usefixtures("cuda_device")
+@pytest.mark.parametrize("shape,prelu", PRELU_SHAPES,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else
+                         ("prelu" if v else "residual"))
+def test_prelu_route_matches_plain_on_card(shape, prelu):
+    _check(shape, relu=False, residual=not prelu, prelu=prelu)
+
+
+@pytest.mark.usefixtures("cuda_device")
+def test_prelu_route_takes_no_residual():
+    x = torch.ones((4, 8), dtype=torch.bfloat16, device="cuda")
+    c = torch.ones(8, device="cuda")
+    before = bn_act.launches
+    with pytest.raises(ValueError, match="alone"):
+        bn_act.bn_act(x, c, c, c, c, 1e-5, x, slope=c)
+    assert bn_act.launches == before
+
+
+@pytest.mark.usefixtures("cuda_device")
+def test_prelu_route_keeps_nan_and_signed_zero():
+    """``y <= 0 ? slope · y : y``: a NaN passes as it is, −0 and +0 both
+    go through the product, as in the plain version."""
+    x = torch.tensor([[float("nan"), -0.0, 0.0, -1.5, 2.0, float("-inf"), 1e-30, -3.0]],
+                     dtype=torch.bfloat16, device="cuda").repeat(4, 1)
+    c = x.shape[1]
+    zeros, ones = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+    slope = torch.linspace(-0.5, 0.75, c, device="cuda")
+    got = bn_act.bn_act(x, zeros, ones, ones, zeros, 0.0, slope=slope)
+    want = bn_act.plain_bn_act(x, zeros, ones, ones, zeros, 0.0, slope=slope)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.isnan(got[:, 0]).all()
 
 
 @pytest.mark.usefixtures("cuda_device")
@@ -233,3 +278,25 @@ def test_served_networks_run_every_layer_on_k3(name, monkeypatch):
         lambda o: [o])
     for a, b in zip(flat(got), flat(want)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.usefixtures("cuda_device")
+def test_iresnet100_runs_its_batchnorms_on_k3(monkeypatch):
+    """IResNet-100 as the engine places it (bf16, eval, channels-last) at
+    2 × 112²: each of its 153 2-D BatchNorms launches K3 once, the 50
+    before a PReLU on the PReLU route; ``features`` (float32, after the
+    float32 fc) takes the plain route; the outputs equal those with each
+    layer computed by ``plain_bn_act`` bitwise."""
+    model = iresnet100().to("cuda", torch.bfloat16).eval().to(memory_format=torch.channels_last)
+    gen = torch.Generator().manual_seed(12)
+    x = torch.rand((2, 112, 112, 3), generator=gen).cuda()
+    bn_act.reset_launches()
+    with torch.no_grad():
+        got = model(x)
+    torch.cuda.synchronize()
+    assert (bn_act.launches, bn_act.prelu_launches) == (153, 50)
+    assert got.dtype == torch.float32 and got.shape == (2, 512)
+    monkeypatch.setattr(bn_act, "bn_act", bn_act.plain_bn_act)
+    with torch.no_grad():
+        want = model(x)
+    assert torch.equal(got, want)

@@ -40,11 +40,18 @@ def test_parser_has_the_same_flags_plus_device():
     assert T["device"].default == "cuda" and T["device"].option_strings == ["--device"]
 
 
+# choices the port has beyond JAX's: encoders only the port serves
+PORT_ONLY_CHOICES = {"encoder": ["iresnet100"]}
+
+
 @pytest.mark.parametrize("dest", sorted(J))
 def test_parser_flag_equals_jax(dest):
     j, t = J[dest], T[dest]
     for field in ("option_strings", "choices", "default", "nargs", "type", "const", "required"):
-        assert getattr(t, field) == getattr(j, field), (dest, field)
+        want = getattr(j, field)
+        if field == "choices" and dest in PORT_ONLY_CHOICES:
+            want = list(want) + PORT_ONLY_CHOICES[dest]
+        assert getattr(t, field) == want, (dest, field)
     assert type(t).__name__ == type(j).__name__  # store / store_true / store_false
 
 
@@ -296,3 +303,42 @@ def test_python_dash_m_entry_point():
         finally:
             sys.argv = old
     assert e.value.code == 0
+
+
+def test_encoder_iresnet100_warns_without_weights(monkeypatch, caplog, tmp_path):
+    """``--encoder iresnet100`` asks the recognizer for that encoder and
+    nothing else (the recognizer takes its 112² crops from the encoder)
+    and warns that its encoder is the random init unless ``--trained``
+    gives weights (none is committed).  The recognizer is stood in for:
+    the full network is not built here."""
+    import logging
+    from types import SimpleNamespace
+
+    made = []
+
+    class Stand:
+        def __init__(self, **kw):
+            made.append(kw)
+            source = "trained:x" if kw.get("trained_encoder") else "random-init"
+            self.engine = SimpleNamespace(weight_source={"detector": "trained:y",
+                                                         "encoder": source})
+            self.cfg = SimpleNamespace(encoder_model_type=kw["encoder_model_type"])
+
+        def process_image(self, **kw):
+            pass
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(cli, "FaceRecognition", Stand)
+    argv = ["--mode", "image", "--input", str(tmp_path / "x.bmp"), "--detector", "yunet",
+            "--encoder", "iresnet100", "--device", "cpu", "--no_default_weights"]
+    with caplog.at_level(logging.WARNING, logger=cli.log.name):
+        cli.main(argv)
+    assert made[-1]["engine_cfg"] is None
+    assert made[-1]["encoder_model_type"] == "iresnet100"
+    assert "RANDOM-INIT" in caplog.text
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger=cli.log.name):
+        cli.main(argv + ["--trained", str(tmp_path / "w.msgpack")])
+    assert "RANDOM-INIT" not in caplog.text

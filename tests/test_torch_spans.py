@@ -169,6 +169,9 @@ def test_recognize_faces_spans_tile_the_frame(tmp_path, interval, sharded):
     # two waits a query (ids and sims); the first new face meets an empty gallery
     assert c["match.readback"] == 2 * (c["match"] - 1) > 0
     assert c["encoding.readback"] >= c["encoding"] > 0
+    # the encoder's counters are the timer's counters, not spans
+    assert set(fr.timer.counters) == {"encoding.rows", "encoding.padded"}
+    assert fr.timer.counters["encoding.rows"] >= c["encoding"]
     assert c["labels.enrol"] >= fr.counters["unknown_enrolled"] > 0
     assert sum(t[k] for k in TOP) <= t["frame"]
     for k in TOP:
